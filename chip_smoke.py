@@ -16,10 +16,12 @@ of float64 — the script:
    with the ``error`` slug;
 4. holds every distinct claimed block's kernel against its plain torch
    version on the block's own CUDA inputs (same tolerance);
-5. times the program's largest block (most elements x ops): kernel (CUDA
-   events, median of 10) against its plain version and against its bound —
-   the larger of the bytes it must move over the H100's 3.35e12 B/s and
-   its elementwise operations over the peak rate of their type.
+5. times the program's largest block (most elements x ops): the kernel
+   (its launches captured once in a CUDA graph with the arguments bound
+   beforehand, so no host work is timed) against its plain version, each
+   by CUDA events around back-to-back calls, median of 10, and against its
+   bound — the larger of the bytes it must move over the H100's 3.35e12
+   B/s and its arithmetic operations over the non-FMA rate of their type.
 
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line, the card's name and power limit, and last
@@ -41,9 +43,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate (data sheet)
-#: peak non-tensor-core rates of an H100 SXM by operand type (data sheet:
-#: FP64 34 TFLOP/s, FP32 67 TFLOP/s)
-PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
+#: peak non-tensor-core operation rates of an H100 SXM by type.  The data
+#: sheet's FP64 34 and FP32 67 TFLOP/s count an FMA as two operations; the
+#: kernels launch with FMA contraction off, so one operation issues per
+#: lane and cycle: half those rates.  Other types take the float32 rate.
+PEAK_OPS_PER_S = {"float64": 17e12, "float32": 33.5e12}
 TOL = dict(rtol=1e-9, atol=1e-9)
 #: programs whose every op is correctly rounded and whose reductions (if
 #: any) sum exact integers: the fused kernel must match the floor bit for bit
@@ -52,20 +56,35 @@ EXACT = {"game_of_life", "heat_equation", "sor", "water_ice", "shallow_water",
          "lattice_boltzmann", "monte_carlo_pi"}
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), after
-    one warm-up run."""
+def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``burst``
+    back-to-back calls, divided by ``burst``; the median of ``reps`` such
+    samples, after one warm-up call."""
     fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / burst)
     return statistics.median(times)
+
+
+def kernel_ms(kernel, store, rvals, device) -> float:
+    """Device time of one launch of a block's kernel and its combine
+    passes: arguments bound first, the launches captured in a CUDA graph,
+    and the graph replayed under :func:`cuda_ms`."""
+    run, _ = kernel.prepare(store, rvals, device)
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return cuda_ms(graph.replay)
 
 
 def max_err(got, want) -> float:
@@ -164,7 +183,7 @@ def hold_blocks(name: str, calls: dict, codegen) -> dict:
     store = dict(zip(kernel.plan.inputs, bufs))
     dev = bufs[0].device if bufs else torch.device("cuda")
     rvals = kernel.draw_random(salts, dev)
-    ms = cuda_ms(lambda: kernel.launch(store, rvals, dev))
+    ms = kernel_ms(kernel, store, rvals, dev)
     plain_ms = cuda_ms(lambda: codegen.plain_slots(kernel.plan, store, rvals,
                                                    dev))
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,

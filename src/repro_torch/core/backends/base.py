@@ -12,13 +12,10 @@ backend runs it:
 1. every backend in the policy's preference-ordered candidate list is asked
    whether it *claims* the block (``claims`` returns ``None``, or a stable
    reason slug explaining why it cannot express the block);
-2. among the claimants, each backend reports how many executable
-   *dispatches* the block will cost on it (the torch floor reports 2 for
-   blocks the Triton generator cannot express as one kernel — the same
-   DEL-insensitive analysis the ``gpu`` cost model prices);
-3. the cost model converts dispatch counts into a price
-   (``CostModel.dispatch_price``) and the cheapest claimant wins, with ties
-   broken by the policy's preference order.
+2. the first claimant in preference order wins.  (The reference also
+   prices claimants per dispatch; with one fused-block generator and the
+   floor that pricing is always a tie, so it waits for loop fusion and the
+   calibrated cost model.)
 
 The decision is recorded on the ``BlockPlan`` (and in the merge cache), so
 steady-state flushes skip both partitioning and backend probing, and the
@@ -84,9 +81,9 @@ class LoweringPolicy:
 class LoweringBackend:
     """One way to lower a fusion block to an executable.
 
-    Subclasses override :meth:`claims` and :meth:`build`; ``dispatches``
-    defaults to one.  Register instances with :func:`register_backend`; the
-    built-ins (``torch``, ``triton``) self-register on package import.
+    Subclasses override :meth:`claims` and :meth:`build`.  Register
+    instances with :func:`register_backend`; the built-ins (``torch``,
+    ``triton``) self-register on package import.
     """
 
     #: registry name, also the stats key (``stats["backend_blocks"][name]``)
@@ -97,11 +94,6 @@ class LoweringBackend:
         reason slug (feeds per-backend fallback stats).  Must be a pure
         metadata check."""
         raise NotImplementedError
-
-    def dispatches(self, ops: Sequence, plan, ctx: LoweringContext) -> int:
-        """How many executable dispatches the block costs on this backend —
-        the quantity the cost model prices during selection."""
-        return 1
 
     def build(self, ops: Sequence, plan, ctx: LoweringContext):
         """Build the block: returns ``fn(*input_bufs, salts) ->
@@ -120,9 +112,9 @@ _ANALYSIS_MEMO_CAP = 4096
 def codegen_lower_reason(ops: Sequence, plan) -> Optional[str]:
     """Memoized ``codegen.block_lower_reason`` keyed on the plan's canonical
     structural signature (the analysis is purely structural, so the
-    signature is its exact identity).  Both the ``triton`` backend's claim
-    and the ``torch`` floor's dispatch count consult this analysis during
-    one selection — the memo makes the second (and any later) lookup free."""
+    signature is its exact identity).  The ``triton`` backend's claim
+    consults it for every work block the merge cache has not seen; blocks
+    that recur across tapes then cost one dict lookup."""
     key = getattr(plan, "signature", None)
     if key is not None and key in _ANALYSIS_MEMO:
         _ANALYSIS_MEMO.move_to_end(key)
@@ -175,54 +167,17 @@ def available_backends() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 def select_lowering(ops: Sequence, plan, backends: Sequence[str],
-                    ctx: LoweringContext,
-                    cost_model=None, amortize: int = 1) -> LoweringDecision:
-    """Pick the backend that runs one block.
-
-    ``backends`` is the preference-ordered candidate list.  Each candidate
-    is asked to claim the block; claimants are priced through
-    ``cost_model.lowering_price(n_dispatches, ext_bytes, backend=name)``
-    (the raw dispatch count when no model is given) and the cheapest wins,
-    preference order breaking ties.  For analytic models the price reduces
-    to ``dispatch_price`` — external bytes move at one assumed bandwidth
-    regardless of backend, so the byte term cancels from the comparison.
-    ``amortize`` is the reference's unroll factor for fused loop bodies
-    (1 here: loop fusion is not ported yet).  Returns a :class:`LoweringDecision` whose ``declined`` tuple
-    keeps the reasons of every backend preferred over the winner."""
-    order = {n: i for i, n in enumerate(backends)}
+                    ctx: LoweringContext) -> LoweringDecision:
+    """Pick the backend that runs one block: the first of the
+    preference-ordered ``backends`` that claims it.  Returns a
+    :class:`LoweringDecision` whose ``declined`` tuple keeps the reasons of
+    every backend preferred over the winner."""
     declined = []
-    claimants = []
     for name in backends:
-        be = get_backend(name)
-        reason = be.claims(ops, plan, ctx)
+        reason = get_backend(name).claims(ops, plan, ctx)
         if reason is None:
-            claimants.append(be)
-        else:
-            declined.append((name, reason))
-    if not claimants:
-        raise RuntimeError(
-            f"no backend claims block {plan.op_indices!r} "
-            f"(candidates {tuple(backends)}, reasons {declined})")
-    if len(claimants) == 1:
-        best = claimants[0]
-    else:
-        ext_bytes = 0.0
-        if cost_model is not None:
-            from ..cost import CostModel
-            if type(cost_model).lowering_price is not CostModel.lowering_price:
-                # only models that actually price bytes per backend pay for
-                # the block summary; for analytic models the byte term
-                # cancels out of the comparison anyway
-                from ..blocks import BlockInfo
-                ext_bytes = float(BlockInfo.from_ops(ops).ext_size("bytes"))
-
-        def price(be: LoweringBackend) -> float:
-            n = be.dispatches(ops, plan, ctx)
-            return (cost_model.lowering_price(n, ext_bytes, backend=be.name,
-                                              amortize=amortize)
-                    if cost_model is not None else float(n))
-        best = min(claimants, key=lambda be: (price(be), order[be.name]))
-    cut = order[best.name]
-    return LoweringDecision(
-        backend=best.name,
-        declined=tuple((n, r) for n, r in declined if order[n] < cut))
+            return LoweringDecision(backend=name, declined=tuple(declined))
+        declined.append((name, reason))
+    raise RuntimeError(
+        f"no backend claims block {plan.op_indices!r} "
+        f"(candidates {tuple(backends)}, reasons {declined})")

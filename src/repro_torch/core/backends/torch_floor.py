@@ -6,17 +6,16 @@ with every view lowered to a reshape/slice, a strided view or an index
 gather.  It claims every block, so it is the terminal fallback of every
 policy.
 
-Its ``dispatches`` answer keeps the reference's cost alignment: a block the
-Triton generator cannot express as ONE kernel is priced at 2 dispatches —
-the ``_KernelAlignment`` pricing of the ``gpu`` cost model — so the lower
-stage's backend comparison and the partitioner's merge pricing agree.
+A block the Triton generator cannot express as ONE kernel runs here; the
+``gpu`` cost model prices such a block at 2 dispatches
+(``cost._KernelAlignment``, the reference's rule for its XLA floor).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from .base import LoweringBackend, LoweringContext, codegen_lower_reason
+from .base import LoweringBackend, LoweringContext
 
 
 class TorchFloorBackend(LoweringBackend):
@@ -24,9 +23,6 @@ class TorchFloorBackend(LoweringBackend):
 
     def claims(self, ops: Sequence, plan, ctx: LoweringContext) -> Optional[str]:
         return None                      # the floor expresses every block
-
-    def dispatches(self, ops: Sequence, plan, ctx: LoweringContext) -> int:
-        return 1 if codegen_lower_reason(ops, plan) is None else 2
 
     def build(self, ops: Sequence, plan, ctx: LoweringContext):
         from ..executor import make_block_fn

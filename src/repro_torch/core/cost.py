@@ -72,32 +72,6 @@ class CostModel:
         merged = b1.merged_with(b2)
         return self.block_cost(b1) + self.block_cost(b2) - self.block_cost(merged)
 
-    def dispatch_price(self, n_dispatches: int,
-                       backend: Optional[str] = None,
-                       amortize: int = 1) -> float:
-        """Price of ``n`` executable dispatches for one block — the
-        per-backend term the scheduler's lower stage minimizes when picking
-        a block's lowering backend (DESIGN.md §14).  Models with a
-        ``launch_s`` term (``gpu``) price dispatches in seconds, matching
-        their partition-time ``_KernelAlignment`` pricing; abstract models
-        price the dispatch count itself.  ``backend`` and ``amortize`` are
-        the reference's hooks for calibrated prices and fused loops; the
-        analytic models ported here ignore the first and divide by the
-        second."""
-        return (getattr(self, "launch_s", 1.0) * float(n_dispatches)
-                / max(1, amortize))
-
-    def lowering_price(self, n_dispatches: int, ext_bytes: float,
-                       backend: Optional[str] = None,
-                       amortize: int = 1) -> float:
-        """Full per-backend price of running one block on ``backend`` — what
-        ``select_lowering`` minimizes.  For the analytic models it is just
-        :meth:`dispatch_price`: every backend moves the same external bytes
-        at the same assumed bandwidth, so the byte term cancels out of the
-        comparison."""
-        return self.dispatch_price(n_dispatches, backend=backend,
-                                   amortize=amortize)
-
 
 class BohriumCost(CostModel):
     """Def. 13: sum over blocks of unique external accesses ``||ext[B]||``.

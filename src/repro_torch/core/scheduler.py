@@ -30,7 +30,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .algorithms import PartitionResult, partition
 from .backends import LoweringDecision, LoweringPolicy, select_lowering
 from .cache import MergeCache, block_signature, tape_signature
-from .cost import make_cost_model
 from .executor import block_io
 from .ir import Op
 from .obs import trace
@@ -80,18 +79,15 @@ def plan_blocks(tape: Sequence[Op],
 
 
 def lower_plans(tape: Sequence[Op], plans: Sequence[BlockPlan],
-                policy: LoweringPolicy,
-                cost_model) -> Tuple[Optional[LoweringDecision], ...]:
-    """Stage 5: decide, per work block, which backend runs it.
-
-    For each plan the policy's candidate backends are asked to claim the
-    block; claimants are priced via ``cost_model.dispatch_price`` over
-    their dispatch counts and the cheapest wins (preference order breaking
-    ties) — see ``backends.select_lowering``.  Returns one decision per
-    plan (``None`` for DEL/SYNC-only blocks), aligned with ``plans``."""
+                policy: LoweringPolicy
+                ) -> Tuple[Optional[LoweringDecision], ...]:
+    """Stage 5: decide, per work block, which backend runs it — the first
+    of the policy's candidate backends that claims the block (see
+    ``backends.select_lowering``).  Returns one decision per plan (``None``
+    for DEL/SYNC-only blocks), aligned with ``plans``."""
     return tuple(
         select_lowering([tape[i] for i in p.op_indices], p,
-                        policy.backends, policy.ctx, cost_model)
+                        policy.backends, policy.ctx)
         if p.has_work else None
         for p in plans)
 
@@ -150,8 +146,7 @@ class Scheduler:
             t0 = time.perf_counter()
             with trace.span("stage.lower", cached=decisions is not None):
                 if decisions is None:
-                    decisions = lower_plans(tape, plans, lowering,
-                                            make_cost_model(cost_model))
+                    decisions = lower_plans(tape, plans, lowering)
                 plans = [replace(p, lowering=d) if d is not None else p
                          for p, d in zip(plans, decisions)]
             stats["t_lower_s"] = time.perf_counter() - t0

@@ -1053,6 +1053,16 @@ class FusedBlockKernel:
                device: torch.device) -> List[Optional[torch.Tensor]]:
         """Run the generated kernel (and its combine passes) on CUDA
         tensors; returns the live slots."""
+        run, slots = self.prepare(store, rvals, device)
+        run()
+        LAUNCHES["fused_block"] += 1
+        return slots
+
+    def prepare(self, store: Dict[int, torch.Tensor], rvals,
+                device: torch.device):
+        """Build the kernel if needed, allocate the output slots and bind
+        the arguments.  Returns ``(run, slots)``: ``run()`` launches the
+        kernel and its combine passes (nothing else) and fills ``slots``."""
         p = self.plan
         if self._gen is None:
             source, kf, ki, combines = triton_source(p)
@@ -1084,14 +1094,18 @@ class FusedBlockKernel:
                 partial[j] = torch.empty(p.G * W, dtype=dt, device=device)
                 slots[j] = torch.empty(W, dtype=dt, device=device)
             args.append(partial.get(j, slots[j]))
-        mod.block_kernel[(p.G,)](*args, *consts, num_warps=NUM_WARPS,
-                                 enable_fp_fusion=False)
-        for cname, slot, W, WB, *_ in combines:
-            getattr(mod, cname)[(-(-W // WB),)](
-                partial[slot], slots[slot], *consts, num_warps=NUM_WARPS,
-                enable_fp_fusion=False)
-        LAUNCHES["fused_block"] += 1
-        return slots
+        passes = [(getattr(mod, cname), (-(-W // WB),),
+                   (partial[slot], slots[slot]))
+                  for cname, slot, W, WB, *_ in combines]
+
+        def run():
+            mod.block_kernel[(p.G,)](*args, *consts, num_warps=NUM_WARPS,
+                                     enable_fp_fusion=False)
+            for fn, grid, bufs in passes:
+                fn[grid](*bufs, *consts, num_warps=NUM_WARPS,
+                         enable_fp_fusion=False)
+
+        return run, slots
 
 
 def build_block_kernel(ops: Sequence[Op], *, seed: int = 0,
@@ -1110,17 +1124,20 @@ def build_block_kernel(ops: Sequence[Op], *, seed: int = 0,
 
 
 def block_bytes(plan: _Plan) -> int:
-    """Bytes one call of the block must move at least: each external input
-    view's elements read once (at most its whole base), each live output
-    written once — the numerator of the kernel's bound."""
+    """Bytes one kernel launch must move at least: each external input
+    view's elements read once (at most its whole base), each ``random``
+    operand (drawn by the torch prologue into device memory) read once, and
+    each live output written once — the numerator of the kernel's bound."""
     reads: Dict[int, Dict[Tuple, int]] = {}
-    for o in plan.operands:
-        if o.source != "buffer":
-            continue
-        size, dt = plan.base_meta[o.base_uid]
-        reads.setdefault(o.base_uid, {})[o.key[2:]] = \
-            o.core.size * np.dtype(dt).itemsize
     total = 0
+    for o in plan.operands:
+        if o.source == "random":
+            shape, dt = plan.rand_shapes[o.rand_pos]
+            total += math.prod(shape) * np.dtype(dt).itemsize
+        elif o.source == "buffer":
+            size, dt = plan.base_meta[o.base_uid]
+            reads.setdefault(o.base_uid, {})[o.key[2:]] = \
+                o.core.size * np.dtype(dt).itemsize
     for u, views in reads.items():
         size, dt = plan.base_meta[u]
         total += min(size * np.dtype(dt).itemsize, sum(views.values()))
@@ -1132,12 +1149,26 @@ def block_bytes(plan: _Plan) -> int:
     return total
 
 
+#: nodes that only move data: no arithmetic to count
+_LOAD_ONLY = {"copy", "random", "gather"}
+
+
 def block_ops(plan: _Plan) -> Dict[str, int]:
-    """Elementwise operations of one call by compute type: every work node
-    is one operation per domain element (a transcendental function counts
-    as one, so this is a floor)."""
+    """Arithmetic operations of one launch by compute type: every node that
+    computes (not a load-only ``copy``, ``random`` or ``gather``) is one
+    operation per domain element, in the widest type among its operands and
+    result (a transcendental function counts as one, so this is a floor)."""
+    dts = _operand_dtypes(plan)
     out: Dict[str, int] = {}
     for node in plan.nodes:
-        name = np.dtype(node.out_dtype).name
+        if node.opcode in _LOAD_ONLY:
+            continue
+        types = [np.dtype(node.out_dtype)]
+        for kind, x in node.terms:
+            if kind == "op":
+                types.append(dts[x])
+            elif kind == "val":
+                types.append(np.dtype(plan.nodes[x].out_dtype))
+        name = np.result_type(*types).name
         out[name] = out.get(name, 0) + plan.N
     return out

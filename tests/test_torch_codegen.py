@@ -354,3 +354,38 @@ def test_facades_and_unfused_oracle_agree():
     for got in (fn(*bufs), reference_block(ops, *bufs)):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# what a launch must move and compute (the numerators of its bound)
+# ---------------------------------------------------------------------------
+
+def test_block_bytes_and_ops_count_what_the_kernel_touches():
+    from repro_torch.core import ir as pir
+    n = 700
+    I, R, O = (pir.BaseArray(n, np.dtype(np.float64)) for _ in range(3))
+    vi, vr, vo = (pir.View.contiguous(x, (n,)) for x in (I, R, O))
+    ops = [
+        pir.Op("range", vi, (), new_bases=frozenset({I})),
+        pir.Op("random", vr, (), new_bases=frozenset({R})),
+        pir.Op("mod", vo, (vi, 2.0), new_bases=frozenset({O})),
+        pir.Op("mul", vo, (vo, vr)),
+        pir.Op("del", None, del_bases=frozenset({I})),
+        pir.Op("del", None, del_bases=frozenset({R})),
+    ]
+    plan = codegen._analyze(ops)
+    # the drawn values are read once from device memory, O written once
+    assert codegen.block_bytes(plan) == 2 * n * 8
+    # range, mod and mul compute; random only loads
+    assert codegen.block_ops(plan) == {"float64": 3 * n}
+
+    A, B, C = (pir.BaseArray(n, np.dtype(np.float32)) for _ in range(3))
+    va, vb, vc = (pir.View.contiguous(x, (n,)) for x in (A, B, C))
+    ops = [
+        pir.Op("copy", vb, (va,), new_bases=frozenset({B})),
+        pir.Op("greater", vc, (va, vb), new_bases=frozenset({C})),
+    ]
+    plan = codegen._analyze(ops)
+    assert codegen.block_bytes(plan) == 3 * n * 4      # A read once
+    # the comparison runs in its operands' type, not its bool result's
+    assert codegen.block_ops(plan) == {"float32": n}

@@ -101,3 +101,27 @@ def test_module_api_routes_to_the_active_runtime():
         np.testing.assert_array_equal(w.numpy(), np.full((2, 3), 2.0))
         t = bh.take(bh.arange(5) * 2.0, bh.asarray(np.array([4.0, 0.0])))
         np.testing.assert_array_equal(t.numpy(), [8.0, 0.0])
+
+
+def test_lowering_picks_the_first_claimant_in_preference_order():
+    from types import SimpleNamespace
+
+    from repro_torch.core.backends import LoweringContext, select_lowering
+    from repro_torch.core.ir import BaseArray, Op, View
+    n = 16
+    a, b = BaseArray(n, np.dtype(np.float64)), BaseArray(n, np.dtype(np.float64))
+    plan = SimpleNamespace(signature=None, op_indices=(0,))
+    ctx = LoweringContext()
+    fused = [Op("mul", View.contiguous(b, (n,)),
+                (View.contiguous(a, (n,)), 2.0), new_bases=frozenset({b}))]
+    reversed_read = [Op("copy", View.contiguous(b, (n,)),
+                        (View(a, n - 1, (n,), (-1,)),),
+                        new_bases=frozenset({b}))]
+    d = select_lowering(fused, plan, ("triton", "torch"), ctx)
+    assert (d.backend, d.declined) == ("triton", ())
+    d = select_lowering(fused, plan, ("torch", "triton"), ctx)
+    assert (d.backend, d.declined) == ("torch", ())
+    d = select_lowering(reversed_read, plan, ("triton", "torch"), ctx)
+    assert (d.backend, d.declined) == ("torch", (("triton", "irregular_view"),))
+    with pytest.raises(RuntimeError, match="no backend claims"):
+        select_lowering(reversed_read, plan, ("triton",), ctx)
