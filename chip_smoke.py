@@ -23,6 +23,24 @@ of float64 — the script:
    bound — the larger of the bytes it must move over the H100's 3.35e12
    B/s and its arithmetic operations over the non-FMA rate of their type.
 
+Then the LM serving lane (``run_lm``): ``LazyTransformer`` at Qwen1.5-4B's
+published widths (d_model 2560, 20 heads of 128, d_ff 6912, vocab 151936;
+``qkv_bias`` off and float32, as the lazy lane admits, and ``LM_LAYERS`` of
+its 40 layers), random weights from a seeded ``torch.Generator`` on the
+card.  It prefills a batch of 4 prompts of 512 tokens into 1024-deep KV
+caches, decodes 8 greedy tokens and runs one forward pass over 2 x 128
+tokens, with ``backend="lm"`` (the main path: row-replay kernel B2 behind
+the claimants, fused-block kernel B1, torch floor for matmuls and the
+gather), with ``backend="torch"`` and with the direct model, all on the
+lm run's tokens.  It requires logits and KV caches to agree within
+``LM_RTOL`` of their largest magnitude, every flush to claim at least
+2L+1 rmsnorm and 2L softmax blocks with no ``error`` decline, both kernels
+to launch, and every distinct kernel of the run to match its plain
+version; it times the largest B2 block and the largest rmsnorm block
+(against ``torch.nn.functional.rms_norm``), warm prefill and decode per
+token on all three paths, and one decode-step KV-cache window write.
+Float32 matmuls run in full float32 (TF32 off).
+
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1).  The
@@ -54,6 +72,17 @@ TOL = dict(rtol=1e-9, atol=1e-9)
 EXACT = {"game_of_life", "heat_equation", "sor", "water_ice", "shallow_water",
          "gauss_elimination", "lu_factorization", "stencil_27pt",
          "lattice_boltzmann", "monte_carlo_pi"}
+#: the LM lane's run: depth cut from 40 (host planning grows faster than
+#: linearly with the tape), widths as published
+LM_LAYERS = 8
+LM_BATCH, LM_PROMPT, LM_MAX_SEQ, LM_STEPS = 4, 512, 1024, 8
+LM_FORWARD = (2, 128)
+#: lm vs floor vs direct model: logits and caches within this fraction of
+#: their largest magnitude.  float32 row sums over 512-6912 terms run in
+#: other orders on the three paths, compounded over the layers; measured
+#: at most 4.0e-6 on an H100, so this is about 10x that
+LM_RTOL = 5e-5
+F32_EPS = float(np.finfo(np.float32).eps)
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -108,14 +137,14 @@ def check_close(got, want, what: str, exact: bool) -> float:
 
 
 class BlockRecorder:
-    """Remembers, per distinct block signature, the generated kernel and the
-    inputs of its first call (buffers are never written in place, so the
-    tensors stay valid)."""
+    """Remembers, per distinct block signature, the generated kernel (of
+    class ``kernel_cls``) and the inputs of its first call (buffers are
+    never written in place, so the tensors stay valid)."""
 
-    def __init__(self, codegen):
-        self.codegen = codegen
+    def __init__(self, kernel_cls):
+        self.kernel_cls = kernel_cls
         self.calls = {}
-        self._orig = codegen.FusedBlockKernel.__call__
+        self._orig = kernel_cls.__call__
 
     def __enter__(self):
         calls, orig = self.calls, self._orig
@@ -124,11 +153,11 @@ class BlockRecorder:
             calls.setdefault(id(kernel), (kernel, bufs_and_salts))
             return orig(kernel, *bufs_and_salts)
 
-        self.codegen.FusedBlockKernel.__call__ = spy
+        self.kernel_cls.__call__ = spy
         return self
 
     def __exit__(self, *exc):
-        self.codegen.FusedBlockKernel.__call__ = self._orig
+        self.kernel_cls.__call__ = self._orig
 
 
 def run_program(name: str, args, fn, codegen, lazy) -> dict:
@@ -158,38 +187,57 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
     return {"stats": st, "warm_s": warm_s, "err": err, "exact": exact}
 
 
-def hold_blocks(name: str, calls: dict, codegen) -> dict:
-    """Kernel vs plain on every distinct claimed block; times the largest."""
+def time_block(kernel, bufs_and_salts, module) -> dict:
+    """Kernel (CUDA graph) and plain-version device time of one block on
+    its recorded inputs, with its bound: the larger of its bytes over the
+    memory rate and its operations over the rate of their type."""
+    nbytes = module.block_bytes(kernel.plan)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n_ops / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
+                 for dt, n_ops in module.block_ops(kernel.plan).items()) * 1e3
+    *bufs, salts = bufs_and_salts
+    store = dict(zip(kernel.plan.inputs, bufs))
+    dev = bufs[0].device if bufs else torch.device("cuda")
+    rvals = kernel.draw_random(salts, dev)
+    ms = kernel_ms(kernel, store, rvals, dev)
+    plain_ms = cuda_ms(lambda: module.plain_slots(kernel.plan, store, rvals,
+                                                  dev))
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "domain": kernel.plan.domain}
+
+
+def block_size(kernel, module):
+    return (kernel.plan.N * len(kernel.plan.nodes),
+            module.block_bytes(kernel.plan))
+
+
+def hold_blocks(name: str, calls: dict, module, limit=None) -> dict:
+    """Kernel vs plain on every distinct claimed block; times the largest.
+    ``limit(plan, want)`` is the allowed max abs error of one output
+    (``TOL`` when None)."""
     worst = 0.0
     largest = None
     for kernel, bufs_and_salts in calls.values():
         got = kernel(*bufs_and_salts)
         want = kernel.plain(*bufs_and_salts)
         for g, w in zip(got, want):
-            worst = max(worst, check_close(
-                g.cpu().numpy(), w.cpu().numpy(),
-                f"{name}: kernel vs plain on block {kernel.plan.domain}",
-                exact=False))
-        size = (kernel.plan.N * len(kernel.plan.nodes),
-                codegen.block_bytes(kernel.plan))
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+            what = f"{name}: kernel vs plain on block {kernel.plan.domain}"
+            if limit is None:
+                err = check_close(g, w, what, exact=False)
+            else:
+                err = max_err(g, w)
+                if not err <= limit(kernel.plan, w):
+                    raise AssertionError(f"{what}: max err {err}")
+            worst = max(worst, err)
+        size = block_size(kernel, module)
         if largest is None or size > largest[0]:
             largest = (size, kernel, bufs_and_salts)
     _, kernel, bufs_and_salts = largest
-    nbytes = codegen.block_bytes(kernel.plan)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(n_ops / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
-                 for dt, n_ops in codegen.block_ops(kernel.plan).items()) * 1e3
-    *bufs, salts = bufs_and_salts
-    store = dict(zip(kernel.plan.inputs, bufs))
-    dev = bufs[0].device if bufs else torch.device("cuda")
-    rvals = kernel.draw_random(salts, dev)
-    ms = kernel_ms(kernel, store, rvals, dev)
-    plain_ms = cuda_ms(lambda: codegen.plain_slots(kernel.plan, store, rvals,
-                                                   dev))
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "domain": kernel.plan.domain, "n_blocks": len(calls)}
+    return {"max_abs_err": worst, "n_blocks": len(calls),
+            **time_block(kernel, bufs_and_salts, module)}
 
 
 def launch_cost_s(lazy, codegen) -> float:
@@ -214,6 +262,224 @@ def launch_cost_s(lazy, codegen) -> float:
     return (time.perf_counter() - t0) / reps
 
 
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _rel_err(got, want) -> float:
+    """Max abs difference over the largest magnitude of ``want`` (at least
+    1): the measure ``LM_RTOL`` bounds."""
+    got = torch.as_tensor(got, device="cuda")
+    want = torch.as_tensor(want, device="cuda")
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all() or not got.abs().max() > 0:
+        raise AssertionError("non-finite or all-zero values")
+    scale = max(1.0, float(want.abs().max()))
+    return float((got.double() - want.double()).abs().max()) / scale
+
+
+def _sum_limit(plan, want) -> float:
+    """Kernel vs plain on the card: a row sum in another order is off by at
+    most (row length) x eps x its magnitude; everything else is bitwise."""
+    return plan.C * F32_EPS * max(1.0, float(np.abs(want).max()))
+
+
+def _rms_norm_ms(kernel, bufs_and_salts) -> float:
+    """One ``F.rms_norm`` over the rmsnorm block's dense input with its
+    row operand as the weight — the library call for the same output."""
+    import torch.nn.functional as F
+    *bufs, _ = bufs_and_salts
+    store = dict(zip(kernel.plan.inputs, bufs))
+    by_kind = {o.kind: store[o.base_uid] for o in kernel.plan.operands
+               if o.source == "buffer"}
+    d = kernel.plan.C
+    x = by_kind["dense"].reshape(kernel.plan.domain)
+    w = by_kind["row"].reshape(d)
+    return cuda_ms(lambda: F.rms_norm(x, (d,), weight=w, eps=1e-6))
+
+
+def _kv_write_ms(cfg) -> float:
+    """Device time of one decode-step window write into one layer's KV
+    cache buffer (the executor's functional write clones the whole base)."""
+    from repro_torch.core.executor import _write
+    from repro_torch.core.ir import BaseArray, View
+    b, t, h, hd = LM_BATCH, LM_MAX_SEQ, cfg.n_kv_heads, cfg.hd
+    base = BaseArray(b * t * h * hd, np.float32)
+    view = View(base, LM_PROMPT * h * hd, (b, 1, h, hd),
+                (t * h * hd, h * hd, hd, 1))
+    buf = torch.zeros(base.size, device="cuda")
+    val = torch.ones((b, 1, h, hd), device="cuda")
+    return cuda_ms(lambda: _write(buf, view, val))
+
+
+def run_lm(lazy, codegen, rowblock) -> dict:
+    """The LM serving lane at Qwen1.5-4B widths (see the module doc)."""
+    from repro_torch.configs import qwen15_4b
+    from repro_torch.models import transformer as T
+    from repro_torch.models.lazy_transformer import LazyTransformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = qwen15_4b.CONFIG.scaled(qkv_bias=False, dtype="float32",
+                                  n_layers=LM_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen, "cuda")
+    # the reference's init leaves every norm gain at 0, and qwen scales by
+    # the plain gain (no 1+g), which would zero every activation: draw the
+    # gains around 1 so the run computes real values
+    for norm in (params["groups"]["l0"]["norm1"],
+                 params["groups"]["l0"]["norm2"], params["final_norm"]):
+        norm["g"] = 1.0 + 0.1 * torch.randn(norm["g"].shape, generator=gen,
+                                            device="cuda")
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                          dtype=np.int32)
+    fwd_tokens = rng.integers(0, cfg.vocab_size, LM_FORWARD, dtype=np.int32)
+    print(f"LM config {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} qkv_bias={cfg.qkv_bias} dtype={cfg.dtype} "
+          f"batch={LM_BATCH} prompt={LM_PROMPT} max_seq={LM_MAX_SEQ} "
+          f"decode_steps={LM_STEPS} forward={LM_FORWARD}", flush=True)
+
+    def serve(model):
+        """prefill (cold), the decode steps, forward, then a warm prefill;
+        ``model`` is (prefill, decode, forward, caches).  The first run
+        (lm) picks the greedy tokens; the others decode the same ones."""
+        prefill, decode, forward, caches = model
+        out = {"decode": [], "decode_s": []}
+        out["prefill"], out["prefill_cold_s"] = _timed(prefill)
+        for i in range(LM_STEPS):
+            if len(tokens) <= i:
+                last = out["decode"][-1] if out["decode"] else out["prefill"]
+                tokens.append(np.asarray(last).argmax(-1).astype(np.int32))
+            got, dt = _timed(lambda: decode(tokens[i]))
+            out["decode"].append(got)
+            out["decode_s"].append(dt)
+        out["forward"], out["forward_s"] = _timed(forward)
+        out["caches"] = caches()
+        _, out["prefill_warm_s"] = _timed(prefill)
+        return out
+
+    tokens: list = []
+
+    def lazy_model(lt):
+        def caches():
+            return [tuple(lt.rt.buffers[a.view.base.uid].view(a.shape)
+                          for a in kv) for kv in lt.caches]
+        return (lambda: lt.prefill(prompt, LM_MAX_SEQ), lt.decode,
+                lambda: lt.forward(fwd_tokens), caches)
+
+    # -- the main path: backend="lm", counts zeroed just before it --------
+    lt = LazyTransformer(params, cfg)
+    with BlockRecorder(codegen.FusedBlockKernel) as rec_b1, \
+            BlockRecorder(rowblock.RowBlockKernel) as rec_b2:
+        codegen.LAUNCHES["fused_block"] = 0
+        rowblock.LAUNCHES["rowblock"] = 0
+        h0 = len(lt.rt.history)
+        res = {"lm": serve(lazy_model(lt))}
+        launches = {"fused_block": codegen.LAUNCHES["fused_block"],
+                    "rowblock": rowblock.LAUNCHES["rowblock"]}
+        flushes = list(lt.rt.history)[h0:]
+    if launches["rowblock"] == 0 or launches["fused_block"] == 0:
+        raise AssertionError(f"LM: a kernel never launched: {launches}")
+    L = cfg.n_layers
+    for k, entry in enumerate(flushes):
+        ex = entry["exec"]
+        claims = ex["backend_blocks"]
+        if claims.get("rmsnorm", 0) < 2 * L + 1 \
+                or claims.get("flash_attention", 0) < 2 * L:
+            raise AssertionError(f"LM flush {k}: claims {claims}")
+        for backend, reasons in ex["backend_fallbacks"].items():
+            if "error" in reasons:
+                raise AssertionError(f"LM flush {k}: {backend} 'error' decline")
+    print(f"LM main path (backend=lm): {len(flushes)} flushes, claims per "
+          f"flush {[e['exec']['backend_blocks'] for e in flushes][-1]} "
+          f"(last), declines {flushes[-1]['exec']['backend_fallbacks']}, "
+          f"launches {launches}", flush=True)
+
+    # -- the floor and the direct model on the same tokens -----------------
+    res["torch"] = serve(lazy_model(LazyTransformer(params, cfg,
+                                                    backend="torch")))
+    state = {}
+
+    def d_prefill():
+        logits, state["c"] = T.serve_prefill(params, prompt, cfg, LM_MAX_SEQ)
+        return logits.cpu().numpy()
+
+    def d_decode(tok):
+        logits, state["c"] = T.serve_decode(params, state["c"], tok, cfg)
+        return logits.cpu().numpy()
+
+    def d_caches():
+        c = state["c"]["l0"]
+        return [(c["k"][i], c["v"][i]) for i in range(L)]
+
+    res["direct"] = serve((d_prefill, d_decode,
+                           lambda: T.forward(params, fwd_tokens, cfg)[0]
+                           .cpu().numpy(), d_caches))
+
+    # -- agreement ----------------------------------------------------------
+    agree = {}
+    for other in ("torch", "direct"):
+        a, b = res["lm"], res[other]
+        errs = {"prefill": _rel_err(a["prefill"], b["prefill"]),
+                "decode": max(_rel_err(x, y) for x, y in
+                              zip(a["decode"], b["decode"])),
+                "forward": _rel_err(a["forward"], b["forward"]),
+                "caches": max(_rel_err(x, y) for kv, kv2 in
+                              zip(a["caches"], b["caches"])
+                              for x, y in zip(kv, kv2))}
+        agree[other] = errs
+        print(f"LM agreement lm vs {other} (max abs err / max magnitude): "
+              f"{errs}", flush=True)
+        if max(errs.values()) > LM_RTOL:
+            raise AssertionError(f"LM: lm vs {other} beyond {LM_RTOL}: {errs}")
+
+    # -- every distinct kernel against its plain version -------------------
+    b1 = hold_blocks("LM B1", rec_b1.calls, codegen, limit=_sum_limit)
+    b2 = hold_blocks("LM B2", rec_b2.calls, rowblock, limit=_sum_limit)
+    norms = [(block_size(k, rowblock), k, bs) for k, bs in rec_b2.calls.values()
+             if any(n.opcode == "rsqrt" for n in k.plan.nodes)]
+    _, nk, nbs = max(norms, key=lambda t: t[0])
+    norm = time_block(nk, nbs, rowblock)
+    norm["library_ms"] = _rms_norm_ms(nk, nbs)
+    kv_ms = _kv_write_ms(cfg)
+    for name, blk in (("B1", b1), ("B2", b2)):
+        print(f"LM {name}: {blk['n_blocks']} distinct blocks, kernel vs plain "
+              f"max abs err {blk['max_abs_err']:.3g}; largest block "
+              f"{blk['domain']}: kernel_ms={blk['ms']:.4f} "
+              f"plain_ms={blk['plain_ms']:.4f} bytes={blk['bytes']} "
+              f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']})",
+              flush=True)
+    print("LM B2 largest block library_ms=null: no single PyTorch call "
+          "computes a masked row max or a shifted-exp row sum alone",
+          flush=True)
+    print(f"LM B2 rmsnorm block {norm['domain']}: kernel_ms={norm['ms']:.4f} "
+          f"plain_ms={norm['plain_ms']:.4f} bytes={norm['bytes']} "
+          f"bound_ms={norm['bound_ms']:.4f} ({norm['bound_by']}) "
+          f"F.rms_norm_ms={norm['library_ms']:.4f}", flush=True)
+    for name in ("lm", "torch", "direct"):
+        r = res[name]
+        print(f"LM timing {name}: prefill_ms cold={r['prefill_cold_s'] * 1e3:.1f}"
+              f" warm={r['prefill_warm_s'] * 1e3:.1f} decode_ms_per_token "
+              f"(steps 2-{LM_STEPS})="
+              f"{statistics.mean(r['decode_s'][1:]) * 1e3:.1f} first_decode_ms="
+              f"{r['decode_s'][0] * 1e3:.1f} forward_ms={r['forward_s'] * 1e3:.1f}",
+              flush=True)
+    print(f"LM KV window write: {kv_ms:.4f} ms per layer cache "
+          f"({LM_BATCH}x{LM_MAX_SEQ}x{cfg.n_kv_heads}x{cfg.hd} f32), "
+          f"x{2 * L} per decode step = {kv_ms * 2 * L:.3f} ms "
+          f"({time.perf_counter() - t_start:.1f}s for the LM phase)",
+          flush=True)
+    return {"launches": launches, "b1": b1, "b2": b2, "norm": norm,
+            "agree": agree}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -232,7 +498,7 @@ def main() -> int:
     for name, fn in programs.items():
         args = CHIP_SIZES[name]
         t0 = time.perf_counter()
-        with BlockRecorder(codegen) as rec:
+        with BlockRecorder(codegen.FusedBlockKernel) as rec:
             codegen.LAUNCHES["fused_block"] = 0
             res = run_program(name, args, fn, codegen, lazy)
             n_launch = codegen.LAUNCHES["fused_block"]
@@ -258,6 +524,9 @@ def main() -> int:
               f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']}) "
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
         torch.cuda.empty_cache()
+    from repro_torch.kernels.fused_block import rowblock
+    lm = run_lm(lazy, codegen, rowblock)
+    torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
@@ -266,13 +535,25 @@ def main() -> int:
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
-        "launches": launches,
-        "max_abs_err": worst,
+        "launches": launches + lm["launches"]["fused_block"],
+        "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],
         "bound_ms": overall["bound_ms"],
         "bound_by": overall["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rowblock",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_block/rowblock.py",
+        "replaces": "src/repro/kernels/fused_block/rowblock.py:242",
+        "launches": lm["launches"]["rowblock"],
+        "max_abs_err": lm["b2"]["max_abs_err"],
+        "ms": lm["norm"]["ms"],
+        "plain_ms": lm["norm"]["plain_ms"],
+        "bound_ms": lm["norm"]["bound_ms"],
+        "bound_by": lm["norm"]["bound_by"],
+        "library_ms": lm["norm"]["library_ms"],
     }]}
     print(json.dumps(kernels))
     smi = subprocess.run(

@@ -28,7 +28,7 @@ import torch
 
 from .algorithms import PartitionResult
 from .cache import MergeCache
-from .executor import BlockExecutor, _read, stats_delta
+from .executor import BlockExecutor, _read, numpy_dtype, stats_delta
 from .ir import BaseArray, Op, View
 from .obs import trace
 from .scheduler import Scheduler
@@ -218,8 +218,18 @@ class Runtime:
             buf = self.executor.sync_store[view.base.uid]
         return np.array(_read(buf, view).cpu().numpy())
 
-    def adopt(self, arr: np.ndarray) -> "LazyArray":
-        """Bring host data into the runtime (no bytecode recorded)."""
+    def adopt(self, arr) -> "LazyArray":
+        """Bring data into the runtime (no bytecode recorded).  A numpy array
+        is copied to the runtime's device; a torch tensor is copied there
+        from wherever it lies (device to device for a tensor already on a
+        card), so the runtime owns every buffer it holds."""
+        if isinstance(arr, torch.Tensor):
+            flat = torch.empty(arr.numel(), dtype=arr.dtype,
+                               device=self.device)
+            flat.view(arr.shape).copy_(arr.detach())
+            base = BaseArray(arr.numel(), numpy_dtype(arr.dtype))
+            self.buffers[base.uid] = flat
+            return LazyArray(self, View.contiguous(base, tuple(arr.shape)))
         arr = np.ascontiguousarray(arr)
         base = BaseArray(arr.size, arr.dtype)
         self.buffers[base.uid] = torch.from_numpy(

@@ -103,7 +103,8 @@ REASONS = (
     "reduction_axis",   # reduction axis not full/leading/trailing
     "reduction_out",    # reduction output is not a whole contiguous base
     "view_conflict",    # in-block read overlaps a non-identical prior write
-    "vmem",             # domain exceeds 32-bit indexing
+    "vmem",             # domain exceeds 32-bit indexing (or, in the
+                        # row-replay generator, a row exceeds one program)
     "error",            # defensive: analysis itself failed
 )
 
@@ -705,6 +706,23 @@ def _elementwise(src: _Source, oc: str, args: List[str],
     raise NotImplementedError(f"opcode {oc!r}")   # _analyze admits no other
 
 
+def _op_expr(src: _Source, oc: str, raw: List[Tuple]) -> Tuple[str, np.dtype]:
+    """Triton expression and result dtype of one elementwise or ``where``
+    node; ``raw`` holds ``(name, dtype)`` for each array term and ``(None,
+    literal)`` for each literal, in the op's input order."""
+    if oc == "where":
+        (c, cdt), *rest = raw
+        cd, rd = op_dtypes("where", [d for _, d in rest])
+        branches = [src.const(d, cd) if n is None else _cast(n, d, cd)
+                    for n, d in rest]
+        cond = c if np.dtype(cdt) == np.dtype(np.bool_) else f"({c} != 0)"
+        return f"tl.where({cond}, {branches[0]}, {branches[1]})", rd
+    cd, rd = op_dtypes(oc, [d for _, d in raw])
+    args = [src.const(d, cd) if n is None else _cast(n, d, cd)
+            for n, d in raw]
+    return _elementwise(src, oc, args, cd), rd
+
+
 _COMBINE = {"reduce_sum": "_add", "reduce_prod": "_mul"}
 
 
@@ -901,21 +919,10 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
             else:
                 got = f"tl.load(A{tbl} + {iv}, mask={ok} & m, other=0)"
             expr, rd = f"tl.where({ok}, {got}, {fill})", tdt
-        elif oc == "where":
-            (c, cdt), *rest = [term(t, None) if t[0] != "lit" else (None, t[1])
-                               for t in node.terms]
-            cd, rd = op_dtypes("where", [d for _, d in rest])
-            branches = [src.const(d, cd) if n is None else _cast(n, d, cd)
-                        for n, d in rest]
-            cond = c if np.dtype(cdt) == np.dtype(np.bool_) else f"({c} != 0)"
-            expr = f"tl.where({cond}, {branches[0]}, {branches[1]})"
         else:
-            raw = [term(t, None) if t[0] != "lit" else (None, t[1])
-                   for t in node.terms]
-            cd, rd = op_dtypes(oc, [d for _, d in raw])
-            args = [src.const(d, cd) if n is None else _cast(n, d, cd)
-                    for n, d in raw]
-            expr = _elementwise(src, oc, args, cd)
+            expr, rd = _op_expr(src, oc, [
+                term(t, None) if t[0] != "lit" else (None, t[1])
+                for t in node.terms])
         src.loop.append(f"{name} = {_cast(expr, rd, out)}")
         vals[k] = (name, out)
         if node.out_slot in live:

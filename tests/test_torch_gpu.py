@@ -1,5 +1,6 @@
-"""Card-only checks of the fused-block Triton kernel (skipped without a CUDA
-device and Triton).
+"""Card-only checks of the Triton kernels — the fused-block generator (B1)
+and the row-replay generator (B2) — and of the LM lane that runs them
+(skipped without a CUDA device and Triton).
 
 Run on a GPU with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Each case builds one block in the port's IR,
@@ -7,7 +8,9 @@ runs the generated kernel on CUDA tensors, and holds it against the torch
 floor (``make_block_fn``) and the kernel's plain version on the same
 inputs: bitwise for every elementwise op (libdevice is what PyTorch's CUDA
 kernels call too) and for reductions over integer-valued data (every
-summation order is exact there).
+summation order is exact there).  Real-valued row sums (softmax
+normalizers, the LM's variances) are held to the summation error bound
+``row * eps * magnitude``.
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.core.executor import make_block_fn
 from repro_torch.core.ir import BaseArray, Op, View
-from repro_torch.kernels.fused_block import codegen
+from repro_torch.kernels.fused_block import codegen, rowblock
 
 pytestmark = pytest.mark.gpu
 
@@ -204,3 +207,106 @@ def test_integer_block_bitwise(cuda):
     got, *wants = _run_all(ops, bufs, cuda)
     assert (got[-1] == torch.iinfo(torch.int64).min).any()
     _assert_same(got, *wants)
+
+
+# ---------------------------------------------------------------------------
+# kernel B2: the row-replay generator
+# ---------------------------------------------------------------------------
+
+def _replay_ops(r, c):
+    """Two reductions re-read in-block through trailing broadcasts, every
+    reduction output and dense result live, a bool mask broadcast over the
+    rows and a column operand: ``s = sum(x*x)``, ``o = where(mask, x*s,
+    col)``, ``m = max(o)``, ``o2 = o - m``."""
+    f32 = np.float32
+    x, sq, s, o, m, o2 = (_base(r * c, f32), _base(r * c, f32), _base(r, f32),
+                          _base(r * c, f32), _base(r, f32), _base(r * c, f32))
+    mask, col = _base(c, np.bool_), _base(r, f32)
+    d = (r, c)
+    vx, vsq, vo, vo2 = (View.contiguous(b, d) for b in (x, sq, o, o2))
+    return [
+        Op("mul", vsq, (vx, vx), new_bases=frozenset({sq})),
+        Op("reduce_sum", View.contiguous(s, (r,)), (vsq,), axis=1,
+           new_bases=frozenset({s})),
+        Op("mul", vo, (vx, View(s, 0, d, (1, 0))), new_bases=frozenset({o})),
+        Op("where", vo, (View(mask, 0, d, (0, 1)), vo,
+                         View(col, 0, d, (1, 0)))),
+        Op("reduce_max", View.contiguous(m, (r,)), (vo,), axis=1,
+           new_bases=frozenset({m})),
+        Op("sub", vo2, (vo, View(m, 0, d, (1, 0))), new_bases=frozenset({o2})),
+        Op("del", None, del_bases=frozenset({sq})),
+    ]
+
+
+@pytest.mark.parametrize("r,c", [(3, 5), (40, 64), (7, 300), (2048, 2560),
+                                 (80, 1024), (5, 4097)])
+def test_rowblock_kernel_bitwise_and_deterministic(cuda, r, c):
+    """Integer-valued data: every row sum is exact, so the kernel equals
+    the floor and its plain version bit for bit, and two runs agree."""
+    ops = _replay_ops(r, c)
+    fn, ins, outs = rowblock.build_rowblock_kernel(ops, device=cuda)
+    floor, fins, fouts = make_block_fn(ops, device=cuda)
+    assert list(ins) == list(fins) and list(outs) == list(fouts)
+    rng = np.random.default_rng(r * c)
+    bufs = [torch.from_numpy(rng.integers(-8, 8, r * c).astype(np.float32)),
+            torch.from_numpy(rng.random(c) < 0.7),
+            torch.from_numpy(rng.integers(-8, 8, r).astype(np.float32))]
+    bufs = [b.to(cuda) for b in bufs]
+    before = rowblock.LAUNCHES["rowblock"]
+    got = fn(*bufs, ())
+    assert rowblock.LAUNCHES["rowblock"] == before + 1
+    _assert_same(got, floor(*bufs, ()), fn.plain(*bufs, ()))
+    _assert_same(fn(*bufs, ()), got)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_check_lm_on_card(cuda, seed):
+    """The lm stack against the torch floor on the LM grammars: bitwise
+    where the row sums are exact, else within the summation bound."""
+    from repro_torch.testing.tapegen import check_lm
+    before = rowblock.LAUNCHES["rowblock"]
+    check_lm(seed, device=cuda)
+    if seed % 4 != 2:                  # moe has no claimant
+        assert rowblock.LAUNCHES["rowblock"] > before
+
+
+def test_lazy_transformer_on_card(cuda):
+    """The tiny LM through the lm stack, the torch floor and the direct
+    model on the card: logits and caches within 1e-5 (order-1 logits;
+    float32 sums over 32-64 terms in other orders), full-float32 matmuls."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.lazy_transformer import LazyTransformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(name="lm_tiny", family="dense", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=97,
+                      dtype="float32", param_dtype="float32",
+                      norm_plus_one=True, tie_embeddings=False)
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = np.asarray([[3, 14, 15, 92, 65, 35], [8, 9, 79, 3, 2, 38]],
+                        np.int32)
+    lm = LazyTransformer(params, cfg)
+    floor = LazyTransformer(params, cfg, backend="torch")
+    tol = dict(rtol=0, atol=1e-5)
+    before = rowblock.LAUNCHES["rowblock"]
+    got = lm.forward(tokens)
+    np.testing.assert_allclose(got, floor.forward(tokens), **tol)
+    np.testing.assert_allclose(got, T.forward(params, tokens, cfg)[0]
+                               .cpu().numpy(), **tol)
+    d_l, d_c = T.serve_prefill(params, tokens, cfg, 16)
+    got = lm.prefill(tokens, 16)
+    np.testing.assert_allclose(got, floor.prefill(tokens, 16), **tol)
+    np.testing.assert_allclose(got, d_l.cpu().numpy(), **tol)
+    for step in range(3):
+        tok = np.asarray([[5 + step], [11 + step]], np.int32)
+        d_l, d_c = T.serve_decode(params, d_c, tok, cfg)
+        got = lm.decode(tok)
+        np.testing.assert_allclose(got, floor.decode(tok), **tol)
+        np.testing.assert_allclose(got, d_l.cpu().numpy(), **tol)
+        claims = lm.rt.history[-1]["exec"]["backend_blocks"]
+        assert claims["rmsnorm"] >= 2 * cfg.n_layers + 1
+        assert claims["flash_attention"] >= 2 * cfg.n_layers
+    for li, (k, v) in enumerate(lm.cache_numpy()):
+        np.testing.assert_allclose(k, d_c["l0"]["k"][li].cpu().numpy(), **tol)
+        np.testing.assert_allclose(v, d_c["l0"]["v"][li].cpu().numpy(), **tol)
+    assert rowblock.LAUNCHES["rowblock"] > before
