@@ -41,11 +41,25 @@ version; it times the largest B2 block and the largest rmsnorm block
 token on all three paths, and one decode-step KV-cache window write.
 Float32 matmuls run in full float32 (TF32 off).
 
+Then the standalone model kernels (``run_model_kernels``): each public op
+of ``repro_torch.kernels.*.ops`` on the card at the full widths of a model
+config the repo holds — flash attention (B3, CUDA) for a Qwen1.5-4B
+prefill and a Gemma2-9B local layer, fused add+RMSNorm (B4, Triton) at
+Qwen1.5-4B's and Gemma2-9B's widths, the Mamba scan (B5, CUDA) of a
+Jamba-v0.1 layer and the RWKV6 scan (B6, CUDA) of an RWKV6-3B layer —
+with inputs from a seeded ``torch.Generator`` on the card.  The ops run
+once with every launch count at 0 (the phase's main path); then each case
+is held against its plain version on the same inputs (``MODEL_TOL``), run
+again for a bitwise-equal result, and timed (kernel, plain version and,
+where one PyTorch call computes the same function, that call) beside its
+bound.
+
 It then measures the per-block launch cost the ``gpu`` cost model uses,
-prints a ``kernels`` JSON line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  Any failure raises (exit code 1).  The
-Triton kernels are generated and compiled under ``build/`` as the run
-needs them.
+prints a ``kernels`` JSON line (B1-B6), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises (exit code
+1).  The Triton kernels are generated and compiled under ``build/`` as the
+run needs them; the CUDA kernels are compiled by one ``nvcc`` call into
+``build/cuda/`` at their first launch.
 """
 
 from __future__ import annotations
@@ -83,6 +97,16 @@ LM_FORWARD = (2, 128)
 #: at most 4.0e-6 on an H100, so this is about 10x that
 LM_RTOL = 5e-5
 F32_EPS = float(np.finfo(np.float32).eps)
+#: the model kernels' bound counts an FMA as one operation, like the rates
+#: above: float32 work on the CUDA cores at PEAK_OPS_PER_S["float32"], and
+#: bfloat16 products on the tensor cores at the data sheet's 989e12
+#: FLOP/s, 494.5e12 multiply-adds per second
+TC_BF16_MACS_PER_S = 989e12 / 2
+#: kernel vs plain version on the card, max abs error: the reference's own
+#: tolerances (tests/test_kernels.py) — float32 attention and norm 2e-5,
+#: scans 3e-4 (sums in other orders), bfloat16 outputs 3e-2 (one rounding)
+MODEL_TOL = {"flash_attention": 2e-5, "rmsnorm": 2e-5, "mamba_scan": 3e-4,
+             "rwkv6_scan": 3e-4, "bfloat16": 3e-2}
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -108,11 +132,18 @@ def kernel_ms(kernel, store, rvals, device) -> float:
     passes: arguments bound first, the launches captured in a CUDA graph,
     and the graph replayed under :func:`cuda_ms`."""
     run, _ = kernel.prepare(store, rvals, device)
-    run()
+    return graph_ms(run)
+
+
+def graph_ms(fn) -> float:
+    """Device time of ``fn`` with no host work timed: its launches captured
+    once in a CUDA graph, the graph replayed under :func:`cuda_ms` (for
+    kernels short enough that a Python call would show)."""
+    fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        run()
+        fn()
     return cuda_ms(graph.replay)
 
 
@@ -480,6 +511,231 @@ def run_lm(lazy, codegen, rowblock) -> dict:
             "agree": agree}
 
 
+def _attention_work(q, k, causal, window, softcap):
+    """Bytes (q, k, v read once, o written once) and operations of one
+    attention call: 2·D multiply-adds (QKᵀ and PV) per unmasked (query,
+    key) pair on the inputs' unit, and the softmax's elementwise work per
+    pair (mask, max, subtract, exp, sum; the softcap's divide, tanh and
+    multiply) in float32."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    qp = np.arange(sq)
+    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qp - window + 1) if window is not None else 0
+    per_row = hi - lo
+    pairs = int(np.where(per_row > 0, per_row, sk).sum()) * b * hq
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    macs = 2 * d * pairs
+    elem = (5 + (3 if softcap is not None else 0)) * pairs
+    if q.dtype == torch.bfloat16:
+        return nbytes, {"tensor_bf16": macs, "float32": elem}
+    return nbytes, {"float32": macs + elem}
+
+
+def _bound(nbytes, ops):
+    rates = {"tensor_bf16": TC_BF16_MACS_PER_S, **PEAK_OPS_PER_S}
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(n / rates[t] for t, n in ops.items()) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
+        "operations"
+
+
+def _model_cases(gen):
+    """The cases of the model-kernel phase: op, inputs, work and library
+    yardstick, at the widths of the repo's configs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm
+    from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    cases = []
+    # B3 — configs/qwen15_4b.py: 20 heads of 128, MHA; a 4 x 512 prefill
+    q, k, v = (randn(4, 20, 512, 128) for _ in range(3))
+    cases.append(dict(
+        kernel="flash_attention", label="Qwen1.5-4B prefill B4 H20 S512 D128 "
+        "causal f32", args=(q, k, v, True, None, None),
+        run=lambda a: fa.attention(*a), plain=lambda a: reference_attention(
+            *a[:3], causal=True), work=_attention_work(q, k, True, None, None),
+        library=("F.scaled_dot_product_attention(is_causal=True)",
+                 lambda a: F.scaled_dot_product_attention(*a[:3],
+                                                          is_causal=True))))
+    # B3 — src/repro/configs/gemma2_9b.py: 16 q heads, 8 kv heads of 256,
+    # local layers window 4096, attention softcap 50; one 8192-token row
+    q = randn(1, 16, 8192, 256, dtype=torch.bfloat16)
+    k, v = (randn(1, 8, 8192, 256, dtype=torch.bfloat16) for _ in range(2))
+    cases.append(dict(
+        kernel="flash_attention", label="Gemma2-9B local layer B1 Hq16 Hkv8 "
+        "S8192 D256 window 4096 softcap 50 causal bf16",
+        args=(q, k, v, True, 4096, 50.0), run=lambda a: fa.attention(*a),
+        plain=lambda a: reference_attention(*a[:3], causal=True, window=4096,
+                                            softcap=50.0),
+        work=_attention_work(q, k, True, 4096, 50.0),
+        library=("none: scaled_dot_product_attention has no softcap", None)))
+    # B4 — Qwen1.5-4B d_model 2560 over 4 x 512 tokens; Gemma2-9B d_model
+    # 3584 (1 + g scale) over 8192 tokens
+    for label, shape, plus_one, dtype in (
+            ("Qwen1.5-4B 4x512 rows x 2560 f32", (4, 512, 2560), False,
+             torch.float32),
+            ("Gemma2-9B 8192 rows x 3584 plus_one bf16", (8192, 3584), True,
+             torch.bfloat16)):
+        x, r = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        g = randn(shape[-1], dtype=dtype, scale=0.1)
+        n, d = x.numel() // shape[-1], shape[-1]
+        g_eff = (g.float() + 1.0).to(dtype) if plus_one else g
+        cases.append(dict(
+            kernel="rmsnorm", label=label, args=(x, r, g, 1e-6, plus_one),
+            run=lambda a: rn.add_rmsnorm(*a),
+            plain=lambda a: reference_add_rmsnorm(*a[:3], eps=a[3],
+                                                  plus_one=a[4]),
+            work=(4 * x.numel() * x.element_size() + g.numel()
+                  * g.element_size(), {"float32": 5 * n * d + 3 * n + d}),
+            library=("none; two calls, x + r then F.rms_norm", None),
+            graph=True,
+            two_calls=lambda a, d=d, g_eff=g_eff: F.rms_norm(
+                a[0] + a[1], (d,), weight=g_eff, eps=1e-6)))
+    # B5 — src/repro/configs/jamba_v01_52b.py: d_model 4096, expand 2 ->
+    # d_inner 8192, d_state 16; batch 2 x 4096 tokens
+    bsz, t, di, ds = 2, 4096, 8192, 16
+    ins = (randn(bsz, t, di), F.softplus(randn(bsz, t, di)) * 0.1,
+           randn(bsz, t, ds), randn(bsz, t, ds),
+           -F.softplus(randn(di, ds)) - 0.2, randn(di))
+    cases.append(dict(
+        kernel="mamba_scan", label="Jamba-v0.1 B2 T4096 d_inner 8192 "
+        "d_state 16 f32", args=(*ins, 64), run=lambda a: ms.mamba(*a),
+        plain=lambda a: reference_mamba(*a[:6]),
+        work=((3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) * 4,
+              {"float32": bsz * t * di * (5 * ds + 2)}),
+        library=("none: no PyTorch call computes a selective scan", None),
+        plain_reps=3))
+    # B6 — src/repro/configs/rwkv6_3b.py: 40 heads of 64; batch 8 x 2048
+    bh, t, n = 8 * 40, 2048, 64
+    ins = (randn(bh, t, n), randn(bh, t, n, scale=0.3), randn(bh, t, n),
+           torch.sigmoid(randn(bh, t, n)) * 0.5 + 0.45, randn(n, scale=0.1))
+    cases.append(dict(
+        kernel="rwkv6_scan", label="RWKV6-3B BH 8x40 T2048 N64 f32",
+        args=(*ins, 64), run=lambda a: rw.rwkv6(*a),
+        plain=lambda a: reference_rwkv6(*a[:5]),
+        work=((5 * bh * t * n + n) * 4, {"float32": bh * t * (4 * n * n + 3 * n)}),
+        library=("none: no PyTorch call computes the RWKV6 recurrence", None),
+        plain_reps=3))
+    return cases
+
+
+def _max_abs(got, want) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{tuple(g.shape)} {g.dtype} != "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        if not torch.isfinite(g).all():
+            raise AssertionError("non-finite kernel output")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def run_model_kernels() -> dict:
+    """The standalone model kernels B3-B6 through their public ops at model
+    widths (see the module doc).  Returns per-kernel results."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.mamba_scan import kernel as ms_k
+    from repro_torch.kernels.rmsnorm import kernel as rn_k
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_k
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    counters = {"flash_attention": fa_k.LAUNCHES, "rmsnorm": rn_k.LAUNCHES,
+                "mamba_scan": ms_k.LAUNCHES, "rwkv6_scan": rw_k.LAUNCHES}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = _model_cases(gen)
+    t0 = time.perf_counter()
+    lib = cuda_build.library()
+    print(f"MODEL CUDA build: {time.perf_counter() - t0:.1f}s (one nvcc "
+          f"call, {len(cuda_build.sources())} sources) -> {lib._name}",
+          flush=True)
+    print(cuda_build.ptxas_report(), flush=True)
+
+    # -- the main path: every op once, counts zeroed just before it --------
+    for c in counters.values():
+        for key in c:
+            c[key] = 0
+    outs = [case["run"](case["args"]) for case in cases]
+    torch.cuda.synchronize()
+    launches = {name: c[name] for name, c in counters.items()}
+    print(f"MODEL main path: launches {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name}: the kernel never launched")
+
+    # -- each case: plain version, determinism, times -------------------
+    results = {}
+    for case, out in zip(cases, outs):
+        name, a = case["kernel"], case["args"]
+        first = out if isinstance(out, tuple) else (out,)
+        dtype = first[0].dtype
+        err = _max_abs(out, case["plain"](a))
+        tol = MODEL_TOL["bfloat16" if dtype == torch.bfloat16 else name]
+        if not err <= tol:
+            raise AssertionError(f"{case['label']}: kernel vs plain max abs "
+                                 f"err {err} > {tol}")
+        again = case["run"](a)
+        again = again if isinstance(again, tuple) else (again,)
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"{case['label']}: two runs differ")
+        ms = graph_ms(lambda: case["run"](a)) if case.get("graph") else \
+            cuda_ms(lambda: case["run"](a))
+        reps = case.get("plain_reps", 10)
+        plain_ms = cuda_ms(lambda: case["plain"](a), reps=reps,
+                           burst=1 if reps < 10 else 5)
+        nbytes, ops = case["work"]
+        bound_ms, bound_by = _bound(nbytes, ops)
+        lib_name, lib_fn = case["library"]
+        library_ms = cuda_ms(lambda: lib_fn(a)) if lib_fn else None
+        two_ms = cuda_ms(lambda: case["two_calls"](a)) \
+            if "two_calls" in case else None
+        torch.cuda.empty_cache()
+        row = {"label": case["label"], "max_abs_err": err, "tol": tol,
+               "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library": lib_name, "library_ms": library_ms,
+               "two_calls_ms": two_ms}
+        results.setdefault(name, []).append(row)
+        print(f"MODEL {name} [{case['label']}]: max_abs_err={err:.3g} "
+              f"(tol {tol}) bitwise_rerun=True kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bytes={nbytes} ops={ops} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound="
+              f"{ms / bound_ms:.2f} library={lib_name}"
+              + (f" library_ms={library_ms:.4f}" if library_ms else "")
+              + (f" two_calls_ms={two_ms:.4f}" if two_ms else ""),
+              flush=True)
+    print(f"MODEL phase: {time.perf_counter() - t_start:.1f}s", flush=True)
+    return {"launches": launches, "cases": results}
+
+
+def _model_entry(name, route, source, replaces, res) -> dict:
+    """The ``kernels`` line entry of a model kernel: its largest-bound case
+    (the largest error over its cases)."""
+    rows = res["cases"][name]
+    top = max(rows, key=lambda r: r["bound_ms"])
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": res["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -527,6 +783,8 @@ def main() -> int:
     from repro_torch.kernels.fused_block import rowblock
     lm = run_lm(lazy, codegen, rowblock)
     torch.cuda.empty_cache()
+    model = run_model_kernels()
+    torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
@@ -554,7 +812,19 @@ def main() -> int:
         "bound_ms": lm["norm"]["bound_ms"],
         "bound_by": lm["norm"]["bound_by"],
         "library_ms": lm["norm"]["library_ms"],
-    }]}
+    },
+        _model_entry("flash_attention", "cuda",
+                     "src/repro_torch/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:81", model),
+        _model_entry("rmsnorm", "triton",
+                     "src/repro_torch/kernels/rmsnorm/kernel.py",
+                     "src/repro/kernels/rmsnorm/kernel.py:36", model),
+        _model_entry("mamba_scan", "cuda",
+                     "src/repro_torch/csrc/mamba_scan.cu",
+                     "src/repro/kernels/mamba_scan/kernel.py:48", model),
+        _model_entry("rwkv6_scan", "cuda",
+                     "src/repro_torch/csrc/rwkv6_scan.cu",
+                     "src/repro/kernels/rwkv6_scan/kernel.py:52", model)]}
     print(json.dumps(kernels))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -30,20 +30,23 @@ inside methods to keep the core import graph acyclic.
 from __future__ import annotations
 
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ..device import resolve_device
 
 
 @dataclass(frozen=True)
 class LoweringContext:
     """Executor configuration a backend may need to claim or build a block:
-    the RNG seed and the device the block's buffers live on.  It carries no
-    buffers: backends build functions, the executor owns the store."""
+    the RNG seed and the device the block's buffers live on (the CUDA card
+    unless given).  It carries no buffers: backends build functions, the
+    executor owns the store."""
 
     seed: int = 0
-    device: torch.device = torch.device("cpu")
+    device: torch.device = field(default_factory=resolve_device)
 
 
 @dataclass(frozen=True)

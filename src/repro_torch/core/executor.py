@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .device import resolve_device
 from .ir import COMM_OPS, REDUCTIONS, Op, View
 from .obs import trace
 from .obs.metrics import MetricsRegistry, StatsView
@@ -414,13 +415,13 @@ def _base_meta(ops: Sequence[Op]) -> Dict[int, Tuple[int, np.dtype]]:
     return meta
 
 
-def make_block_fn(ops: Sequence[Op], seed: int = 0,
-                  device: torch.device = torch.device("cpu")):
+def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
     """Build the floor function for one block: one PyTorch call per op.
 
     Returns ``(fn, input_uids, output_uids)`` where ``fn(*input_bufs,
-    salts) -> output_bufs`` takes flat tensors on ``device`` and a sequence
-    of per-``random``-op integer salts."""
+    salts) -> output_bufs`` takes flat tensors on ``device`` (the CUDA card
+    unless given) and a sequence of per-``random``-op integer salts."""
+    device = resolve_device(device)
     work = [op for op in ops if not op.is_system()]
     inputs, outputs, _contracted = block_io(ops)  # DEL/SYNC drive contraction
     meta = _base_meta(work)
@@ -506,17 +507,17 @@ class BlockExecutor:
     synchronizes, so results only wait for the card at an explicit SYNC
     (``Runtime.materialize``)."""
 
-    def __init__(self, seed: int = 0, backend="torch",
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, seed: int = 0, backend="torch", device=None):
         """``backend`` resolves to the preference-ordered candidate list of
         the lowering policy (``backends.default_stack``): ``"torch"`` runs
         every block on the floor; ``"triton"`` prefers the fused-block
         Triton kernel with the floor for the blocks it declines; a
-        tuple/list names an explicit stack."""
+        tuple/list names an explicit stack.  ``device`` is the CUDA card
+        unless given."""
         from .backends import default_stack
         self.seed = seed
         self.backend = backend
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.backends: Tuple[str, ...] = default_stack(backend)
         self._cache: Dict[Tuple, object] = {}
         self._lock = threading.RLock()

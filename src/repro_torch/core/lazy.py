@@ -28,23 +28,13 @@ import torch
 
 from .algorithms import PartitionResult
 from .cache import MergeCache
+from .device import resolve_device
 from .executor import BlockExecutor, _read, numpy_dtype, stats_delta
 from .ir import BaseArray, Op, View
 from .obs import trace
 from .scheduler import Scheduler
 
 Scalar = Union[int, float, bool]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a runtime runs on: the one asked for, else the CUDA card.
-    Never falls back to the CPU on its own."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the runtime on the CPU")
-    return torch.device("cuda")
 
 
 class Runtime:

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from ...core import prng
+from ...core.device import resolve_device
 from ...core.executor import (_BINARY, _UNARY, _read, _slice_plan, _write,
                               apply_op, apply_reduce, block_io, numpy_dtype,
                               op_dtypes, reduce_dtype, reduce_identity, take,
@@ -1115,16 +1116,16 @@ class FusedBlockKernel:
         return run, slots
 
 
-def build_block_kernel(ops: Sequence[Op], *, seed: int = 0,
-                       device=torch.device("cpu")):
+def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
     """Compile a WSP block into one generated Triton kernel.
 
     Returns ``(fn, input_uids, output_uids)`` where
     ``fn(*flat_input_bufs, salts) -> tuple(flat_output_bufs)`` mirrors the
     :func:`repro_torch.core.executor.make_block_fn` calling convention
-    (``salts`` feeds any ``random`` ops).  Raises
-    :class:`FusedBlockUnsupported` (with a ``reason`` slug) for blocks the
-    generator cannot express."""
+    (``salts`` feeds any ``random`` ops).  ``device`` is the CUDA card
+    unless given.  Raises :class:`FusedBlockUnsupported` (with a ``reason``
+    slug) for blocks the generator cannot express."""
+    device = resolve_device(device)
     plan = _analyze(ops)
     return FusedBlockKernel(plan, seed, device), list(plan.inputs), \
         list(plan.outputs)

@@ -7,15 +7,14 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
-
 from ...core.ir import Op
 from .codegen import (FusedBlockUnsupported, block_lower_reason,  # noqa: F401
                       build_block_kernel)
 
 
-def build_fused_kernel(ops: Sequence[Op], *, device=torch.device("cpu")):
-    """Compile a WSP block into one generated kernel (legacy signature).
+def build_fused_kernel(ops: Sequence[Op], *, device=None):
+    """Compile a WSP block into one generated kernel (legacy signature),
+    on ``device`` (the CUDA card unless given).
 
     Returns ``(fn, input_uids, output_uids)`` with ``fn(*flat_bufs) ->
     tuple(flat_out_bufs)``.  Raises :class:`FusedBlockUnsupported` (with a

@@ -11,19 +11,19 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
-
+from ...core.device import resolve_device
 from ...core.executor import make_block_fn
 from ...core.ir import Op
 from .codegen import block_lower_reason, build_block_kernel
 
 
-def fused_block_fn(ops: Sequence[Op], *, seed: int = 0,
-                   device=torch.device("cpu")):
+def fused_block_fn(ops: Sequence[Op], *, seed: int = 0, device=None):
     """Returns ``(fn, input_uids, output_uids, reason)``; ``fn(*bufs,
-    salts)`` follows the ``make_block_fn`` calling convention either way.
+    salts)`` follows the ``make_block_fn`` calling convention either way,
+    on ``device`` (the CUDA card unless given).
     ``reason`` is ``None`` when the generator claims the block, else its
     ``codegen.REASONS`` slug and ``fn`` is the torch floor."""
+    device = resolve_device(device)
     reason = block_lower_reason(ops)
     if reason is None:
         fn, ins, outs = build_block_kernel(ops, seed=seed, device=device)

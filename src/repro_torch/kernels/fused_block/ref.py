@@ -9,12 +9,16 @@ from typing import Dict
 
 import torch
 
+from ...core.device import resolve_device
 from ...core.executor import apply_op, block_io, torch_dtype
 from ...core.ir import View
 
 
-def reference_block(ops, *bufs, device=torch.device("cpu")):
-    """Execute a block unfused; returns the same outputs as the kernel."""
+def reference_block(ops, *bufs, device=None):
+    """Execute a block unfused; returns the same outputs as the kernel, on
+    ``device`` (by default its buffers' device, else the CUDA card)."""
+    if device is None:
+        device = bufs[0].device if bufs else resolve_device()
     work = [op for op in ops if not op.is_system()]
     inputs, outputs, _ = block_io(ops)
     env: Dict[int, torch.Tensor] = dict(zip(inputs, bufs))

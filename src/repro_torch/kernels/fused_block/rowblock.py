@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...core.device import resolve_device
 from ...core.executor import (_BINARY, _UNARY, _read, apply_op, apply_reduce,
                               block_io, reduce_dtype, reduce_identity,
                               torch_dtype)
@@ -501,15 +502,16 @@ class RowBlockKernel:
         return run, slots
 
 
-def build_rowblock_kernel(ops: Sequence[Op], *, seed: int = 0,
-                          device=torch.device("cpu")):
+def build_rowblock_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
     """Compile a reduction-consuming block into one row-tiled Triton kernel.
 
     Returns ``(fn, input_uids, output_uids)`` with the ``make_block_fn``
     calling convention ``fn(*flat_input_bufs, salts) -> output_bufs``.
-    Raises :class:`FusedBlockUnsupported` for blocks the row tiler cannot
+    ``device`` is the CUDA card unless given.  Raises
+    :class:`FusedBlockUnsupported` for blocks the row tiler cannot
     express."""
     del seed  # no random ops — uniform signature with build_block_kernel
+    device = resolve_device(device)
     plan = _analyze(ops)
     return RowBlockKernel(plan, device), list(plan.inputs), list(plan.outputs)
 

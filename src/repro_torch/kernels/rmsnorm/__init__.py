@@ -1,1 +1,3 @@
-"""The ``rmsnorm`` lowering claimant's op-pattern matcher (``block.match``)."""
+"""Fused add+RMSNorm (kernel B4): plain version, Triton kernel and public
+op, and the ``rmsnorm`` lowering claimant's op-pattern matcher
+(``block.match``)."""

@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..core.lazy import resolve_device
+from ..core.device import resolve_device
 from .config import ModelConfig
 from .layers import attention, init_attention, init_mlp, init_rmsnorm, mlp, rmsnorm
 from .lazy_transformer import validate_config
@@ -160,7 +160,9 @@ def forward(params, tokens, cfg: ModelConfig) -> Tuple[torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Params:
     """Zero KV caches stacked over the groups: ``{"l{i}": {"k", "v":
-    (groups, B, max_seq, kv_heads, hd), "idx": (groups,) int32}}``."""
+    (groups, B, max_seq, kv_heads, hd), "idx": (groups,) int32}}``, on
+    ``device`` (the CUDA card unless given)."""
+    device = resolve_device(device)
     unit, n_groups = cfg.scan_groups()
     kvh, hd = cfg.n_kv_heads, cfg.hd
     shape = (n_groups, batch, max_seq, kvh, hd)

@@ -49,9 +49,9 @@ def run_both(ops, arrays, *, seed=0, salts=()):
     outs.append(jax.jit(f)(*jbufs, jsalts))
     f, _, _ = ref_build(ops, seed=seed)
     outs.append(jax.jit(f)(*jbufs, jsalts))
-    f, _, _ = make_block_fn(port_ops, seed=seed)
+    f, _, _ = make_block_fn(port_ops, seed=seed, device="cpu")
     outs.append(f(*tbufs, tuple(salts)))
-    f, _, _ = codegen.build_block_kernel(port_ops, seed=seed)
+    f, _, _ = codegen.build_block_kernel(port_ops, seed=seed, device="cpu")
     outs.append(f(*tbufs, tuple(salts)))
     return [[np.asarray(x) for x in o] for o in outs]
 
@@ -95,7 +95,7 @@ def test_every_reason_raises_from_the_builder():
         if reason == "vmem":
             continue
         with pytest.raises(codegen.FusedBlockUnsupported) as ei:
-            codegen.build_block_kernel(to_port(ops))
+            codegen.build_block_kernel(to_port(ops), device="cpu")
         assert ei.value.reason == reason
 
 
@@ -105,7 +105,7 @@ def test_declined_block_gets_the_floor_with_its_slug():
     ops = to_port([Op("copy", View.contiguous(rev, (n,)),
                       (View(a, n - 1, (n,), (-1,)),),
                       new_bases=frozenset({rev}))])
-    fn, ins, outs, reason = fused_block_fn(ops)
+    fn, ins, outs, reason = fused_block_fn(ops, device="cpu")
     assert reason == "irregular_view"
     got = fn(torch.arange(n, dtype=torch.float64), ())
     np.testing.assert_array_equal(got[0].numpy(), np.arange(n)[::-1])
@@ -348,8 +348,8 @@ def test_facades_and_unfused_oracle_agree():
     ])
     rng = np.random.default_rng(4)
     bufs = [torch.from_numpy(_ints(rng, n)) for _ in range(2)]
-    fn, _, _ = build_fused_kernel(ops)
-    floor, _, _ = make_block_fn(ops)
+    fn, _, _ = build_fused_kernel(ops, device="cpu")
+    floor, _, _ = make_block_fn(ops, device="cpu")
     want = floor(*bufs, ())
     for got in (fn(*bufs), reference_block(ops, *bufs)):
         for g, w in zip(got, want):

@@ -1,6 +1,8 @@
-"""Card-only checks of the Triton kernels — the fused-block generator (B1)
-and the row-replay generator (B2) — and of the LM lane that runs them
-(skipped without a CUDA device and Triton).
+"""Card-only checks of the port's kernels — the fused-block generator (B1)
+and the row-replay generator (B2) in Triton, the LM lane that runs them,
+and the standalone model kernels (B3 flash attention, B5 Mamba scan and B6
+RWKV6 scan in CUDA C++, B4 add+RMSNorm in Triton) — skipped without a
+CUDA device (and, for the Triton kernels, Triton).
 
 Run on a GPU with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Each case builds one block in the port's IR,
@@ -10,7 +12,9 @@ inputs: bitwise for every elementwise op (libdevice is what PyTorch's CUDA
 kernels call too) and for reductions over integer-valued data (every
 summation order is exact there).  Real-valued row sums (softmax
 normalizers, the LM's variances) are held to the summation error bound
-``row * eps * magnitude``.
+``row * eps * magnitude``.  B3-B6 are held to their plain versions at
+the reference's tolerances, run twice for bitwise-equal results, and fed
+inputs they must refuse.
 """
 
 import numpy as np
@@ -310,3 +314,219 @@ def test_lazy_transformer_on_card(cuda):
         np.testing.assert_allclose(k, d_c["l0"]["k"][li].cpu().numpy(), **tol)
         np.testing.assert_allclose(v, d_c["l0"]["v"][li].cpu().numpy(), **tol)
     assert rowblock.LAUNCHES["rowblock"] > before
+
+
+# ---------------------------------------------------------------------------
+# the standalone model kernels B3-B6 against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain version on the card: float32 attention and norm 2e-5 and
+#: scans 3e-4 (sums in other orders; the reference's own tolerances),
+#: bfloat16 outputs 3e-2 (one rounding of the output)
+F32_TOL = {"attention": 2e-5, "rmsnorm": 2e-5, "scan": 3e-4}
+BF16_TOL = 3e-2
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, dev, scale=1.0):
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            * scale).to(dev, dtype)
+
+
+def _hold(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _twice_same(fn, launches, key):
+    """Run ``fn`` twice: one launch each, bitwise-equal results."""
+    before = launches[key]
+    a = fn()
+    b = fn()
+    torch.cuda.synchronize()
+    assert launches[key] == before + 2
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        assert torch.equal(x, y)
+    return a
+
+
+@pytest.mark.parametrize("sq,sk,hq,hkv,d,causal,window,softcap,dtype", [
+    (100, 100, 4, 2, 64, True, None, None, torch.float32),     # ragged, GQA
+    (64, 256, 2, 1, 128, True, None, None, torch.float32),     # cross-length
+    (130, 77, 2, 2, 32, False, None, None, torch.float32),     # ragged, MHA
+    (200, 200, 4, 2, 256, True, 64, 50.0, torch.float32),      # D 256
+    (256, 256, 2, 2, 128, True, 8, None, torch.float32),       # masked tiles
+    (160, 64, 2, 1, 64, False, 16, None, torch.float32),       # masked rows
+    (128, 128, 2, 1, 256, True, 32, 50.0, torch.bfloat16),
+    (300, 300, 4, 1, 64, True, None, 30.0, torch.bfloat16),    # MQA
+])
+def test_flash_attention_kernel(card, sq, sk, hq, hkv, d, causal, window,
+                                softcap, dtype):
+    """B3 against its plain version: ragged Sq and Sk, D up to 256, window
+    and softcap, a first key tile that is fully masked for some rows
+    (window 8 at 128-wide heads: 32-key tiles), rows with no unmasked key
+    at all (which average v, as the plain version does), bfloat16."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    rng = np.random.default_rng(sq * sk + d)
+    q = _randn(rng, (2, hq, sq, d), dtype, card)
+    k = _randn(rng, (2, hkv, sk, d), dtype, card)
+    v = _randn(rng, (2, hkv, sk, d), dtype, card)
+    got = _twice_same(lambda: attention(q, k, v, causal, window, softcap),
+                      fa.LAUNCHES, "flash_attention")
+    want = reference_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    _hold(got, want, F32_TOL["attention"] if dtype == torch.float32
+          else BF16_TOL)
+
+
+def test_flash_attention_refuses(card):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    x = torch.zeros((1, 2, 8, 64), device=card)
+    with pytest.raises(TypeError):
+        flash_attention(x.double(), x.double(), x.double())
+    with pytest.raises(TypeError):
+        flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(torch.zeros((1, 8, 2, 64), device=card)
+                        .transpose(1, 2), x, x)
+    with pytest.raises(ValueError, match="head dim"):
+        y = torch.zeros((1, 2, 8, 48), device=card)
+        flash_attention(y, y, y)
+
+
+@pytest.mark.parametrize("shape,plus_one,dtype", [
+    ((8, 128), False, torch.float32),
+    ((100, 2560), True, torch.float32),
+    ((3, 5, 1000), False, torch.float32),
+    ((300, 3584), True, torch.bfloat16),
+])
+def test_rmsnorm_kernel(cuda, shape, plus_one, dtype):
+    """B4 against its plain version; ``y`` from the float32 sum."""
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm.ops import add_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm
+    rng = np.random.default_rng(shape[-1])
+    x, r = (_randn(rng, shape, dtype, cuda) for _ in range(2))
+    g = _randn(rng, shape[-1:], dtype, cuda)
+    got = _twice_same(lambda: add_rmsnorm(x, r, g, 1e-6, plus_one),
+                      rk.LAUNCHES, "rmsnorm")
+    want = reference_add_rmsnorm(x, r, g, plus_one=plus_one)
+    tol = F32_TOL["rmsnorm"] if dtype == torch.float32 else BF16_TOL
+    for a, b in zip(got, want):
+        _hold(a, b, tol)
+
+
+def test_rmsnorm_reads_strided_rows_and_refuses(cuda):
+    from repro_torch.kernels.rmsnorm.kernel import fused_add_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm
+    rng = np.random.default_rng(5)
+    wide = _randn(rng, (64, 700), torch.float32, cuda)
+    x, r = wide[:, :640], wide[:, 60:]         # row stride 700, no copy
+    g = _randn(rng, (640,), torch.float32, cuda)
+    for a, b in zip(fused_add_rmsnorm(x, r, g),
+                    reference_add_rmsnorm(x, r, g)):
+        _hold(a, b, F32_TOL["rmsnorm"])
+    with pytest.raises(TypeError):
+        fused_add_rmsnorm(x.double(), r.double(), g)
+    with pytest.raises(RuntimeError, match="view"):
+        t = torch.zeros((4, 3, 640), device=cuda)[:, :2]   # rows need a copy
+        fused_add_rmsnorm(t.transpose(0, 1), t.transpose(0, 1), g)
+
+
+def _mamba_inputs(rng, b, t, di, ds, dtype, dev):
+    softplus = torch.nn.functional.softplus
+    return (_randn(rng, (b, t, di), dtype, dev),
+            (softplus(_randn(rng, (b, t, di), torch.float32, dev)) * 0.1)
+            .to(dtype),
+            _randn(rng, (b, t, ds), dtype, dev),
+            _randn(rng, (b, t, ds), dtype, dev),
+            (-softplus(_randn(rng, (di, ds), torch.float32, dev)) - 0.2)
+            .to(dtype),
+            _randn(rng, (di,), dtype, dev))
+
+
+@pytest.mark.parametrize("b,t,di,ds,chunk,dtype", [
+    (2, 64, 32, 8, 32, torch.float32),        # T a multiple of chunk
+    (1, 100, 130, 16, 64, torch.float32),     # ragged T and channels
+    (2, 40, 64, 5, 64, torch.float32),        # T below chunk, odd d_state
+    (1, 70, 96, 64, 32, torch.float32),       # the widest state
+    (1, 64, 64, 16, 64, torch.bfloat16),
+])
+def test_mamba_kernel(card, b, t, di, ds, chunk, dtype):
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ops import mamba
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    ins = _mamba_inputs(np.random.default_rng(t * di), b, t, di, ds, dtype,
+                        card)
+    got = _twice_same(lambda: mamba(*ins, chunk), mk.LAUNCHES, "mamba_scan")
+    _hold(got, reference_mamba(*ins),
+          F32_TOL["scan"] if dtype == torch.float32 else BF16_TOL)
+
+
+def test_mamba_refuses(card):
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan
+    ins = _mamba_inputs(np.random.default_rng(0), 1, 8, 16, 8, torch.float32,
+                        card)
+    with pytest.raises(TypeError):
+        mamba_scan(*(z.double() for z in ins))
+    with pytest.raises(ValueError, match="contiguous"):
+        x = torch.zeros((1, 16, 8), device=card).transpose(1, 2)
+        mamba_scan(x, *ins[1:])
+    wide = _mamba_inputs(np.random.default_rng(0), 1, 8, 16, 65,
+                         torch.float32, card)
+    with pytest.raises(ValueError, match="d_state"):
+        mamba_scan(*wide)
+
+
+def _rwkv_inputs(rng, bh, t, n, dtype, dev):
+    return (_randn(rng, (bh, t, n), dtype, dev),
+            _randn(rng, (bh, t, n), dtype, dev, 0.3),
+            _randn(rng, (bh, t, n), dtype, dev),
+            (torch.sigmoid(_randn(rng, (bh, t, n), torch.float32, dev)) * 0.5
+             + 0.45).to(dtype),
+            _randn(rng, (n,), dtype, dev, 0.1))
+
+
+@pytest.mark.parametrize("bh,t,n,chunk,dtype", [
+    (2, 64, 32, 32, torch.float32),           # T a multiple of chunk
+    (4, 128, 64, 32, torch.float32),
+    (3, 20, 64, 64, torch.float32),           # T below chunk
+    (2, 96, 64, 32, torch.bfloat16),
+])
+def test_rwkv6_kernel(card, bh, t, n, chunk, dtype):
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6
+    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6
+    ins = _rwkv_inputs(np.random.default_rng(bh * t), bh, t, n, dtype, card)
+    got = _twice_same(lambda: rwkv6(*ins, chunk), rk.LAUNCHES, "rwkv6_scan")
+    _hold(got, reference_rwkv6(*ins),
+          F32_TOL["scan"] if dtype == torch.float32 else BF16_TOL)
+
+
+def test_rwkv6_refuses(card):
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan
+    ins = _rwkv_inputs(np.random.default_rng(0), 2, 64, 64, torch.float32,
+                       card)
+    with pytest.raises(AssertionError):
+        rwkv6_scan(*(z[:, :40] if z.dim() == 3 else z for z in ins),
+                   chunk=32)
+    with pytest.raises(TypeError):
+        rwkv6_scan(*(z.double() for z in ins))
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan(ins[0].transpose(1, 2).contiguous().transpose(1, 2),
+                   *ins[1:])
+    narrow = _rwkv_inputs(np.random.default_rng(0), 2, 8, 48, torch.float32,
+                          card)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_scan(*narrow)

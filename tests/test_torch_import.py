@@ -7,6 +7,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -41,16 +42,22 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
         .removesuffix(".__init__")
         for path in PORT_FILES if path.name != "chip_smoke.py")
     assert "repro_torch.models.lazy_transformer" in modules
+    for kernel in ("flash_attention", "rmsnorm", "mamba_scan", "rwkv6_scan"):
+        for part in ("ref", "kernel", "ops"):
+            assert f"repro_torch.kernels.{kernel}.{part}" in modules
+    # neither JAX nor the JAX package, nor Triton (a kernel imports it when
+    # it launches), nor the CUDA library (built and loaded at first launch)
     code = (f"import sys, {', '.join(modules)}\n"
+            "from repro_torch.kernels import cuda_build\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
-            "print(bad)\n")
+            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "print(bad, cuda_build._lib)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    assert out.stdout.strip() == "[] None", out.stdout
 
 
 def test_runtime_needs_cuda_unless_cpu_is_asked(monkeypatch):
@@ -65,6 +72,59 @@ def test_runtime_needs_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lazy.zeros(4)                   # the process default runtime too
     assert lazy.Runtime(device="cpu").device.type == "cpu"
+
+
+def _one_op_block():
+    from repro_torch.core.ir import BaseArray, Op, View
+    n = 8
+    a, b = BaseArray(n, np.dtype(np.float64)), BaseArray(n, np.dtype(np.float64))
+    return [Op("mul", View.contiguous(b, (n,)), (View.contiguous(a, (n,)), 2.0),
+               new_bases=frozenset({b}))]
+
+
+def _entry_points():
+    """Every public entry point that takes a device, called without one
+    (``call()``) and with the CPU asked for (``call("cpu")``)."""
+    from repro_torch.core.backends import LoweringContext
+    from repro_torch.core.executor import BlockExecutor, make_block_fn
+    from repro_torch.kernels.fused_block import codegen, rowblock
+    from repro_torch.kernels.fused_block.kernel import build_fused_kernel
+    from repro_torch.kernels.fused_block.ops import fused_block_fn
+    from repro_torch.kernels.fused_block.ref import reference_block
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.transformer import init_cache
+    from test_torch_rowblock import _replay_ops
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=1, d_model=8,
+                      n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=11)
+    ops = _one_op_block()
+    return {
+        "fused_block_fn": lambda **kw: fused_block_fn(ops, **kw),
+        "build_fused_kernel": lambda **kw: build_fused_kernel(ops, **kw),
+        "build_block_kernel": lambda **kw: codegen.build_block_kernel(ops, **kw),
+        "build_rowblock_kernel": lambda **kw: rowblock.build_rowblock_kernel(
+            _replay_ops(2, 4), **kw),
+        "make_block_fn": lambda **kw: make_block_fn(ops, **kw),
+        "BlockExecutor": lambda **kw: BlockExecutor(**kw),
+        "LoweringContext": lambda **kw: LoweringContext(**kw),
+        "init_cache": lambda **kw: init_cache(cfg, 1, 4, **kw),
+        "reference_block": lambda **kw: reference_block(ops, **kw),
+    }
+
+
+ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
+                "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
+                "LoweringContext", "init_cache", "reference_block"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, name):
+    """Without a card an entry point raises instead of running on the CPU
+    behind the caller's back; asked for the CPU, it runs there."""
+    call = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    call(device="cpu")
 
 
 def test_deferred_options_raise():

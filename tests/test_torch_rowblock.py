@@ -100,7 +100,7 @@ def test_slugs_matchers_and_decisions_match_reference(name):
     from repro.kernels.rmsnorm.block import match as r_norm
     blocks = blocks_of(name)
     assert blocks
-    ctx = LoweringContext()
+    ctx = LoweringContext(device="cpu")
     for rops, pops, decision in blocks:
         assert rowblock.rowblock_lower_reason(pops) == ref_reason(rops)
         assert fa_block.match(pops) == r_fa(rops)
@@ -139,14 +139,14 @@ def test_plain_version_matches_reference_kernel_and_floor(name):
     claimed = _claimed(name)
     for k, (rops, pops) in enumerate(claimed):
         rfn, rins, routs = ref_build(rops, interpret=True)
-        fn, ins, outs = rowblock.build_rowblock_kernel(pops)
+        fn, ins, outs = rowblock.build_rowblock_kernel(pops, device="cpu")
         assert len(ins) == len(rins) and len(outs) == len(routs)
         arrays = _inputs(rops, rins, seed=k)
         want = [np.asarray(x) for x in jax.jit(rfn)(
             *arrays, jax.numpy.zeros((0,), jax.numpy.int32))]
         bufs = [torch.from_numpy(a.copy()) for a in arrays]
         got = [t.numpy() for t in fn(*bufs, ())]
-        floor, _, _ = make_block_fn(pops)
+        floor, _, _ = make_block_fn(pops, device="cpu")
         for g, f in zip(got, floor(*bufs, ())):
             np.testing.assert_array_equal(g, f.numpy())
         ocs = {op.opcode for op in pops if not op.is_system()}
@@ -232,7 +232,7 @@ def test_decline_slugs_match_reference(case):
     assert want == case.replace("_1d", "")
     assert rowblock.rowblock_lower_reason(to_port(rops)) == want
     with pytest.raises(codegen.FusedBlockUnsupported) as ei:
-        rowblock.build_rowblock_kernel(to_port(rops))
+        rowblock.build_rowblock_kernel(to_port(rops), device="cpu")
     assert ei.value.reason == want
 
 
@@ -261,13 +261,13 @@ def test_multi_reduction_replay_bitwise(r, c):
     rops = to_reference(pops)
     assert ref_reason(rops) is None and rowblock.rowblock_lower_reason(pops) is None
     rfn, rins, routs = ref_build(rops, interpret=True)
-    fn, ins, outs = rowblock.build_rowblock_kernel(pops)
+    fn, ins, outs = rowblock.build_rowblock_kernel(pops, device="cpu")
     assert len(outs) == len(routs) == 4          # s, o, m, o2
     arrays = [(a - 8).astype(a.dtype) if a.dtype != np.bool_ else a
               for a in _inputs(rops, rins, seed=r * c)]
     want = jax.jit(rfn)(*arrays, jax.numpy.zeros((0,), jax.numpy.int32))
     bufs = [torch.from_numpy(a.copy()) for a in arrays]
-    floor, _, _ = make_block_fn(pops)
+    floor, _, _ = make_block_fn(pops, device="cpu")
     for g, w, f in zip(fn(*bufs, ()), want, floor(*bufs, ())):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         np.testing.assert_array_equal(g.numpy(), f.numpy())
@@ -297,7 +297,7 @@ def test_generated_sources_parse():
 
 
 def test_wrapper_interface_matches_fused_block_kernel():
-    fn, _, _ = rowblock.build_rowblock_kernel(_replay_ops(4, 8))
+    fn, _, _ = rowblock.build_rowblock_kernel(_replay_ops(4, 8), device="cpu")
     assert isinstance(fn, rowblock.RowBlockKernel)
     assert fn.plan.domain == (4, 8) and fn.plan.N == 32
     assert len(fn.plan.nodes) == 6 and fn.draw_random((), "cpu") == []

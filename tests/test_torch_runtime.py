@@ -111,7 +111,7 @@ def test_lowering_picks_the_first_claimant_in_preference_order():
     n = 16
     a, b = BaseArray(n, np.dtype(np.float64)), BaseArray(n, np.dtype(np.float64))
     plan = SimpleNamespace(signature=None, op_indices=(0,))
-    ctx = LoweringContext()
+    ctx = LoweringContext(device="cpu")
     fused = [Op("mul", View.contiguous(b, (n,)),
                 (View.contiguous(a, (n,)), 2.0), new_bases=frozenset({b}))]
     reversed_read = [Op("copy", View.contiguous(b, (n,)),
