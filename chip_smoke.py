@@ -49,10 +49,13 @@ Qwen1.5-4B's and Gemma2-9B's widths, the Mamba scan (B5, CUDA) of a
 Jamba-v0.1 layer and the RWKV6 scan (B6, CUDA) of an RWKV6-3B layer —
 with inputs from a seeded ``torch.Generator`` on the card.  The ops run
 once with every launch count at 0 (the phase's main path); then each case
-is held against its plain version on the same inputs (``MODEL_TOL``), run
-again for a bitwise-equal result, and timed (kernel, plain version and,
+is held against its plain version on the same inputs, element by element
+(``MODEL_TOL``, ``BF16_RTOL``), run again for a bitwise-equal result, and
+timed (the kernel as a CUDA graph of its launch, the plain version and,
 where one PyTorch call computes the same function, that call) beside its
-bound.
+bound.  The Gemma2-9B attention case also holds two planted faults — the
+window one key tile (32 keys) short and one key short — to the same check,
+and fails unless the check rejects both.
 
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line (B1-B6), the card's name and power limit,
@@ -102,11 +105,15 @@ F32_EPS = float(np.finfo(np.float32).eps)
 #: bfloat16 products on the tensor cores at the data sheet's 989e12
 #: FLOP/s, 494.5e12 multiply-adds per second
 TC_BF16_MACS_PER_S = 989e12 / 2
-#: kernel vs plain version on the card, max abs error: the reference's own
-#: tolerances (tests/test_kernels.py) — float32 attention and norm 2e-5,
-#: scans 3e-4 (sums in other orders), bfloat16 outputs 3e-2 (one rounding)
+#: kernel vs plain version on the card, per element |err| <= rtol·|plain| +
+#: atol.  atol is the reference's own float32 tolerance (tests/
+#: test_kernels.py): attention and norm 2e-5, scans 3e-4 (sums in other
+#: orders); rtol is 0 for float32 outputs.  bfloat16 outputs: both sides
+#: compute in float32 and round once, so beyond the float32 difference they
+#: differ by at most one bf16 ulp, 2^-7 of the value: rtol BF16_RTOL
 MODEL_TOL = {"flash_attention": 2e-5, "rmsnorm": 2e-5, "mamba_scan": 3e-4,
-             "rwkv6_scan": 3e-4, "bfloat16": 3e-2}
+             "rwkv6_scan": 3e-4}
+BF16_RTOL = 2.0 ** -7
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -515,8 +522,8 @@ def _attention_work(q, k, causal, window, softcap):
     """Bytes (q, k, v read once, o written once) and operations of one
     attention call: 2·D multiply-adds (QKᵀ and PV) per unmasked (query,
     key) pair on the inputs' unit, and the softmax's elementwise work per
-    pair (mask, max, subtract, exp, sum; the softcap's divide, tanh and
-    multiply) in float32."""
+    pair (max, subtract, exp, sum; the softcap's divide, tanh and multiply)
+    in float32."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
     qp = np.arange(sq)
@@ -526,7 +533,7 @@ def _attention_work(q, k, causal, window, softcap):
     pairs = int(np.where(per_row > 0, per_row, sk).sum()) * b * hq
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     macs = 2 * d * pairs
-    elem = (5 + (3 if softcap is not None else 0)) * pairs
+    elem = (4 + (3 if softcap is not None else 0)) * pairs
     if q.dtype == torch.bfloat16:
         return nbytes, {"tensor_bf16": macs, "float32": elem}
     return nbytes, {"float32": macs + elem}
@@ -579,7 +586,12 @@ def _model_cases(gen):
         plain=lambda a: reference_attention(*a[:3], causal=True, window=4096,
                                             softcap=50.0),
         work=_attention_work(q, k, True, 4096, 50.0),
-        library=("none: scaled_dot_product_attention has no softcap", None)))
+        library=("none: scaled_dot_product_attention has no softcap", None),
+        # what a kernel whose window bound is off by one key tile (32 keys
+        # at D 256) or by one key would return: the check must reject both
+        faults={f"window {w}": lambda a, w=w: reference_attention(
+            *a[:3], causal=True, window=w, softcap=50.0)
+            for w in (4096 - 32, 4096 - 1)}))
     # B4 — Qwen1.5-4B d_model 2560 over 4 x 512 tokens; Gemma2-9B d_model
     # 3584 (1 + g scale) over 8192 tokens
     for label, shape, plus_one, dtype in (
@@ -599,7 +611,6 @@ def _model_cases(gen):
             work=(4 * x.numel() * x.element_size() + g.numel()
                   * g.element_size(), {"float32": 5 * n * d + 3 * n + d}),
             library=("none; two calls, x + r then F.rms_norm", None),
-            graph=True,
             two_calls=lambda a, d=d, g_eff=g_eff: F.rms_norm(
                 a[0] + a[1], (d,), weight=g_eff, eps=1e-6)))
     # B5 — src/repro/configs/jamba_v01_52b.py: d_model 4096, expand 2 ->
@@ -616,7 +627,9 @@ def _model_cases(gen):
               {"float32": bsz * t * di * (5 * ds + 2)}),
         library=("none: no PyTorch call computes a selective scan", None),
         plain_reps=3))
-    # B6 — src/repro/configs/rwkv6_3b.py: 40 heads of 64; batch 8 x 2048
+    # B6 — src/repro/configs/rwkv6_3b.py: 40 heads of 64; batch 8 x 2048.
+    # Per step and row: sum_i r_i S_ij, k_i v_j and w_i S_ij + k_i v_j,
+    # 3 N^2; the bonus (sum_i r_i u_i k_i) v_j, 3 N
     bh, t, n = 8 * 40, 2048, 64
     ins = (randn(bh, t, n), randn(bh, t, n, scale=0.3), randn(bh, t, n),
            torch.sigmoid(randn(bh, t, n)) * 0.5 + 0.45, randn(n, scale=0.1))
@@ -624,24 +637,31 @@ def _model_cases(gen):
         kernel="rwkv6_scan", label="RWKV6-3B BH 8x40 T2048 N64 f32",
         args=(*ins, 64), run=lambda a: rw.rwkv6(*a),
         plain=lambda a: reference_rwkv6(*a[:5]),
-        work=((5 * bh * t * n + n) * 4, {"float32": bh * t * (4 * n * n + 3 * n)}),
+        work=((5 * bh * t * n + n) * 4,
+              {"float32": bh * t * (3 * n * n + 3 * n)}),
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
     return cases
 
 
-def _max_abs(got, want) -> float:
+def _hold(got, want, rtol, atol):
+    """``got`` against ``want`` (tensors or tuples of them), element by
+    element: returns the max abs error and the largest share of its
+    allowance ``rtol·|want| + atol`` any element takes (at most 1 passes)."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = 0.0
+    err = share = 0.0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             raise AssertionError(f"{tuple(g.shape)} {g.dtype} != "
                                  f"{tuple(w.shape)} {w.dtype}")
         if not torch.isfinite(g).all():
             raise AssertionError("non-finite kernel output")
-        err = max(err, float((g.double() - w.double()).abs().max()))
-    return err
+        w = w.double()
+        d = (g.double() - w).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / (rtol * w.abs() + atol)).max()))
+    return err, share
 
 
 def run_model_kernels() -> dict:
@@ -683,18 +703,27 @@ def run_model_kernels() -> dict:
     for case, out in zip(cases, outs):
         name, a = case["kernel"], case["args"]
         first = out if isinstance(out, tuple) else (out,)
-        dtype = first[0].dtype
-        err = _max_abs(out, case["plain"](a))
-        tol = MODEL_TOL["bfloat16" if dtype == torch.bfloat16 else name]
-        if not err <= tol:
+        rtol = BF16_RTOL if first[0].dtype == torch.bfloat16 else 0.0
+        atol = MODEL_TOL[name]
+        plain = case["plain"](a)
+        err, share = _hold(out, plain, rtol, atol)
+        if not share <= 1.0:
             raise AssertionError(f"{case['label']}: kernel vs plain max abs "
-                                 f"err {err} > {tol}")
+                                 f"err {err}, {share:.3g}x its allowance "
+                                 f"{rtol:.3g}|plain| + {atol}")
+        faults = {}
+        for what, fault in case.get("faults", {}).items():
+            faults[what] = _hold(fault(a), plain, rtol, atol)[1]
+            if not faults[what] > 1.0:
+                raise AssertionError(f"{case['label']}: the check passes a "
+                                     f"planted fault ({what}: "
+                                     f"{faults[what]:.3g}x the allowance)")
+        del plain
         again = case["run"](a)
         again = again if isinstance(again, tuple) else (again,)
         if not all(torch.equal(x, y) for x, y in zip(first, again)):
             raise AssertionError(f"{case['label']}: two runs differ")
-        ms = graph_ms(lambda: case["run"](a)) if case.get("graph") else \
-            cuda_ms(lambda: case["run"](a))
+        ms = graph_ms(lambda: case["run"](a))
         reps = case.get("plain_reps", 10)
         plain_ms = cuda_ms(lambda: case["plain"](a), reps=reps,
                            burst=1 if reps < 10 else 5)
@@ -705,14 +734,17 @@ def run_model_kernels() -> dict:
         two_ms = cuda_ms(lambda: case["two_calls"](a)) \
             if "two_calls" in case else None
         torch.cuda.empty_cache()
-        row = {"label": case["label"], "max_abs_err": err, "tol": tol,
+        row = {"label": case["label"], "max_abs_err": err, "share": share,
                "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library": lib_name, "library_ms": library_ms,
                "two_calls_ms": two_ms}
         results.setdefault(name, []).append(row)
         print(f"MODEL {name} [{case['label']}]: max_abs_err={err:.3g} "
-              f"(tol {tol}) bitwise_rerun=True kernel_ms={ms:.4f} "
+              f"allowance_share={share:.3g} (|err| <= {rtol:.3g}|plain| + "
+              f"{atol})" + "".join(f" fault[{w}]_share={s:.3g}"
+                                   for w, s in faults.items())
+              + f" bitwise_rerun=True kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bytes={nbytes} ops={ops} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound="
               f"{ms / bound_ms:.2f} library={lib_name}"

@@ -33,7 +33,10 @@
 // * tiles are staged in dynamic shared memory (Q and K transposed, rows
 //   padded by one float against bank conflicts): 141 KB at D = 256, above
 //   the 48 KB static limit, so the launcher raises the kernel's limit with
-//   cudaFuncSetAttribute and returns its error if that is refused.
+//   cudaFuncSetAttribute (once per device) and returns its error if that is
+//   refused.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -42,6 +45,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;  // 16 x 16: ty picks rows, tx picks columns
 constexpr int BQ = 64;        // query rows per block
 constexpr int RI = BQ / 16;   // query rows per thread
+constexpr int kMaxDevices = 64;
 
 template <int D, int BK>
 constexpr size_t smem_floats() {
@@ -205,9 +209,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
            int window, int use_softcap, float softcap, cudaStream_t stream) {
   const size_t smem = smem_floats<D, BK>() * sizeof(float);
   auto kern = flash_fwd<T, D, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  // the limit is raised once per device, so a launch captured in a CUDA
+  // graph after a first launch makes no attribute call
+  static std::atomic<bool> raised[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!raised[dev].load()) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    raised[dev].store(true);
+  }
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -6,21 +6,26 @@
 //     o_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //     S[i][j] <- w_t[i] * S[i][j] + k_t[i] * v_t[j]
 // The state stays on chip for the whole sequence, so device memory sees
-// r, k, v, w and o only.
+// r, k, v, w and o only.  The bonus term factors:
+//     o_t[j] = sum_i r_t[i] * S[i][j] + c_t * v_t[j],
+//     c_t = sum_i r_t[i] * u[i] * k_t[i],
+// so each state element costs three operations a step (an FMA into o, the
+// product k_i v_j, an FMA into S) and the bonus O(N).
 //
-// What bounds it on an H100: about 4 N operations per output element
-// against 5 elements moved -- near the card's operations-per-byte ratio
-// in float32, and the recurrence is sequential in T.  What limits this
-// kernel is the issue rate of each row's serial chain and the number of
-// rows in flight (one block per row).
+// What bounds it on an H100: 3 N operations per output element against 5
+// elements moved -- near the card's operations-per-byte ratio in float32,
+// and the recurrence is sequential in T.  What limits this kernel is the
+// issue rate of each row's serial chain and the number of rows in flight
+// (one block per row).
 //
 // Design:
 // * the TPU's sequential chunk grid axis becomes one loop over T inside
 //   the block; one block per (batch x head) row, N threads, thread j
 //   owning the state column S[:, j] in registers;
 // * 32 steps of r, k, w and v are staged in shared memory at a time
-//   (coalesced row loads); every thread reads the same r_i, k_i, w_i, u_i
-//   (broadcasts, four at a time as float4), its own v_j;
+//   (coalesced row loads); every thread reads the same r_i, k_i, w_i
+//   (broadcasts, four at a time as float4), its own v_j; thread t then
+//   sums the staged step t's bonus c_t, so no thread repeats it;
 // * the sum over i runs in four interleaved partial sums, added in a
 //   fixed order, so every run gives the same bits;
 // * the wrapper keeps the TPU kernel's `t % chunk == 0 or t < chunk`
@@ -39,8 +44,9 @@ __global__ void __launch_bounds__(N)
   __shared__ __align__(16) float rs[TC][N];
   __shared__ __align__(16) float ks[TC][N];
   __shared__ __align__(16) float ws[TC][N];
-  __shared__ __align__(16) float us[N];
+  __shared__ float us[N];
   __shared__ float vs[TC][N];
+  __shared__ float cs[TC];  // c_t of the staged steps
 
   const int j = threadIdx.x;
   const size_t base = size_t(blockIdx.x) * Tn * N;
@@ -60,30 +66,37 @@ __global__ void __launch_bounds__(N)
       vs[t][j] = to_float(v[g]);
     }
     __syncthreads();
+    for (int t = j; t < n; t += N) {
+      // thread t starts at column t, so the warp's reads hit 32 banks
+      float c = 0.f;
+      for (int ii = 0; ii < N; ++ii) {
+        const int i = (ii + t) % N;
+        c = fmaf(rs[t][i] * us[i], ks[t][i], c);
+      }
+      cs[t] = c;
+    }
+    __syncthreads();
     for (int t = 0; t < n; ++t) {
       const float vj = vs[t][j];
       const float4* r4 = reinterpret_cast<const float4*>(rs[t]);
       const float4* k4 = reinterpret_cast<const float4*>(ks[t]);
       const float4* w4 = reinterpret_cast<const float4*>(ws[t]);
-      const float4* u4 = reinterpret_cast<const float4*>(us);
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int i4 = 0; i4 < N / 4; ++i4) {
-        const float4 rv = r4[i4], kv = k4[i4], wv = w4[i4], uv = u4[i4];
+        const float4 rv = r4[i4], kv = k4[i4], wv = w4[i4];
         const float rr[4] = {rv.x, rv.y, rv.z, rv.w};
         const float kk[4] = {kv.x, kv.y, kv.z, kv.w};
         const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-        const float uu[4] = {uv.x, uv.y, uv.z, uv.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * i4 + e;
-          const float kvij = kk[e] * vj;
-          acc[e] = fmaf(rr[e], S[i] + uu[e] * kvij, acc[e]);
-          S[i] = fmaf(ww[e], S[i], kvij);
+          acc[e] = fmaf(rr[e], S[i], acc[e]);
+          S[i] = fmaf(ww[e], S[i], kk[e] * vj);
         }
       }
-      o[base + size_t(t0 + t) * N + j] =
-          from_float<T>((acc[0] + acc[1]) + (acc[2] + acc[3]));
+      o[base + size_t(t0 + t) * N + j] = from_float<T>(
+          fmaf(cs[t], vj, (acc[0] + acc[1]) + (acc[2] + acc[3])));
     }
   }
 }

@@ -34,19 +34,16 @@ LAUNCHES = {"flash_attention": 0}
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None, block_q: int = 128,
-                    block_k: int = 128) -> torch.Tensor:
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: ``(B, Hq, Sq, D)``; k, v: ``(B, Hkv, Sk, D)`` with ``Hq % Hkv ==
-    0``.  Returns ``(B, Hq, Sq, D)`` in ``q.dtype``.  ``block_q`` and
-    ``block_k`` are the TPU kernel's tile sizes, kept for its signature:
-    the card's tiles follow from ``D`` (64 queries by 64 or 32 keys)."""
+    0``.  Returns ``(B, Hq, Sq, D)`` in ``q.dtype``.  The TPU kernel's
+    ``block_q``/``block_k`` have no counterpart: the card's tiles follow
+    from ``D`` (64 queries by 64 or 32 keys)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[1] % k.shape[1]:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if block_q < 1 or block_k < 1:
-        raise ValueError(f"block sizes {block_q}, {block_k}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
