@@ -57,12 +57,35 @@ bound.  The Gemma2-9B attention case also holds two planted faults — the
 window one key tile (32 keys) short and one key short — to the same check,
 and fails unless the check rejects both.
 
+The model-kernel phase also runs the chunk-parallel RWKV6 kernel (B7,
+CUDA) on the RWKV6-3B layer's inputs of B6's case, so the two are timed on
+the same work.
+
+Then the RWKV6-3B serving path (``run_rwkv``): ``configs/rwkv6_3b.py`` at
+its published widths and all 32 layers (d_model 2560, 40 heads of 64,
+d_ff 8960, vocab 65536; bfloat16 compute, float32 parameters), random
+weights from a seeded ``torch.Generator`` on the card with the norm gains
+drawn around 1 and each layer's decay logits ``w0`` set to RWKV-LM's
+RWKV-v6 ``time_decay`` initialisation (-6 to -1 across the channels).  It
+serves 4 requests of ragged lengths (drawn as the launcher draws them,
+left-padded to 512 tokens) in one batch through
+``launch.serve.serve_requests`` — prefill, then 16 greedy tokens — with
+every launch count at 0 just before, and requires 32 B7 launches for the
+prefill and 32 B6 launches per decode step.  It holds the first and the
+last layer's B7 (prefill) and B6 (first decode step) calls against their
+plain versions on the recorded inputs (outputs as above, final states in
+float32 at ``MODEL_TOL``), reruns a B7 call for a bitwise-equal result,
+requires prefill(P) followed by ``RWKV_EXTEND`` decode tokens to give the
+last-position logits of prefill(P + those tokens) within ``RWKV_RTOL`` of
+their largest magnitude, every logit finite, and times the warm prefill,
+the decode step and one layer against its B7 call.
+
 It then measures the per-block launch cost the ``gpu`` cost model uses,
-prints a ``kernels`` JSON line (B1-B6), the card's name and power limit,
+prints a ``kernels`` JSON line (B1-B7), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises (exit code
 1).  The Triton kernels are generated and compiled under ``build/`` as the
-run needs them; the CUDA kernels are compiled by one ``nvcc`` call into
-``build/cuda/`` at their first launch.
+run needs them; the CUDA kernels are compiled into ``build/cuda/`` at
+their first launch, one ``nvcc`` per source at once, then linked.
 """
 
 from __future__ import annotations
@@ -112,8 +135,22 @@ TC_BF16_MACS_PER_S = 989e12 / 2
 #: compute in float32 and round once, so beyond the float32 difference they
 #: differ by at most one bf16 ulp, 2^-7 of the value: rtol BF16_RTOL
 MODEL_TOL = {"flash_attention": 2e-5, "rmsnorm": 2e-5, "mamba_scan": 3e-4,
-             "rwkv6_scan": 3e-4}
+             "rwkv6_scan": 3e-4, "rwkv6_chunked": 3e-4}
 BF16_RTOL = 2.0 ** -7
+#: the RWKV6-3B serving run: 4 requests in one batch, prompts left-padded
+#: to 512 tokens, 16 greedy tokens (a prefill and 15 decode steps)
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW_TOKENS = 4, 512, 16
+#: decode tokens after prefill(P), held against prefill(P + those tokens)
+RWKV_EXTEND = 4
+#: ... within these fractions of the largest logit magnitude, about 10x
+#: the measured on an H100 (0.067 and 0.063 in bfloat16, 4.8e-4 in
+#: float32).  In the published bfloat16 the two runs differ by bf16
+#: products of other shapes (4 rows a decode step against 2064 a prefill)
+#: rounding at other places, compounded over 32 random layers: a loose
+#: check.  The same weights computing in float32 take most of that noise
+#: away and hold B6's state, carried token by token, against B7's chunks
+#: 130x tighter
+RWKV_RTOL = {"bfloat16": 0.7, "float32": 5e-3}
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -558,7 +595,8 @@ def _model_cases(gen):
     from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm
     from repro_torch.kernels.rwkv6_scan import ops as rw
-    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
@@ -641,6 +679,16 @@ def _model_cases(gen):
               {"float32": bh * t * (3 * n * n + 3 * n)}),
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
+    # B7 on B6's inputs: the same function, in chunks of 32 tokens; the
+    # bound counts the function's work, as B6's does
+    cases.append(dict(
+        kernel="rwkv6_chunked", label="RWKV6-3B BH 8x40 T2048 N64 f32, "
+        "B6's inputs", args=(*ins, 32), run=lambda a: rw.rwkv6_chunked(*a),
+        plain=lambda a: reference_rwkv6_chunked(*a[:5]),
+        work=((5 * bh * t * n + n) * 4,
+              {"float32": bh * t * (3 * n * n + 3 * n)}),
+        library=("none: no PyTorch call computes the RWKV6 recurrence", None),
+        plain_reps=3))
     return cases
 
 
@@ -665,25 +713,27 @@ def _hold(got, want, rtol, atol):
 
 
 def run_model_kernels() -> dict:
-    """The standalone model kernels B3-B6 through their public ops at model
+    """The standalone model kernels B3-B7 through their public ops at model
     widths (see the module doc).  Returns per-kernel results."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.mamba_scan import kernel as ms_k
     from repro_torch.kernels.rmsnorm import kernel as rn_k
     from repro_torch.kernels.rwkv6_scan import kernel as rw_k
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as rc_k
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     counters = {"flash_attention": fa_k.LAUNCHES, "rmsnorm": rn_k.LAUNCHES,
-                "mamba_scan": ms_k.LAUNCHES, "rwkv6_scan": rw_k.LAUNCHES}
+                "mamba_scan": ms_k.LAUNCHES, "rwkv6_scan": rw_k.LAUNCHES,
+                "rwkv6_chunked": rc_k.LAUNCHES}
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = _model_cases(gen)
     t0 = time.perf_counter()
     lib = cuda_build.library()
-    print(f"MODEL CUDA build: {time.perf_counter() - t0:.1f}s (one nvcc "
-          f"call, {len(cuda_build.sources())} sources) -> {lib._name}",
-          flush=True)
+    print(f"MODEL CUDA build: {time.perf_counter() - t0:.1f}s "
+          f"({len(cuda_build.sources())} sources, one nvcc each at once, "
+          f"then a link) -> {lib._name}", flush=True)
     print(cuda_build.ptxas_report(), flush=True)
 
     # -- the main path: every op once, counts zeroed just before it --------
@@ -755,6 +805,233 @@ def run_model_kernels() -> dict:
     return {"launches": launches, "cases": results}
 
 
+class OpRecorder:
+    """While active, wraps ``module.name``: counts its calls and keeps the
+    arguments and the result of the calls numbered in ``keep``."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, set(keep)
+        self.orig = getattr(module, name)
+        self.n = 0
+        self.calls = {}
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            out = self.orig(*args, **kw)
+            if self.n in self.keep:
+                self.calls[self.n] = (args, kw, out)
+            self.n += 1
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def rwkv_time_decay(n_layers: int, d: int) -> torch.Tensor:
+    """Each layer's ``w0`` as RWKV-LM's RWKV-v6 ``time_decay``
+    initialisation sets it: channel ``c`` of layer ``l`` at ``-6 + 5·(c /
+    (d-1))^(0.7 + 1.3·l/(n_layers-1))``, so the decay ``exp(-exp(w0))``
+    spans 0.9975 to 0.69."""
+    c = torch.arange(d, dtype=torch.float64, device="cuda") / (d - 1)
+    ratio = torch.arange(n_layers, dtype=torch.float64,
+                         device="cuda")[:, None] / (n_layers - 1)
+    return (-6.0 + 5.0 * c[None] ** (0.7 + 1.3 * ratio)).to(torch.float32)
+
+
+def _rwkv_work(args, kw) -> tuple:
+    """Bytes (r, k, v, w, u and the states read once, o and the final state
+    written once) and float32 operations (3 N² + 3 N per step and row, as
+    B6's bound counts) of one recorded RWKV6 op call."""
+    r, k, v, w, u = args
+    bh, t, n = r.shape
+    state = kw.get("state")
+    nbytes = sum(z.numel() * z.element_size() for z in (r, k, v, w, u))
+    nbytes += r.numel() * r.element_size()             # o, in r's dtype
+    nbytes += 4 * bh * n * n * ((state is not None) + bool(
+        kw.get("return_state")))
+    return nbytes, {"float32": bh * t * (3 * n * n + 3 * n)}
+
+
+def run_rwkv() -> dict:
+    """The RWKV6-3B serving path at full width and depth (see the module
+    doc).  Returns the kernels' launches and the held and timed calls."""
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.kernels.rwkv6_scan import kernel as rw_k
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as rc_k
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    from repro_torch.launch.serve import draw_prompts, serve_requests
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = rwkv6_3b.CONFIG
+    L = cfg.n_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen, "cuda")
+    # the reference's zero norm gains (plain g, no 1+g for RWKV6) would
+    # zero every activation: draw them around 1; the decay logits follow
+    # RWKV-LM's initialisation instead of the reference's flat -6
+    layers = params["groups"]["l0"]
+    for norm in (layers["norm1"], layers["norm2"], params["final_norm"]):
+        norm["g"] = 1.0 + 0.1 * torch.randn(norm["g"].shape, generator=gen,
+                                            device="cuda")
+    layers["mixer"]["w0"] = rwkv_time_decay(L, cfg.d_model)
+    n_params = sum(z.numel() for z in _leaves(params))
+    prompts = draw_prompts(0, RWKV_BATCH, RWKV_PROMPT, cfg.vocab_size)
+    heads = cfg.d_model // cfg.rwkv.head_dim
+    print(f"RWKV config {cfg.name} layers={L} d_model={cfg.d_model} "
+          f"heads={heads}x{cfg.rwkv.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype} "
+          f"param_dtype={cfg.param_dtype} params={n_params} requests="
+          f"{RWKV_BATCH} prompt_lengths={[len(p) for p in prompts]} "
+          f"max_prompt={RWKV_PROMPT} new_tokens={RWKV_NEW_TOKENS} "
+          f"w0 in [{float(layers['mixer']['w0'].min()):.3f}, "
+          f"{float(layers['mixer']['w0'].max()):.3f}]", flush=True)
+
+    # -- the main path: serve_requests, counts zeroed just before it -------
+    with OpRecorder(rw_ops, "rwkv6_chunked", {0, L - 1}) as rec7, \
+            OpRecorder(rw_ops, "rwkv6", {0, L - 1}) as rec6:
+        rc_k.LAUNCHES["rwkv6_chunked"] = 0
+        rw_k.LAUNCHES["rwkv6_scan"] = 0
+        tokens, times = serve_requests(cfg, params, prompts,
+                                       batch=RWKV_BATCH,
+                                       max_prompt=RWKV_PROMPT,
+                                       new_tokens=RWKV_NEW_TOKENS)
+        torch.cuda.synchronize()
+        launches = {"rwkv6_chunked": rc_k.LAUNCHES["rwkv6_chunked"],
+                    "rwkv6_scan": rw_k.LAUNCHES["rwkv6_scan"]}
+    steps = RWKV_NEW_TOKENS - 1
+    print(f"RWKV main path (serve_requests): launches {launches}; "
+          f"op calls B7 {rec7.n} B6 {rec6.n}", flush=True)
+    if launches != {"rwkv6_chunked": L, "rwkv6_scan": L * steps}:
+        raise AssertionError(f"RWKV: want {L} B7 launches per prefill and "
+                             f"{L} B6 launches per decode step x {steps}, "
+                             f"got {launches}")
+    gen_tokens = np.stack(tokens)
+    if gen_tokens.shape != (RWKV_BATCH, RWKV_NEW_TOKENS) \
+            or not ((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"RWKV: generated {gen_tokens}")
+
+    # -- the recorded calls against their plain versions -------------------
+    held = {}
+    for name, rec, plain in (("rwkv6_chunked", rec7, reference_rwkv6_chunked),
+                             ("rwkv6_scan", rec6, reference_rwkv6)):
+        for i, (args, kw, out) in sorted(rec.calls.items()):
+            o, st = out
+            po, pst = plain(*args, state=kw["state"], return_state=True)
+            err_o, share_o = _hold(o, po, BF16_RTOL if o.dtype ==
+                                   torch.bfloat16 else 0.0, MODEL_TOL[name])
+            err_s, share_s = _hold(st, pst, 0.0, MODEL_TOL[name])
+            what = f"RWKV {name} layer {i % L}"
+            if not max(share_o, share_s) <= 1.0:
+                raise AssertionError(f"{what}: kernel vs plain o err {err_o} "
+                                     f"({share_o:.3g}x), state err {err_s} "
+                                     f"({share_s:.3g}x its allowance)")
+            held[(name, i % L)] = (err_o, share_o, err_s, share_s)
+            print(f"{what}: r/k/v {args[0].dtype} {tuple(args[0].shape)}, "
+                  f"w {args[3].dtype}, u {tuple(args[4].shape)}, state in "
+                  f"{kw['state'] is not None}: o max_abs_err={err_o:.3g} "
+                  f"allowance_share={share_o:.3g} (|err| <= "
+                  f"{BF16_RTOL:.3g}|plain| + {MODEL_TOL[name]}); final state "
+                  f"max_abs_err={err_s:.3g} allowance_share={share_s:.3g} "
+                  f"(|err| <= {MODEL_TOL[name]}); |state| max "
+                  f"{float(pst.abs().max()):.4g}", flush=True)
+    args7, kw7, out7 = rec7.calls[0]
+    again = rw_ops.rwkv6_chunked(*args7, **kw7)
+    if not all(torch.equal(x, y) for x, y in zip(out7, again)):
+        raise AssertionError("RWKV: two runs of a B7 call differ")
+    del again
+
+    # -- prefill(P) + decode tokens against prefill(P + tokens) ------------
+    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, RWKV_PROMPT - len(p):] = p
+    longer_toks = np.concatenate([toks, gen_tokens[:, :RWKV_EXTEND]], 1)
+    max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
+    (logits, _), warm_s = _timed(
+        lambda: T.serve_prefill(params, toks, cfg, max_seq))
+    if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(),
+                          gen_tokens[:, 0]):
+        raise AssertionError("RWKV: a rerun of the prefill picks other "
+                             "tokens")
+    extend_err = {}
+    for dtype, bound in RWKV_RTOL.items():
+        c = cfg.scaled(dtype=dtype)
+        logits, cache = T.serve_prefill(params, toks, c, max_seq)
+        finite = [bool(torch.isfinite(logits).all())]
+        for i in range(RWKV_EXTEND):
+            logits, cache = T.serve_decode(params, cache,
+                                           gen_tokens[:, i:i + 1], c)
+            finite.append(bool(torch.isfinite(logits).all()))
+        longer, _ = T.serve_prefill(params, longer_toks, c, max_seq)
+        finite.append(bool(torch.isfinite(longer).all()))
+        if not all(finite):
+            raise AssertionError(f"RWKV {dtype}: non-finite logits {finite}")
+        err = extend_err[dtype] = _rel_err(logits, longer)
+        print(f"RWKV {dtype}: prefill({RWKV_PROMPT}) + {RWKV_EXTEND} decode "
+              f"tokens vs prefill({RWKV_PROMPT + RWKV_EXTEND}) (ragged last "
+              f"chunk): last-position logits max abs err / max magnitude = "
+              f"{err:.4g} (bound {bound}); max |logit| "
+              f"{float(longer.abs().max()):.4g}; every logit finite",
+              flush=True)
+        if not err <= bound:
+            raise AssertionError(f"RWKV {dtype}: decode after prefill off by "
+                                 f"{err} > {bound}")
+        del cache, logits, longer
+
+    # -- times ---------------------------------------------------------------
+    decode_ms = statistics.mean(times[0]["decode_s"][1:]) * 1e3
+    x = T._embed(params, T._tokens(params, toks), cfg)
+    lp = T._index(layers, 0)
+    state0 = T._index(T.init_cache(cfg, RWKV_BATCH, max_seq,
+                                   dtype=cfg.compute_dtype,
+                                   device="cuda")["l0"], 0)
+    layer_ms = cuda_ms(lambda: T._apply_layer(lp, x, cfg, "rwkv",
+                                              positions=None, cache=state0))
+    timed = {}
+    for name, rec, fn, plain in (
+            ("rwkv6_chunked", rec7, rc_k.rwkv6_chunked,
+             reference_rwkv6_chunked),
+            ("rwkv6_scan", rec6, rw_k.rwkv6_scan, reference_rwkv6)):
+        args, kw, _ = rec.calls[0]
+        nbytes, ops = _rwkv_work(args, kw)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        timed[name] = {
+            "ms": graph_ms(lambda: fn(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=3, burst=1),
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    share = timed["rwkv6_chunked"]["ms"] / layer_ms
+    for name, tm in timed.items():
+        print(f"RWKV {name} layer-0 call: kernel_ms={tm['ms']:.4f} "
+              f"plain_ms={tm['plain_ms']:.4f} bytes={tm['bytes']} "
+              f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}) "
+              f"kernel/bound={tm['ms'] / tm['bound_ms']:.2f} library=none",
+              flush=True)
+    print(f"RWKV timing: prefill_ms cold={times[0]['prefill_s'] * 1e3:.1f} "
+          f"warm={warm_s * 1e3:.1f} decode_ms_per_step (steps 2-{steps})="
+          f"{decode_ms:.2f} first_decode_ms="
+          f"{times[0]['decode_s'][0] * 1e3:.2f} layer_ms (prefill, one "
+          f"layer)={layer_ms:.4f} b7_ms={timed['rwkv6_chunked']['ms']:.4f} "
+          f"b7_share_of_layer={share:.4f} "
+          f"({time.perf_counter() - t_start:.1f}s for the RWKV phase)",
+          flush=True)
+    return {"launches": launches, "held": held, "extend_err": extend_err,
+            "timed": timed, "layer_ms": layer_ms, "warm_s": warm_s,
+            "decode_ms": decode_ms}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -817,6 +1094,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = run_model_kernels()
     torch.cuda.empty_cache()
+    rwkv = run_rwkv()
+    torch.cuda.empty_cache()
+    for name, n in rwkv["launches"].items():
+        model["launches"][name] += n
+    for (name, _), (err_o, _, err_s, _) in rwkv["held"].items():
+        for row in model["cases"][name]:
+            row["max_abs_err"] = max(row["max_abs_err"], err_o, err_s)
     launch_s = launch_cost_s(lazy, codegen)
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
@@ -856,7 +1140,11 @@ def main() -> int:
                      "src/repro/kernels/mamba_scan/kernel.py:48", model),
         _model_entry("rwkv6_scan", "cuda",
                      "src/repro_torch/csrc/rwkv6_scan.cu",
-                     "src/repro/kernels/rwkv6_scan/kernel.py:52", model)]}
+                     "src/repro/kernels/rwkv6_scan/kernel.py:52", model),
+        _model_entry("rwkv6_chunked", "cuda",
+                     "src/repro_torch/csrc/rwkv6_chunked.cu",
+                     "src/repro/kernels/rwkv6_scan/kernel_chunked.py:70",
+                     model)]}
     print(json.dumps(kernels))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

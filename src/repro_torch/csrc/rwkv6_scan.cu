@@ -29,7 +29,12 @@
 // * the sum over i runs in four interleaved partial sums, added in a
 //   fixed order, so every run gives the same bits;
 // * the wrapper keeps the TPU kernel's `t % chunk == 0 or t < chunk`
-//   check; the loop covers exactly T steps, so no step is padded.
+//   check; the loop covers exactly T steps, so no step is padded;
+// * the state comes in from an optional initial state and goes out to an
+//   optional final state (decode carries it from token to token), and the
+//   bonus u is per head, row b*H + h taking u[h];
+// * w, u and the states are float32 whatever r, k, v are: a decay of
+//   0.9975 rounded to bf16 would be 0.99609 or 1.
 #include "common.cuh"
 
 namespace {
@@ -39,8 +44,10 @@ constexpr int TC = 32;  // steps staged per pass
 template <typename T, int N>
 __global__ void __launch_bounds__(N)
     rwkv6_fwd(const T* __restrict__ r, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ w,
-              const T* __restrict__ u, T* __restrict__ o, int Tn) {
+              const T* __restrict__ v, const float* __restrict__ w,
+              const float* __restrict__ u, int H,
+              const float* __restrict__ s_in, float* __restrict__ s_out,
+              T* __restrict__ o, int Tn) {
   __shared__ __align__(16) float rs[TC][N];
   __shared__ __align__(16) float ks[TC][N];
   __shared__ __align__(16) float ws[TC][N];
@@ -50,10 +57,11 @@ __global__ void __launch_bounds__(N)
 
   const int j = threadIdx.x;
   const size_t base = size_t(blockIdx.x) * Tn * N;
-  us[j] = to_float(u[j]);
+  const size_t sbase = size_t(blockIdx.x) * N * N;
+  us[j] = u[size_t(blockIdx.x % H) * N + j];
   float S[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) S[i] = 0.f;
+  for (int i = 0; i < N; ++i) S[i] = s_in ? s_in[sbase + i * N + j] : 0.f;
 
   for (int t0 = 0; t0 < Tn; t0 += TC) {
     const int n = min(TC, Tn - t0);
@@ -62,7 +70,7 @@ __global__ void __launch_bounds__(N)
       const size_t g = base + size_t(t0 + t) * N + j;
       rs[t][j] = to_float(r[g]);
       ks[t][j] = to_float(k[g]);
-      ws[t][j] = to_float(w[g]);
+      ws[t][j] = w[g];
       vs[t][j] = to_float(v[g]);
     }
     __syncthreads();
@@ -99,41 +107,55 @@ __global__ void __launch_bounds__(N)
           fmaf(cs[t], vj, (acc[0] + acc[1]) + (acc[2] + acc[3])));
     }
   }
+  if (s_out) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) s_out[sbase + i * N + j] = S[i];
+  }
 }
 
 template <typename T, int N>
-int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, void* o, int BH, int Tn, cudaStream_t stream) {
+int launch(const void* r, const void* k, const void* v, const float* w,
+           const float* u, int H, const float* s_in, float* s_out, void* o,
+           int BH, int Tn, cudaStream_t stream) {
   rwkv6_fwd<T, N><<<BH, N, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w),
-      static_cast<const T*>(u), static_cast<T*>(o), Tn);
+      static_cast<const T*>(v), w, u, H, s_in, s_out, static_cast<T*>(o),
+      Tn);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int N, const void* r, const void* k, const void* v,
-             const void* w, const void* u, void* o, int BH, int Tn,
-             cudaStream_t st) {
+             const float* w, const float* u, int H, const float* s_in,
+             float* s_out, void* o, int BH, int Tn, cudaStream_t st) {
   switch (N) {
-    case 32: return launch<T, 32>(r, k, v, w, u, o, BH, Tn, st);
-    case 64: return launch<T, 64>(r, k, v, w, u, o, BH, Tn, st);
+    case 32: return launch<T, 32>(r, k, v, w, u, H, s_in, s_out, o, BH, Tn, st);
+    case 64: return launch<T, 64>(r, k, v, w, u, H, s_in, s_out, o, BH, Tn, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// r, k, v, w, o: (BH, T, N); u: (N,); all contiguous, of one dtype
-// (DTYPE_F32 or DTYPE_BF16); N in {32, 64}.
+// r, k, v, o: (BH, T, N) contiguous, of `dtype` (DTYPE_F32 or DTYPE_BF16);
+// w: (BH, T, N) float32; u: (H, N) float32, row b*H + h taking u[h];
+// s_in, s_out: (BH, N, N) float32 or null (zeros in; no state out);
+// N in {32, 64}.
 extern "C" int repro_rwkv6_scan_fwd(const void* r, const void* k,
                                     const void* v, const void* w,
-                                    const void* u, void* o, int dtype, int BH,
-                                    int Tn, int N, void* stream) {
+                                    const void* u, const void* s_in,
+                                    void* s_out, void* o, int dtype, int BH,
+                                    int Tn, int N, int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H < 1) return cudaErrorInvalidValue;
+  const float* wf = static_cast<const float*>(w);
+  const float* uf = static_cast<const float*>(u);
+  const float* si = static_cast<const float*>(s_in);
+  float* so = static_cast<float*>(s_out);
   if (dtype == DTYPE_F32)
-    return dispatch<float>(N, r, k, v, w, u, o, BH, Tn, st);
+    return dispatch<float>(N, r, k, v, wf, uf, H, si, so, o, BH, Tn, st);
   if (dtype == DTYPE_BF16)
-    return dispatch<__nv_bfloat16>(N, r, k, v, w, u, o, BH, Tn, st);
+    return dispatch<__nv_bfloat16>(N, r, k, v, wf, uf, H, si, so, o, BH, Tn,
+                                   st);
   return cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA C++ kernels.
 
-Every ``src/repro_torch/csrc/*.cu`` is compiled by ONE ``nvcc`` call for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
+Every ``src/repro_torch/csrc/*.cu`` is compiled for Hopper (``sm_90a``) by
+its own ``nvcc`` process, all started together, and the objects are linked
+by one more ``nvcc`` call into one shared library with a plain C interface,
 ``build/cuda/repro_torch_kernels_<hash>.so`` at the repository root, named
 by a hash of the sources and the flags, so a stale library is never
-loaded.  It is built at first use and loaded with :mod:`ctypes`; the
-compiler's report (``-Xptxas -v``: registers, shared memory, spills per
-kernel) is kept beside it in a ``.log`` file.
+loaded.  So the build takes as long as its slowest source, however many
+kernels there are.  It is built at first use and loaded with
+:mod:`ctypes`; the compiler's report (``-Xptxas -v``: registers, shared
+memory, spills per kernel) is kept beside it in a ``.log`` file.
 
 No source includes PyTorch's headers: each ``extern "C"`` launcher takes
 raw device pointers, sizes and a ``cudaStream_t``, launches its kernel on
@@ -31,8 +33,9 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 ARCH = "arch=compute_90a,code=sm_90a"
-NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", ARCH, "-shared")
 
 #: dtype codes of the launchers (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,7 +56,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -73,28 +76,55 @@ def find_nvcc() -> str:
                        "toolkit")
 
 
-def build_command(out: Path, nvcc: str = "nvcc") -> list:
-    """The one ``nvcc`` command that builds every source into ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def build_commands(out: Path, objects: Path, nvcc: str = "nvcc"):
+    """The ``nvcc`` commands that build every source into ``out``: one
+    compile command per source (its object under ``objects``), to run
+    together, and the link command that follows them."""
+    compile_cmds, objs = [], []
+    for src in sources():
+        obj = objects / f"{src.stem}.o"
+        compile_cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(src)])
+        objs.append(str(obj))
+    return compile_cmds, [nvcc, *LINK_FLAGS, "-o", str(out), *objs]
 
 
 def build() -> Path:
-    """Compile the library unless it exists; returns its path.  Writes to a
-    temporary name first, so a concurrent reader never sees half a file."""
+    """Compile the library unless it exists; returns its path.  Compiles
+    every source at once, then links; writes to a temporary name first, so
+    a concurrent reader never sees half a file."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(build_command(tmp, nvcc), capture_output=True,
-                          text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    objects = out.with_name(f"{out.stem}.{os.getpid()}.objects")
+    objects.mkdir(exist_ok=True)
+    try:
+        compile_cmds, link_cmd = build_commands(tmp, objects, nvcc)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compile_cmds]
+        log, failed = [], []
+        for cmd, proc in zip(compile_cmds, procs):
+            text, _ = proc.communicate()
+            log.append(f"== {Path(cmd[-1]).name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{Path(cmd[-1]).name} ({proc.returncode})")
+        if not failed:
+            link = subprocess.run(link_cmd, capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode})")
+        text = "".join(log)
+        out.with_suffix(".log").write_text(text)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{text}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objects, ignore_errors=True)
     return out
 
 

@@ -1,2 +1,4 @@
-"""The RWKV6 token recurrence (kernel B6): plain version, CUDA kernel and
-public op."""
+"""The RWKV6 recurrence: the token recurrence (kernel B6, ``kernel.py``)
+and the same function in chunks of 32 tokens (kernel B7,
+``kernel_chunked.py``), their plain versions (``ref.py``) and public ops
+(``ops.py``)."""

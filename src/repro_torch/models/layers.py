@@ -1,12 +1,14 @@
-"""Model building blocks — the dense subset of ``repro/models/layers.py``
-that the lazy LM lane admits (``lazy_transformer.validate_config``): RMSNorm,
-RoPE, causal multi-head attention with a KV cache for prefill and decode,
-and the SwiGLU MLP.  Pure functions over dictionaries of tensors, in the
-reference's layouts (``x`` is ``(B, S, D)``, q/k/v ``(B, S, H, hd)``,
-caches ``(B, T, H, hd)``), so the tests compare like with like.
+"""Model building blocks — the subset of ``repro/models/layers.py`` that
+the port's models run: RMSNorm, RoPE, causal multi-head attention with a KV
+cache for prefill and decode, the SwiGLU MLP, and the RWKV6 mixer (token
+shift, data-dependent decay, the recurrence through kernels B6/B7, per-head
+group norm and gate) with its carried state.  Pure functions over
+dictionaries of tensors, in the reference's layouts (``x`` is ``(B, S,
+D)``, q/k/v ``(B, S, H, hd)``, caches ``(B, T, H, hd)``, RWKV states ``(B,
+H, N, N)``), so the tests compare like with like.
 
-No sliding window, ring buffer, softcap, qk-norm, bias, GQA or
-cross-attention: those configurations are refused before they get here.
+No sliding window, ring buffer, softcap, qk-norm, bias, GQA, cross-attention,
+MoE or Mamba: those configurations are refused before they get here.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.rwkv6_scan import ops as rwkv_ops
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -171,3 +174,95 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     return torch.einsum("bsf,fd->bsd", t * torch.sigmoid(t) * u,
                         p["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 mixer (Finch: data-dependent per-channel decay)
+# ---------------------------------------------------------------------------
+
+def init_rwkv(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    d = cfg.d_model
+    n = cfg.rwkv.head_dim
+    heads = d // n
+    pd = getattr(torch, cfg.param_dtype)
+    lora = max(32, d // 32)
+    return {
+        "mix": _init(gen, (5, d), pd, device, scale=0.02),   # r,k,v,w,g lerp
+        "wr": _init(gen, (d, d), pd, device),
+        "wk": _init(gen, (d, d), pd, device),
+        "wv": _init(gen, (d, d), pd, device),
+        "wg": _init(gen, (d, d), pd, device),
+        "wo": _init(gen, (d, d), pd, device),
+        "w0": torch.full((d,), -6.0, dtype=torch.float32, device=device),
+        "w_a": _init(gen, (d, lora), pd, device, scale=0.02),  # decay LoRA
+        "w_b": _init(gen, (lora, d), pd, device, scale=0.02),
+        "u": _init(gen, (heads, n), pd, device, scale=0.1),    # bonus
+        "ln_g": torch.ones((d,), dtype=pd, device=device),
+    }
+
+
+def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               state: Optional[Dict] = None):
+    """Returns ``(out, new_state)``; ``state`` (prefill and decode) is
+    ``{"last": (B, d), "wkv": (B, H, N, N)}``: the token before ``x`` (for
+    the shift) and the float32 recurrence state."""
+    b, s, d = x.shape
+    n = cfg.rwkv.head_dim
+    heads = d // n
+    if state is None:
+        prev = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+    else:
+        prev = torch.cat([state["last"][:, None].to(x.dtype), x[:, :-1]],
+                         dim=1)
+    mix = torch.sigmoid(p["mix"].to(torch.float32))
+    xm = [x * m + prev * (1 - m) for m in (mix[i].to(x.dtype)
+                                           for i in range(5))]
+    r = torch.einsum("bsd,de->bse", xm[0], p["wr"].to(x.dtype))
+    k = torch.einsum("bsd,de->bse", xm[1], p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,de->bse", xm[2], p["wv"].to(x.dtype))
+    # data-dependent decay (low-rank), in float32: (x w_a) w_b, the order
+    # the reference's einsum contracts in
+    lo = torch.einsum("bsd,dl->bsl", xm[3].to(torch.float32),
+                      p["w_a"].to(torch.float32))
+    wlog = p["w0"].to(torch.float32) + torch.einsum(
+        "bsl,le->bse", lo, p["w_b"].to(torch.float32))
+    w = torch.exp(-torch.exp(wlog))                     # (B,S,d) in (0,1)
+    gl = torch.einsum("bsd,de->bse", xm[4], p["wg"].to(x.dtype))
+    g = gl * torch.sigmoid(gl)
+
+    def split(z):
+        return z.reshape(b, s, heads, n).transpose(1, 2).reshape(
+            b * heads, s, n)
+
+    u = p["u"].to(torch.float32)
+    wkv = None if state is None else state["wkv"]
+    o, st = _rwkv_heads(split(r), split(k), split(v), split(w), u, b, heads,
+                        state=wkv, return_state=state is not None)
+    new_state = None
+    if state is not None:
+        new_state = {"last": x[:, -1].to(state["last"].dtype), "wkv": st}
+    o = o.reshape(b, heads, s, n).transpose(1, 2).reshape(b, s, d)
+    # per-head group norm
+    oh = o.reshape(b, s, heads, n).to(torch.float32)
+    oh = oh * torch.rsqrt(torch.mean(oh * oh, dim=-1, keepdim=True) + 1e-6)
+    o = (oh.reshape(b, s, d) * p["ln_g"].to(torch.float32)).to(x.dtype)
+    out = torch.einsum("bsd,de->bse", o * g, p["wo"].to(x.dtype))
+    return out, new_state
+
+
+def _rwkv_heads(rh, kh, vh, wh, u, b, heads, state=None,
+                return_state=False):
+    """The RWKV6 recurrence over all ``B·H`` rows in ONE op call, row
+    ``b·H + h`` taking the bonus ``u[h]``: a prompt or a whole sequence in
+    chunks (kernel B7), one decode token (``S == 1``) as a step of the
+    token recurrence (kernel B6).  ``state``: the initial ``(B, H, N, N)``
+    wkv or None.  Returns ``(o, final state as (B, H, N, N) or None)``."""
+    s, n = rh.shape[1], rh.shape[2]
+    op = rwkv_ops.rwkv6 if s == 1 else rwkv_ops.rwkv6_chunked
+    s0 = None if state is None else state.reshape(b * heads, n, n)
+    out = op(rh.contiguous(), kh.contiguous(), vh.contiguous(),
+             wh.contiguous(), u, state=s0, return_state=return_state)
+    if not return_state:
+        return out, None
+    o, st = out
+    return o, st.reshape(b, heads, n, n)

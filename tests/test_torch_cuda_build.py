@@ -16,17 +16,28 @@ ROOT = cuda_build.CSRC_DIR.parents[2]
 
 
 def test_one_nvcc_call_for_every_source_for_sm_90a(tmp_path):
-    cmd = cuda_build.build_command(tmp_path / "lib.so", "nvcc")
-    assert cmd[0] == "nvcc"
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
-    names = {os.path.basename(a) for a in cmd if a.endswith(".cu")}
+    """One compile command per source (run together), then one link."""
+    compile_cmds, link = cuda_build.build_commands(tmp_path / "lib.so",
+                                                   tmp_path / "obj", "nvcc")
+    names = set()
+    for cmd in compile_cmds:
+        assert cmd[0] == "nvcc"
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-c"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
+        srcs = [a for a in cmd if a.endswith(".cu")]
+        assert len(srcs) == 1
+        names.add(os.path.basename(srcs[0]))
+        obj = cmd[cmd.index("-o") + 1]
+        assert obj.endswith(".o") and obj in link
     assert names == {"errors.cu", "flash_attention.cu", "mamba_scan.cu",
-                     "rwkv6_scan.cu"}
-    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "lib.so")
+                     "rwkv6_chunked.cu", "rwkv6_scan.cu"}
+    assert len(compile_cmds) == len(names)
+    assert link[0] == "nvcc" and "-shared" in link
+    assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert link[link.index("-o") + 1] == str(tmp_path / "lib.so")
 
 
 def test_sources_include_no_torch_headers():
@@ -66,8 +77,8 @@ def test_missing_nvcc_raises_clearly(tmp_path, monkeypatch):
 
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
-    """One nvcc call; its failure raises with what the compiler said, and
-    leaves no library behind."""
+    """One nvcc call per source; a failure raises with what the compiler
+    said, links nothing, and leaves no library behind."""
     log = tmp_path / "args"
     fake = tmp_path / "bin" / "nvcc"
     fake.parent.mkdir()
@@ -79,8 +90,11 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="error: boom"):
         cuda_build.build()
     calls = log.read_text().splitlines()
-    assert len(calls) == 1 and "arch=compute_90a,code=sm_90a" in calls[0]
+    assert len(calls) == len(cuda_build.sources())
+    assert all("arch=compute_90a,code=sm_90a" in c and " -c " in c
+               for c in calls)
     assert not list((tmp_path / "cuda").glob("*.so"))
+    assert not list((tmp_path / "cuda").glob("*.objects"))
 
 
 @pytest.mark.parametrize("call", ["attention", "rmsnorm", "mamba", "rwkv6"])

@@ -1,8 +1,9 @@
 """Card-only checks of the port's kernels — the fused-block generator (B1)
 and the row-replay generator (B2) in Triton, the LM lane that runs them,
-and the standalone model kernels (B3 flash attention, B5 Mamba scan and B6
-RWKV6 scan in CUDA C++, B4 add+RMSNorm in Triton) — skipped without a
-CUDA device (and, for the Triton kernels, Triton).
+the standalone model kernels (B3 flash attention, B5 Mamba scan, B6 RWKV6
+scan and B7 chunked RWKV6 in CUDA C++, B4 add+RMSNorm in Triton) and the
+RWKV6 model path that runs B6 and B7 — skipped without a CUDA device
+(and, for the Triton kernels, Triton).
 
 Run on a GPU with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Each case builds one block in the port's IR,
@@ -12,7 +13,7 @@ inputs: bitwise for every elementwise op (libdevice is what PyTorch's CUDA
 kernels call too) and for reductions over integer-valued data (every
 summation order is exact there).  Real-valued row sums (softmax
 normalizers, the LM's variances) are held to the summation error bound
-``row * eps * magnitude``.  B3-B6 are held to their plain versions at
+``row * eps * magnitude``.  B3-B7 are held to their plain versions at
 the reference's tolerances, run twice for bitwise-equal results, and fed
 inputs they must refuse.
 """
@@ -317,7 +318,7 @@ def test_lazy_transformer_on_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the standalone model kernels B3-B6 against their plain versions on the card
+# the standalone model kernels B3-B7 against their plain versions on the card
 # ---------------------------------------------------------------------------
 
 #: kernel vs plain version on the card, per element |err| <= rtol·|plain| +
@@ -530,3 +531,126 @@ def test_rwkv6_refuses(card):
                           card)
     with pytest.raises(ValueError, match="head size"):
         rwkv6_scan(*narrow)
+
+
+# ---------------------------------------------------------------------------
+# B7: the RWKV6 chunk algebra, and B6 carrying a state
+# ---------------------------------------------------------------------------
+
+def _rwkv_model_inputs(rng, bh, t, n, dtype, dev, heads):
+    """r, k, v in ``dtype``; w, the per-head u and a state in float32, as
+    the model hands them over."""
+    r, k, v, _, _ = _rwkv_inputs(rng, bh, t, n, dtype, dev)
+    w = torch.sigmoid(_randn(rng, (bh, t, n), torch.float32, dev)) * 0.5 \
+        + 0.45
+    u = _randn(rng, (heads, n), torch.float32, dev, 0.1)
+    s0 = _randn(rng, (bh, n, n), torch.float32, dev, 0.5)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("t", [64, 100, 512])
+def test_rwkv6_chunked_kernel(card, t, n, dtype, with_state):
+    """B7 against its plain version (the same algebra: the scans' 3e-4,
+    one bf16 ulp for bf16 outputs; the final state in float32 at 3e-4) and
+    against the token loop (the reference's 2e-3); twice, bitwise."""
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as kc
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_chunked
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(t + n), 6,
+                                           t, n, dtype, card, heads=3)
+    s0 = s0 if with_state else None
+    o, s = _twice_same(lambda: rwkv6_chunked(r, k, v, w, u, state=s0,
+                                             return_state=True),
+                       kc.LAUNCHES, "rwkv6_chunked")
+    po, ps = reference_rwkv6_chunked(r, k, v, w, u, state=s0,
+                                     return_state=True)
+    _hold(o, po, "scan")
+    _hold(s, ps, "scan")
+    lo, ls = reference_rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(o.double(), lo.double(), rtol=2e-3 + rtol,
+                               atol=2e-3)
+    torch.testing.assert_close(s, ls, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("t", [1, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rwkv6_kernel_state_form(card, t, dtype):
+    """B6 with a state in and out and a per-head bonus, as decode runs it
+    (T = 1 over B·H rows), against its plain version."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6
+    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(t), 160, t,
+                                           64, dtype, card, heads=40)
+    o, s = _twice_same(lambda: rwkv6(r, k, v, w, u, state=s0,
+                                     return_state=True),
+                       rk.LAUNCHES, "rwkv6_scan")
+    po, ps = reference_rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    _hold(o, po, "scan")
+    _hold(s, ps, "scan")
+
+
+def test_rwkv_model_path_launches_b7_per_prefill_and_b6_per_decode(card):
+    """The direct model's RWKV layers reach the kernels: one B7 launch per
+    layer for a prompt, one B6 launch per layer for each decode token."""
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as kc
+    from repro_torch.models import transformer as T
+    cfg = rwkv6_3b.SMOKE.scaled(n_layers=3)
+    params = T.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                           card)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 45))
+    rk.LAUNCHES["rwkv6_scan"] = kc.LAUNCHES["rwkv6_chunked"] = 0
+    logits, cache = T.serve_prefill(params, tokens, cfg, 64)
+    assert kc.LAUNCHES["rwkv6_chunked"] == 3 and rk.LAUNCHES["rwkv6_scan"] == 0
+    for step in range(2):
+        logits, cache = T.serve_decode(params, cache, tokens[:, :1], cfg)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES["rwkv6_scan"] == 6
+    assert kc.LAUNCHES["rwkv6_chunked"] == 3
+    assert torch.isfinite(logits).all()
+
+
+def test_rwkv6_chunked_refuses(card):
+    from repro_torch.kernels.rwkv6_scan.kernel_chunked import rwkv6_chunked
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(0), 2, 64,
+                                           64, torch.float32, card, heads=2)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_chunked(*(z[..., :48].contiguous() for z in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="span devices"):
+        rwkv6_chunked(r, k, v, w.cpu(), u)
+    with pytest.raises(ValueError, match="span devices"):
+        rwkv6_chunked(r, k, v, w, u, state=s0.cpu())
+    with pytest.raises(ValueError, match="chunk"):
+        rwkv6_chunked(r, k, v, w, u, chunk=64)
+    with pytest.raises(TypeError):
+        rwkv6_chunked(r.double(), k.double(), v.double(), w, u)
+    with pytest.raises(TypeError):
+        rwkv6_chunked(r, k, v, w, u, state=s0.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shapes"):
+        rwkv6_chunked(r, k, v, w, u[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_chunked(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                      w, u)
+
+
+@pytest.mark.parametrize("op", ["rwkv6_scan", "rwkv6_chunked"])
+def test_rwkv6_kernels_with_no_steps_pass_the_state_through(card, op):
+    from repro_torch.kernels.rwkv6_scan import kernel, kernel_chunked
+    fn = {"rwkv6_scan": kernel.rwkv6_scan,
+          "rwkv6_chunked": kernel_chunked.rwkv6_chunked}[op]
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(1), 4, 0,
+                                           64, torch.float32, card, heads=2)
+    o, s = fn(r, k, v, w, u, state=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert o.shape == (4, 0, 64) and torch.equal(s, s0)
+    o, s = fn(r, k, v, w, u, return_state=True)
+    assert torch.equal(s, torch.zeros_like(s0))

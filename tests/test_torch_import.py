@@ -45,6 +45,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     for kernel in ("flash_attention", "rmsnorm", "mamba_scan", "rwkv6_scan"):
         for part in ("ref", "kernel", "ops"):
             assert f"repro_torch.kernels.{kernel}.{part}" in modules
+    for mod in ("kernels.rwkv6_scan.kernel_chunked", "configs.rwkv6_3b",
+                "launch.serve"):
+        assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
     code = (f"import sys, {', '.join(modules)}\n"
@@ -92,7 +95,8 @@ def _entry_points():
     from repro_torch.kernels.fused_block.ops import fused_block_fn
     from repro_torch.kernels.fused_block.ref import reference_block
     from repro_torch.models.config import ModelConfig
-    from repro_torch.models.transformer import init_cache
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_cache, init_params
     from test_torch_rowblock import _replay_ops
     cfg = ModelConfig(name="tiny", family="dense", n_layers=1, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=11)
@@ -107,13 +111,19 @@ def _entry_points():
         "BlockExecutor": lambda **kw: BlockExecutor(**kw),
         "LoweringContext": lambda **kw: LoweringContext(**kw),
         "init_cache": lambda **kw: init_cache(cfg, 1, 4, **kw),
+        "init_params": lambda **kw: init_params(
+            cfg.scaled(dtype="float32"), torch.Generator(), **kw),
         "reference_block": lambda **kw: reference_block(ops, **kw),
+        "serve": lambda **kw: serve.main(
+            ["--requests", "1", "--new-tokens", "2"]
+            + [f"--{k}={v}" for k, v in kw.items()]),
     }
 
 
 ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
                 "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
-                "LoweringContext", "init_cache", "reference_block"]
+                "LoweringContext", "init_cache", "init_params",
+                "reference_block", "serve"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
