@@ -21,7 +21,11 @@ of float64 — the script:
    beforehand, so no host work is timed) against its plain version, each
    by CUDA events around back-to-back calls, median of 10, and against its
    bound — the larger of the bytes it must move over the H100's 3.35e12
-   B/s and its arithmetic operations over the non-FMA rate of their type.
+   B/s and its arithmetic operations over the non-FMA rate of their type;
+6. times every distinct block's kernel the same way and prints what the
+   program's launches lose to their bounds: the sum over its blocks of
+   launches x (kernel ms - bound ms).  The LM lane's B1 and B2 blocks get
+   the same sum, and a ``B1 LOSS`` line adds them up.
 
 Then the LM serving lane (``run_lm``): ``LazyTransformer`` at Qwen1.5-4B's
 published widths (d_model 2560, 20 heads of 128, d_ff 6912, vocab 151936;
@@ -54,8 +58,11 @@ is held against its plain version on the same inputs, element by element
 timed (the kernel as a CUDA graph of its launch, the plain version and,
 where one PyTorch call computes the same function, that call) beside its
 bound.  The Gemma2-9B attention case also holds two planted faults — the
-window one key tile (32 keys) short and one key short — to the same check,
-and fails unless the check rejects both.
+window 32 keys short and one key short — to the same check, and fails
+unless the check rejects both.  B3's bound counts a float32 product on
+the faster float32-accurate route, three TF32 tensor-core passes
+(``TC_TF32_MACS_PER_S``), and a bfloat16 product at the bf16 tensor-core
+rate.
 
 The model-kernel phase also runs the chunk-parallel RWKV6 kernel (B7,
 CUDA) on the RWKV6-3B layer's inputs of B6's case, so the two are timed on
@@ -128,6 +135,13 @@ F32_EPS = float(np.finfo(np.float32).eps)
 #: bfloat16 products on the tensor cores at the data sheet's 989e12
 #: FLOP/s, 494.5e12 multiply-adds per second
 TC_BF16_MACS_PER_S = 989e12 / 2
+#: TF32 products on the tensor cores: the data sheet's dense 494.5e12
+#: FLOP/s, 247.25e12 multiply-adds per second.  One TF32 product keeps 10
+#: mantissa bits; three of them (3xTF32: hi·hi + hi·lo + lo·hi of each
+#: operand split into TF32 hi + lo) compute a float32 product to float32
+#: accuracy, so a float32 product's least time is the smaller of its FMAs
+#: on the CUDA cores and three TF32 passes on the tensor cores
+TC_TF32_MACS_PER_S = 494.5e12 / 2
 #: kernel vs plain version on the card, per element |err| <= rtol·|plain| +
 #: atol.  atol is the reference's own float32 tolerance (tests/
 #: test_kernels.py): attention and norm 2e-5, scans 3e-4 (sums in other
@@ -213,19 +227,22 @@ def check_close(got, want, what: str, exact: bool) -> float:
 
 class BlockRecorder:
     """Remembers, per distinct block signature, the generated kernel (of
-    class ``kernel_cls``) and the inputs of its first call (buffers are
-    never written in place, so the tensors stay valid)."""
+    class ``kernel_cls``), the inputs of its first call (buffers are never
+    written in place, so the tensors stay valid) and its number of calls,
+    one launch each."""
 
     def __init__(self, kernel_cls):
         self.kernel_cls = kernel_cls
         self.calls = {}
+        self.counts = {}      # calls (launches) per kernel
         self._orig = kernel_cls.__call__
 
     def __enter__(self):
-        calls, orig = self.calls, self._orig
+        calls, counts, orig = self.calls, self.counts, self._orig
 
         def spy(kernel, *bufs_and_salts):
             calls.setdefault(id(kernel), (kernel, bufs_and_salts))
+            counts[id(kernel)] = counts.get(id(kernel), 0) + 1
             return orig(kernel, *bufs_and_salts)
 
         self.kernel_cls.__call__ = spy
@@ -262,25 +279,47 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
     return {"stats": st, "warm_s": warm_s, "err": err, "exact": exact}
 
 
-def time_block(kernel, bufs_and_salts, module) -> dict:
-    """Kernel (CUDA graph) and plain-version device time of one block on
-    its recorded inputs, with its bound: the larger of its bytes over the
-    memory rate and its operations over the rate of their type."""
+def block_bound(kernel, module) -> dict:
+    """A block's bound: the larger of its bytes over the memory rate and
+    its operations over the rate of their type."""
     nbytes = module.block_bytes(kernel.plan)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(n_ops / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
-                 for dt, n_ops in module.block_ops(kernel.plan).items()) * 1e3
+    ops_ms = max((n_ops / PEAK_OPS_PER_S.get(dt, PEAK_OPS_PER_S["float32"])
+                  for dt, n_ops in module.block_ops(kernel.plan).items()),
+                 default=0.0) * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _block_inputs(kernel, bufs_and_salts):
     *bufs, salts = bufs_and_salts
     store = dict(zip(kernel.plan.inputs, bufs))
     dev = bufs[0].device if bufs else torch.device("cuda")
-    rvals = kernel.draw_random(salts, dev)
+    return store, kernel.draw_random(salts, dev), dev
+
+
+def time_block(kernel, bufs_and_salts, module) -> dict:
+    """Kernel (CUDA graph) and plain-version device time of one block on
+    its recorded inputs, with its bound (:func:`block_bound`)."""
+    store, rvals, dev = _block_inputs(kernel, bufs_and_salts)
     ms = kernel_ms(kernel, store, rvals, dev)
     plain_ms = cuda_ms(lambda: module.plain_slots(kernel.plan, store, rvals,
                                                   dev))
-    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "domain": kernel.plan.domain}
+    return {"ms": ms, "plain_ms": plain_ms, "domain": kernel.plan.domain,
+            **block_bound(kernel, module)}
+
+
+def block_loss(calls: dict, counts: dict, module) -> dict:
+    """What a run's blocks lose to their bounds: every distinct block's
+    kernel timed on its recorded inputs (as :func:`time_block` does), and
+    the sum over blocks of launches x (kernel ms - bound ms)."""
+    t0 = time.perf_counter()
+    loss = 0.0
+    for key, (kernel, bufs_and_salts) in calls.items():
+        ms = kernel_ms(kernel, *_block_inputs(kernel, bufs_and_salts))
+        loss += counts[key] * (ms - block_bound(kernel, module)["bound_ms"])
+    return {"loss_ms": loss, "launches": sum(counts.values()),
+            "timed_blocks": len(calls), "timing_s": time.perf_counter() - t0}
 
 
 def block_size(kernel, module):
@@ -518,6 +557,13 @@ def run_lm(lazy, codegen, rowblock) -> dict:
     # -- every distinct kernel against its plain version -------------------
     b1 = hold_blocks("LM B1", rec_b1.calls, codegen, limit=_sum_limit)
     b2 = hold_blocks("LM B2", rec_b2.calls, rowblock, limit=_sum_limit)
+    loss = {"B1": block_loss(rec_b1.calls, rec_b1.counts, codegen),
+            "B2": block_loss(rec_b2.calls, rec_b2.counts, rowblock)}
+    for name, n in (("B1", launches["fused_block"]),
+                    ("B2", launches["rowblock"])):
+        if loss[name]["launches"] != n:
+            raise AssertionError(f"LM {name}: {loss[name]['launches']} "
+                                 f"recorded calls for {n} launches")
     norms = [(block_size(k, rowblock), k, bs) for k, bs in rec_b2.calls.values()
              if any(n.opcode == "rsqrt" for n in k.plan.nodes)]
     _, nk, nbs = max(norms, key=lambda t: t[0])
@@ -552,15 +598,17 @@ def run_lm(lazy, codegen, rowblock) -> dict:
           f"({time.perf_counter() - t_start:.1f}s for the LM phase)",
           flush=True)
     return {"launches": launches, "b1": b1, "b2": b2, "norm": norm,
-            "agree": agree}
+            "agree": agree, "loss": loss}
 
 
 def _attention_work(q, k, causal, window, softcap):
     """Bytes (q, k, v read once, o written once) and operations of one
     attention call: 2·D multiply-adds (QKᵀ and PV) per unmasked (query,
-    key) pair on the inputs' unit, and the softmax's elementwise work per
-    pair (max, subtract, exp, sum; the softcap's divide, tanh and multiply)
-    in float32."""
+    key) pair — bfloat16 on the tensor cores; float32 on the faster route
+    that keeps float32 accuracy, three TF32 tensor-core passes or the CUDA
+    cores' FMAs (``TC_TF32_MACS_PER_S``) — and the softmax's elementwise
+    work per pair (max, subtract, exp, sum; the softcap's divide, tanh and
+    multiply) in float32."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
     qp = np.arange(sq)
@@ -573,11 +621,14 @@ def _attention_work(q, k, causal, window, softcap):
     elem = (4 + (3 if softcap is not None else 0)) * pairs
     if q.dtype == torch.bfloat16:
         return nbytes, {"tensor_bf16": macs, "float32": elem}
+    if 3 * macs / TC_TF32_MACS_PER_S < macs / PEAK_OPS_PER_S["float32"]:
+        return nbytes, {"tensor_3xtf32": 3 * macs, "float32": elem}
     return nbytes, {"float32": macs + elem}
 
 
 def _bound(nbytes, ops):
-    rates = {"tensor_bf16": TC_BF16_MACS_PER_S, **PEAK_OPS_PER_S}
+    rates = {"tensor_bf16": TC_BF16_MACS_PER_S,
+             "tensor_3xtf32": TC_TF32_MACS_PER_S, **PEAK_OPS_PER_S}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(n / rates[t] for t, n in ops.items()) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
@@ -625,8 +676,9 @@ def _model_cases(gen):
                                             softcap=50.0),
         work=_attention_work(q, k, True, 4096, 50.0),
         library=("none: scaled_dot_product_attention has no softcap", None),
-        # what a kernel whose window bound is off by one key tile (32 keys
-        # at D 256) or by one key would return: the check must reject both
+        # what a kernel whose window bound is off by 32 keys (two of the
+        # kernel's key tiles at D 256) or by one key would return: the
+        # check must reject both
         faults={f"window {w}": lambda a, w=w: reference_attention(
             *a[:3], causal=True, window=w, softcap=50.0)
             for w in (4096 - 32, 4096 - 1)}))
@@ -1060,6 +1112,7 @@ def main() -> int:
     launches = 0
     worst = 0.0
     overall = None
+    b1_loss = []
     for name, fn in programs.items():
         args = CHIP_SIZES[name]
         t0 = time.perf_counter()
@@ -1071,6 +1124,11 @@ def main() -> int:
             raise AssertionError(f"{name}: no fused-block kernel launched")
         launches += n_launch
         blk = hold_blocks(name, rec.calls, codegen)
+        loss = block_loss(rec.calls, rec.counts, codegen)
+        if loss["launches"] != n_launch:
+            raise AssertionError(f"{name}: {loss['launches']} recorded calls "
+                                 f"for {n_launch} launches")
+        b1_loss.append(loss)
         worst = max(worst, blk["max_abs_err"])
         if overall is None or blk["bound_ms"] > overall["bound_ms"]:
             overall = blk
@@ -1086,12 +1144,27 @@ def main() -> int:
               f"kernel_vs_plain_err={blk['max_abs_err']:.3g} | largest "
               f"block {blk['domain']}: kernel_ms={blk['ms']:.4f} "
               f"plain_ms={blk['plain_ms']:.4f} bytes={blk['bytes']} "
-              f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']}) "
+              f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']}) | "
+              f"every block: launches x (kernel_ms - bound_ms) summed = "
+              f"{loss['loss_ms']:.4f} ms over {loss['timed_blocks']} blocks "
+              f"(timed in {loss['timing_s']:.1f}s) "
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
         torch.cuda.empty_cache()
     from repro_torch.kernels.fused_block import rowblock
     lm = run_lm(lazy, codegen, rowblock)
     torch.cuda.empty_cache()
+    b1_loss.append(lm["loss"]["B1"])
+    print(f"B1 LOSS over every distinct block, launches x (kernel_ms - "
+          f"bound_ms): programs "
+          f"{sum(x['loss_ms'] for x in b1_loss[:-1]):.4f} ms + LM lane "
+          f"{b1_loss[-1]['loss_ms']:.4f} ms = "
+          f"{sum(x['loss_ms'] for x in b1_loss):.4f} ms over "
+          f"{sum(x['launches'] for x in b1_loss)} launches of "
+          f"{sum(x['timed_blocks'] for x in b1_loss)} blocks (timing "
+          f"{sum(x['timing_s'] for x in b1_loss):.1f}s); B2 on the LM lane "
+          f"{lm['loss']['B2']['loss_ms']:.4f} ms over "
+          f"{lm['loss']['B2']['launches']} launches of "
+          f"{lm['loss']['B2']['timed_blocks']} blocks", flush=True)
     model = run_model_kernels()
     torch.cuda.empty_cache()
     rwkv = run_rwkv()

@@ -2,11 +2,13 @@
 ``repro/kernels/flash_attention/kernel.py:flash_attention``.
 
 The kernel is ``src/repro_torch/csrc/flash_attention.cu`` (its header says
-what bounds it and how it is laid out): one block per (batch, query head,
-64-query tile) looping over the key tiles, online softmax in float32
-registers, GQA, causal and sliding-window masks and logit soft-capping,
-ragged edges masked by index with no padding copies.  It is built by
-:mod:`..cuda_build` at first use.
+what bounds it and how it is laid out): FlashAttention-2's design on
+Hopper's tensor cores (``mma.sync``; float32 in the 3xTF32 form, bfloat16
+with P split into hi + lo), one block per (query head, batch, query tile)
+looping over double-buffered ``cp.async`` key/value tiles, online softmax
+in the float32 accumulators, GQA, causal and sliding-window masks and
+logit soft-capping, ragged edges masked by index with no padding copies.
+It is built by :mod:`..cuda_build` at first use.
 
 On CPU tensors :func:`flash_attention` runs the plain version
 (``ref.py``); on CUDA tensors it launches the kernel or raises.
@@ -38,7 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: ``(B, Hq, Sq, D)``; k, v: ``(B, Hkv, Sk, D)`` with ``Hq % Hkv ==
     0``.  Returns ``(B, Hq, Sq, D)`` in ``q.dtype``.  The TPU kernel's
     ``block_q``/``block_k`` have no counterpart: the card's tiles follow
-    from ``D`` (64 queries by 64 or 32 keys)."""
+    from the dtype and ``D`` (64 or 128 queries by 32 or 64 keys)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[1] % k.shape[1]:
@@ -65,6 +67,10 @@ def _launch(q, k, v, device, *, causal, window, softcap, scale):
         raise ValueError("flash_attention: no keys")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap {softcap} (must be > 0)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             "aligned (the kernel copies 16-byte pieces)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -371,15 +371,23 @@ def _twice_same(fn, launches, key):
     (200, 200, 4, 2, 256, True, 64, 50.0, torch.float32),      # D 256
     (256, 256, 2, 2, 128, True, 8, None, torch.float32),       # masked tiles
     (160, 64, 2, 1, 64, False, 16, None, torch.float32),       # masked rows
+    (150, 20, 2, 1, 128, True, None, 50.0, torch.float32),     # Sk < a tile
+    (90, 90, 2, 1, 32, True, 4, 20.0, torch.float32),          # window 4
     (128, 128, 2, 1, 256, True, 32, 50.0, torch.bfloat16),
     (300, 300, 4, 1, 64, True, None, 30.0, torch.bfloat16),    # MQA
+    (70, 20, 4, 2, 32, False, None, None, torch.bfloat16),     # Sk < a tile
+    (200, 333, 4, 2, 128, True, 48, 50.0, torch.bfloat16),     # window 48
+    (100, 40, 2, 2, 128, False, 8, None, torch.bfloat16),      # masked rows
+    (129, 129, 3, 1, 256, False, None, None, torch.bfloat16),  # one row over
 ])
 def test_flash_attention_kernel(card, sq, sk, hq, hkv, d, causal, window,
                                 softcap, dtype):
-    """B3 against its plain version: ragged Sq and Sk, D up to 256, window
-    and softcap, a first key tile that is fully masked for some rows
-    (window 8 at 128-wide heads: 32-key tiles), rows with no unmasked key
-    at all (which average v, as the plain version does), bfloat16."""
+    """B3 against its plain version on every (dtype, D) instance: Sq and Sk
+    that are not multiples of the query tiles (64 or 128 rows) and the key
+    tiles (16, 32 or 64 keys), Sk shorter than one key tile, windows narrower
+    than a key tile (whole tiles masked for some rows), rows with no
+    unmasked key at all (which average v, as the plain version does), MQA
+    and GQA, softcap in both dtypes."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ops import attention
     from repro_torch.kernels.flash_attention.ref import reference_attention
@@ -407,6 +415,9 @@ def test_flash_attention_refuses(card):
     with pytest.raises(ValueError, match="head dim"):
         y = torch.zeros((1, 2, 8, 48), device=card)
         flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="aligned"):
+        z = torch.zeros(x.numel() + 1, device=card)[1:].view(x.shape)
+        flash_attention(z, x, x)
 
 
 @pytest.mark.parametrize("shape,plus_one,dtype", [
