@@ -12,20 +12,31 @@ of float64 — the script:
 2. requires the two backends to agree: bitwise for programs built only
    from correctly rounded ops, else within ``rtol=atol=1e-9`` (the
    reference's own program tolerance);
-3. requires at least one fused-block kernel launch and no block declined
-   with the ``error`` slug;
+3. requires at least one fused-block kernel launch, no block declined
+   with the ``error`` slug, and no ``prng.uniform`` call on the triton
+   path (B1 draws in-kernel); prints how many input buffers blocks
+   overwrote in place (``donated_buffers``);
 4. holds every distinct claimed block's kernel against its plain torch
-   version on the block's own CUDA inputs (same tolerance);
+   version on the block's own CUDA inputs — bitwise on the exact
+   programs, else the same tolerance — called directly and as the
+   executor called it (with its ``reuse`` grant, on copies);
 5. times the program's largest block (most elements x ops): the kernel
    (its launches captured once in a CUDA graph with the arguments bound
-   beforehand, so no host work is timed) against its plain version, each
-   by CUDA events around back-to-back calls, median of 10, and against its
-   bound — the larger of the bytes it must move over the H100's 3.35e12
-   B/s and its arithmetic operations over the non-FMA rate of their type;
-6. times every distinct block's kernel the same way and prints what the
-   program's launches lose to their bounds: the sum over its blocks of
-   launches x (kernel ms - bound ms).  The LM lane's B1 and B2 blocks get
-   the same sum, and a ``B1 LOSS`` line adds them up.
+   beforehand, so no host work is timed), the whole wrapper call as the
+   executor made it (``call_ms``: output buffers, copies and launches, as
+   one CUDA graph) and its plain version, each by CUDA events around
+   back-to-back calls, median of 10, against its bound — the larger of
+   the bytes it must move over the H100's 3.35e12 B/s and its operations
+   over the non-FMA rate of their type;
+6. times every distinct block's kernel and call the same way and prints
+   what the program's launches lose to their bounds: the sums over its
+   blocks of launches x (kernel ms - bound ms) and launches x (call ms -
+   bound ms).  The LM lane's B1 and B2 blocks get the same sums, and a
+   ``B1 LOSS`` line adds them up.
+
+The ``PRNG`` lines hold B1's in-kernel draw bitwise against
+``prng.uniform_at`` (odd lengths, 2-D, float32, float16) and time a
+2**24-value float64 draw both ways.
 
 Then the LM serving lane (``run_lm``): ``LazyTransformer`` at Qwen1.5-4B's
 published widths (d_model 2560, 20 heads of 128, d_ff 6912, vocab 151936;
@@ -42,7 +53,8 @@ lm run's tokens.  It requires logits and KV caches to agree within
 to launch, and every distinct kernel of the run to match its plain
 version; it times the largest B2 block and the largest rmsnorm block
 (against ``torch.nn.functional.rms_norm``), warm prefill and decode per
-token on all three paths, and one decode-step KV-cache window write.
+token on all three paths, and one decode-step KV-cache window write
+(the floor's functional write, and B1's block in place and with a copy).
 Float32 matmuls run in full float32 (TF32 off).
 
 Then the standalone model kernels (``run_model_kernels``): each public op
@@ -111,7 +123,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate (data sheet)
 #: peak non-tensor-core operation rates of an H100 SXM by type.  The data
 #: sheet's FP64 34 and FP32 67 TFLOP/s count an FMA as two operations; the
 #: kernels launch with FMA contraction off, so one operation issues per
-#: lane and cycle: half those rates.  Other types take the float32 rate.
+#: lane and cycle: half those rates.  Other types take the float32 rate,
+#: the issue limit of 4 warp schedulers x 32 lanes an SM a clock (132 SMs,
+#: 1.98 GHz).  32-bit integer work (the in-kernel threefry) included: the
+#: Hopper white paper's 64 INT32 lanes an SM would give 16.7e12/s, but
+#: monte_carlo_pi's two in-kernel draws ran 76 uint32 operations an
+#: element at 18.7e12/s on the card, above that, so only the issue limit
+#: is a floor there
 PEAK_OPS_PER_S = {"float64": 17e12, "float32": 33.5e12}
 TOL = dict(rtol=1e-9, atol=1e-9)
 #: programs whose every op is correctly rounded and whose reductions (if
@@ -185,12 +203,22 @@ def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(kernel, store, rvals, device) -> float:
+def kernel_ms(kernel, store, salts, device) -> float:
     """Device time of one launch of a block's kernel and its combine
-    passes: arguments bound first, the launches captured in a CUDA graph,
-    and the graph replayed under :func:`cuda_ms`."""
-    run, _ = kernel.prepare(store, rvals, device)
+    passes: arguments bound (and output buffers made) first, the launches
+    captured in a CUDA graph, and the graph replayed under
+    :func:`cuda_ms`."""
+    run, _ = kernel.prepare(store, salts, device)
     return graph_ms(run)
+
+
+def call_ms(kernel, bufs_and_salts, kw=None) -> float:
+    """Device time of the whole wrapper call ``kernel(*bufs, salts, **kw)``
+    as the executor made it (``kw`` holds the ``reuse`` grant it passed):
+    everything the call launches, captured as one CUDA graph and replayed
+    under :func:`cuda_ms`.  A call granted reuse overwrites its inputs on
+    every replay; the recorder's copies are only timed after that."""
+    return graph_ms(lambda: kernel(*bufs_and_salts, **(kw or {})))
 
 
 def graph_ms(fn) -> float:
@@ -227,9 +255,10 @@ def check_close(got, want, what: str, exact: bool) -> float:
 
 class BlockRecorder:
     """Remembers, per distinct block signature, the generated kernel (of
-    class ``kernel_cls``), the inputs of its first call (buffers are never
-    written in place, so the tensors stay valid) and its number of calls,
-    one launch each."""
+    class ``kernel_cls``), clones of the inputs of its first call (the
+    executor may let a call overwrite an input buffer, so the recorder
+    keeps its own copies), the keywords of that call (the executor's
+    ``reuse`` grant) and its number of calls, one launch each."""
 
     def __init__(self, kernel_cls):
         self.kernel_cls = kernel_cls
@@ -240,10 +269,13 @@ class BlockRecorder:
     def __enter__(self):
         calls, counts, orig = self.calls, self.counts, self._orig
 
-        def spy(kernel, *bufs_and_salts):
-            calls.setdefault(id(kernel), (kernel, bufs_and_salts))
+        def spy(kernel, *bufs_and_salts, **kw):
+            if id(kernel) not in calls:
+                *bufs, salts = bufs_and_salts
+                calls[id(kernel)] = (kernel, (*(b.clone() for b in bufs),
+                                              salts), dict(kw))
             counts[id(kernel)] = counts.get(id(kernel), 0) + 1
-            return orig(kernel, *bufs_and_salts)
+            return orig(kernel, *bufs_and_salts, **kw)
 
         self.kernel_cls.__call__ = spy
         return self
@@ -253,8 +285,10 @@ class BlockRecorder:
 
 
 def run_program(name: str, args, fn, codegen, lazy) -> dict:
-    out, warm_s, stats = {}, {}, {}
+    from repro_torch.core import prng
+    out, warm_s, stats, draws = {}, {}, {}, {}
     for backend in ("triton", "torch"):
+        prng.CALLS["uniform"] = 0
         with lazy.fresh_runtime(backend=backend) as rt:
             runs = []
             for _ in range(2):
@@ -266,6 +300,10 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
             out[backend] = [r for r, _ in runs]
             warm_s[backend] = runs[1][1]
             stats[backend] = rt.executor.stats.snapshot()
+        draws[backend] = prng.CALLS["uniform"]
+    if draws["triton"]:
+        raise AssertionError(f"{name}: the triton path called prng.uniform "
+                             f"{draws['triton']} times")
     exact = name in EXACT
     err = 0.0
     for k in range(2):
@@ -276,7 +314,8 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
     st = stats["triton"]
     if "error" in st["triton_fallbacks"]:
         raise AssertionError(f"{name}: a block was declined with 'error'")
-    return {"stats": st, "warm_s": warm_s, "err": err, "exact": exact}
+    return {"stats": st, "warm_s": warm_s, "err": err, "exact": exact,
+            "draws": draws}
 
 
 def block_bound(kernel, module) -> dict:
@@ -292,34 +331,41 @@ def block_bound(kernel, module) -> dict:
 
 
 def _block_inputs(kernel, bufs_and_salts):
+    """``kernel.prepare``'s arguments: the input store, the salts (B2,
+    which draws nothing, ignores them) and the device."""
     *bufs, salts = bufs_and_salts
     store = dict(zip(kernel.plan.inputs, bufs))
     dev = bufs[0].device if bufs else torch.device("cuda")
-    return store, kernel.draw_random(salts, dev), dev
+    return store, salts, dev
 
 
-def time_block(kernel, bufs_and_salts, module) -> dict:
-    """Kernel (CUDA graph) and plain-version device time of one block on
-    its recorded inputs, with its bound (:func:`block_bound`)."""
-    store, rvals, dev = _block_inputs(kernel, bufs_and_salts)
-    ms = kernel_ms(kernel, store, rvals, dev)
-    plain_ms = cuda_ms(lambda: module.plain_slots(kernel.plan, store, rvals,
-                                                  dev))
-    return {"ms": ms, "plain_ms": plain_ms, "domain": kernel.plan.domain,
+def time_block(kernel, bufs_and_salts, kw, module) -> dict:
+    """Kernel (CUDA graph), whole-call (CUDA graph) and plain-version
+    device time of one block on its recorded inputs, with its bound
+    (:func:`block_bound`)."""
+    ms = kernel_ms(kernel, *_block_inputs(kernel, bufs_and_salts))
+    plain_ms = cuda_ms(lambda: kernel.plain(*bufs_and_salts))
+    return {"ms": ms, "call_ms": call_ms(kernel, bufs_and_salts, kw),
+            "plain_ms": plain_ms, "domain": kernel.plan.domain,
             **block_bound(kernel, module)}
 
 
 def block_loss(calls: dict, counts: dict, module) -> dict:
     """What a run's blocks lose to their bounds: every distinct block's
-    kernel timed on its recorded inputs (as :func:`time_block` does), and
-    the sum over blocks of launches x (kernel ms - bound ms)."""
+    kernel and whole wrapper call timed on its recorded inputs (as
+    :func:`time_block` does), and the sums over blocks of launches x
+    (kernel ms - bound ms) and launches x (call ms - bound ms)."""
     t0 = time.perf_counter()
-    loss = 0.0
-    for key, (kernel, bufs_and_salts) in calls.items():
+    loss = call_loss = 0.0
+    for key, (kernel, bufs_and_salts, kw) in calls.items():
+        bound = block_bound(kernel, module)["bound_ms"]
         ms = kernel_ms(kernel, *_block_inputs(kernel, bufs_and_salts))
-        loss += counts[key] * (ms - block_bound(kernel, module)["bound_ms"])
-    return {"loss_ms": loss, "launches": sum(counts.values()),
-            "timed_blocks": len(calls), "timing_s": time.perf_counter() - t0}
+        loss += counts[key] * (ms - bound)
+        call_loss += counts[key] * (call_ms(kernel, bufs_and_salts, kw)
+                                    - bound)
+    return {"loss_ms": loss, "call_loss_ms": call_loss,
+            "launches": sum(counts.values()), "timed_blocks": len(calls),
+            "timing_s": time.perf_counter() - t0}
 
 
 def block_size(kernel, module):
@@ -327,31 +373,88 @@ def block_size(kernel, module):
             module.block_bytes(kernel.plan))
 
 
-def hold_blocks(name: str, calls: dict, module, limit=None) -> dict:
-    """Kernel vs plain on every distinct claimed block; times the largest.
+def hold_blocks(name: str, calls: dict, module, limit=None,
+                exact=False) -> dict:
+    """Kernel vs plain on every distinct claimed block, the kernel called
+    directly (no input it may overwrite) and as the executor called it
+    (with its ``reuse`` grant, on copies of the inputs); times the largest.
     ``limit(plan, want)`` is the allowed max abs error of one output
-    (``TOL`` when None)."""
+    (``TOL``, or bitwise when ``exact``, when None)."""
     worst = 0.0
     largest = None
-    for kernel, bufs_and_salts in calls.values():
-        got = kernel(*bufs_and_salts)
+    for kernel, bufs_and_salts, kw in calls.values():
+        *bufs, salts = bufs_and_salts
         want = kernel.plain(*bufs_and_salts)
-        for g, w in zip(got, want):
-            g, w = g.cpu().numpy(), w.cpu().numpy()
-            what = f"{name}: kernel vs plain on block {kernel.plan.domain}"
-            if limit is None:
-                err = check_close(g, w, what, exact=False)
-            else:
-                err = max_err(g, w)
-                if not err <= limit(kernel.plan, w):
-                    raise AssertionError(f"{what}: max err {err}")
-            worst = max(worst, err)
+        for got in (kernel(*bufs_and_salts),
+                    kernel(*(b.clone() for b in bufs), salts, **kw)):
+            for g, w in zip(got, want):
+                g, w = g.cpu().numpy(), w.cpu().numpy()
+                what = f"{name}: kernel vs plain on block {kernel.plan.domain}"
+                if limit is None:
+                    err = check_close(g, w, what, exact=exact)
+                else:
+                    err = max_err(g, w)
+                    if not err <= limit(kernel.plan, w):
+                        raise AssertionError(f"{what}: max err {err}")
+                worst = max(worst, err)
         size = block_size(kernel, module)
         if largest is None or size > largest[0]:
-            largest = (size, kernel, bufs_and_salts)
-    _, kernel, bufs_and_salts = largest
+            largest = (size, kernel, bufs_and_salts, kw)
+    _, kernel, bufs_and_salts, kw = largest
     return {"max_abs_err": worst, "n_blocks": len(calls),
-            **time_block(kernel, bufs_and_salts, module)}
+            **time_block(kernel, bufs_and_salts, kw, module)}
+
+
+#: in-kernel draws held bitwise against ``prng.uniform_at``: (shape,
+#: dtype, seed, salt) — the 2**24 float64 block the ``PRNG`` line times,
+#: an odd length, a 2-D domain with ragged rows and columns, float32 at
+#: 2**24 - 1, float16; seeds past 2**32 and salts near 2**31
+RANDOM_CASES = (((2 ** 24,), np.float64, 0, 7),
+                ((1_000_003,), np.float64, 2 ** 40 + 3, 2 ** 31 - 2),
+                ((1023, 1537), np.float64, 5, 17),
+                ((2 ** 24 - 1,), np.float32, 0, 9),
+                ((4099, 3), np.float16, 123456789, 1))
+
+
+def prng_checks(codegen) -> dict:
+    """In-kernel ``random`` against ``prng.uniform_at`` (the steps the
+    kernel takes, as torch ops) on :data:`RANDOM_CASES`, bit for bit; then
+    a 2**24-value float64 draw two ways: ``prng.uniform`` (the plain draw)
+    and one B1 call of a block that only draws, each its launches in a
+    CUDA graph (:func:`graph_ms`)."""
+    from repro_torch.core import prng
+    from repro_torch.core.ir import BaseArray, Op, View
+    dev = torch.device("cuda")
+    ints = {np.float64: torch.int64, np.float32: torch.int32,
+            np.float16: torch.int16}
+    kernels = []
+    for shape, dt, seed, salt in RANDOM_CASES:
+        n = int(np.prod(shape))
+        r = BaseArray(n, dt)
+        ops = [Op("random", View.contiguous(r, shape), (),
+                  new_bases=frozenset({r}))]
+        fn, _, _ = codegen.build_block_kernel(ops, seed=seed, device=dev)
+        got, = fn((salt,))
+        want = prng.uniform_at(seed, salt, torch.arange(n, device=dev), dt)
+        if not torch.equal(got.view(ints[dt]), want.view(ints[dt])):
+            raise AssertionError(f"in-kernel random {shape} {np.dtype(dt)} "
+                                 f"differs from prng.uniform_at")
+        kernels.append(fn)
+    print("PRNG in-kernel draw vs prng.uniform_at: bitwise on "
+          + ", ".join(f"{shape} {np.dtype(dt).name} seed {seed} salt {salt}"
+                      for shape, dt, seed, salt in RANDOM_CASES), flush=True)
+    fn, (shape, dt, seed, salt) = kernels[0], RANDOM_CASES[0]
+    out = {"plain_ms": graph_ms(lambda: prng.uniform(seed, salt, shape, dt,
+                                                     dev)),
+           "call_ms": call_ms(fn, ((salt,),)),
+           "ms": kernel_ms(fn, *_block_inputs(fn, ((salt,),))),
+           **block_bound(fn, codegen)}
+    print(f"PRNG 2**24 float64 values: prng.uniform (plain) "
+          f"ms={out['plain_ms']:.4f} | one B1 call of a block that only "
+          f"draws: call_ms={out['call_ms']:.4f} kernel_ms={out['ms']:.4f} "
+          f"bytes={out['bytes']} bound_ms={out['bound_ms']:.4f} "
+          f"({out['bound_by']})", flush=True)
+    return out
 
 
 def launch_cost_s(lazy, codegen) -> float:
@@ -431,6 +534,26 @@ def _kv_write_ms(cfg) -> float:
     return cuda_ms(lambda: _write(buf, view, val))
 
 
+def _kv_block(calls) -> dict:
+    """The LM lane's KV-cache write: of the recorded B1 blocks that the
+    executor let store into an input base in place, the one with the
+    largest such base, its call timed with that grant and without it (one
+    copy of the base), and its kernel alone."""
+    found = []
+    for kernel, bufs_and_salts, kw in calls.values():
+        p = kernel.plan
+        for u in p.in_place:
+            if p.inputs.index(u) in kw.get("reuse", ()):
+                found.append((p.base_meta[u][0], kernel, bufs_and_salts, kw))
+    if not found:
+        raise AssertionError("LM: no B1 block wrote a base in place")
+    size, kernel, bufs_and_salts, kw = max(found, key=lambda t: t[0])
+    return {"domain": kernel.plan.domain, "base_elems": size,
+            "ms": kernel_ms(kernel, *_block_inputs(kernel, bufs_and_salts)),
+            "copy_ms": call_ms(kernel, bufs_and_salts),
+            "reuse_ms": call_ms(kernel, bufs_and_salts, kw)}
+
+
 def run_lm(lazy, codegen, rowblock) -> dict:
     """The LM serving lane at Qwen1.5-4B widths (see the module doc)."""
     from repro_torch.configs import qwen15_4b
@@ -499,6 +622,7 @@ def run_lm(lazy, codegen, rowblock) -> dict:
         launches = {"fused_block": codegen.LAUNCHES["fused_block"],
                     "rowblock": rowblock.LAUNCHES["rowblock"]}
         flushes = list(lt.rt.history)[h0:]
+    donated = sum(e["exec"]["donated_buffers"] for e in flushes)
     if launches["rowblock"] == 0 or launches["fused_block"] == 0:
         raise AssertionError(f"LM: a kernel never launched: {launches}")
     L = cfg.n_layers
@@ -564,18 +688,24 @@ def run_lm(lazy, codegen, rowblock) -> dict:
         if loss[name]["launches"] != n:
             raise AssertionError(f"LM {name}: {loss[name]['launches']} "
                                  f"recorded calls for {n} launches")
-    norms = [(block_size(k, rowblock), k, bs) for k, bs in rec_b2.calls.values()
+    norms = [(block_size(k, rowblock), k, bs, kw)
+             for k, bs, kw in rec_b2.calls.values()
              if any(n.opcode == "rsqrt" for n in k.plan.nodes)]
-    _, nk, nbs = max(norms, key=lambda t: t[0])
-    norm = time_block(nk, nbs, rowblock)
+    _, nk, nbs, nkw = max(norms, key=lambda t: t[0])
+    norm = time_block(nk, nbs, nkw, rowblock)
     norm["library_ms"] = _rms_norm_ms(nk, nbs)
     kv_ms = _kv_write_ms(cfg)
+    kv = _kv_block(rec_b1.calls)
     for name, blk in (("B1", b1), ("B2", b2)):
         print(f"LM {name}: {blk['n_blocks']} distinct blocks, kernel vs plain "
               f"max abs err {blk['max_abs_err']:.3g}; largest block "
               f"{blk['domain']}: kernel_ms={blk['ms']:.4f} "
+              f"call_ms={blk['call_ms']:.4f} "
               f"plain_ms={blk['plain_ms']:.4f} bytes={blk['bytes']} "
-              f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']})",
+              f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']}); every "
+              f"block: launches x (kernel_ms - bound_ms) = "
+              f"{loss[name]['loss_ms']:.4f} ms, launches x (call_ms - "
+              f"bound_ms) = {loss[name]['call_loss_ms']:.4f} ms",
               flush=True)
     print("LM B2 largest block library_ms=null: no single PyTorch call "
           "computes a masked row max or a shifted-exp row sum alone",
@@ -594,7 +724,12 @@ def run_lm(lazy, codegen, rowblock) -> dict:
               flush=True)
     print(f"LM KV window write: {kv_ms:.4f} ms per layer cache "
           f"({LM_BATCH}x{LM_MAX_SEQ}x{cfg.n_kv_heads}x{cfg.hd} f32), "
-          f"x{2 * L} per decode step = {kv_ms * 2 * L:.3f} ms "
+          f"x{2 * L} per decode step = {kv_ms * 2 * L:.3f} ms (the floor's "
+          f"functional write); the B1 block that stores into a base of "
+          f"{kv['base_elems']} elements in place, domain {kv['domain']}: "
+          f"call_ms in place={kv['reuse_ms']:.4f} with a copy="
+          f"{kv['copy_ms']:.4f} kernel_ms={kv['ms']:.4f}; LM lane "
+          f"donated_buffers={donated} "
           f"({time.perf_counter() - t_start:.1f}s for the LM phase)",
           flush=True)
     return {"launches": launches, "b1": b1, "b2": b2, "norm": norm,
@@ -1123,7 +1258,7 @@ def main() -> int:
         if n_launch == 0:
             raise AssertionError(f"{name}: no fused-block kernel launched")
         launches += n_launch
-        blk = hold_blocks(name, rec.calls, codegen)
+        blk = hold_blocks(name, rec.calls, codegen, exact=res["exact"])
         loss = block_loss(rec.calls, rec.counts, codegen)
         if loss["launches"] != n_launch:
             raise AssertionError(f"{name}: {loss['launches']} recorded calls "
@@ -1137,28 +1272,37 @@ def main() -> int:
         print(f"PROGRAM {name} args={args} blocks={run} "
               f"triton={st['triton_blocks']}/{run} "
               f"declines={dict(st['triton_fallbacks'])} launches={n_launch} "
+              f"donated_buffers={st['donated_buffers']} prng.uniform calls "
+              f"triton={res['draws']['triton']} "
+              f"torch={res['draws']['torch']} "
               f"warm_ms triton={res['warm_s']['triton'] * 1e3:.3f} "
               f"torch={res['warm_s']['torch'] * 1e3:.3f} "
               f"{'bitwise' if res['exact'] else 'max_abs_err'}="
               f"{res['err']:.3g} distinct_blocks={blk['n_blocks']} "
               f"kernel_vs_plain_err={blk['max_abs_err']:.3g} | largest "
               f"block {blk['domain']}: kernel_ms={blk['ms']:.4f} "
+              f"call_ms={blk['call_ms']:.4f} "
               f"plain_ms={blk['plain_ms']:.4f} bytes={blk['bytes']} "
               f"bound_ms={blk['bound_ms']:.4f} ({blk['bound_by']}) | "
               f"every block: launches x (kernel_ms - bound_ms) summed = "
-              f"{loss['loss_ms']:.4f} ms over {loss['timed_blocks']} blocks "
+              f"{loss['loss_ms']:.4f} ms, launches x (call_ms - bound_ms) "
+              f"summed = {loss['call_loss_ms']:.4f} ms over "
+              f"{loss['timed_blocks']} blocks "
               f"(timed in {loss['timing_s']:.1f}s) "
               f"({time.perf_counter() - t0:.1f}s)", flush=True)
         torch.cuda.empty_cache()
+    prng_checks(codegen)
     from repro_torch.kernels.fused_block import rowblock
     lm = run_lm(lazy, codegen, rowblock)
     torch.cuda.empty_cache()
     b1_loss.append(lm["loss"]["B1"])
-    print(f"B1 LOSS over every distinct block, launches x (kernel_ms - "
-          f"bound_ms): programs "
-          f"{sum(x['loss_ms'] for x in b1_loss[:-1]):.4f} ms + LM lane "
-          f"{b1_loss[-1]['loss_ms']:.4f} ms = "
-          f"{sum(x['loss_ms'] for x in b1_loss):.4f} ms over "
+    sums = "; ".join(
+        f"launches x ({what} - bound_ms): programs "
+        f"{sum(x[key] for x in b1_loss[:-1]):.4f} ms + LM lane "
+        f"{b1_loss[-1][key]:.4f} ms = {sum(x[key] for x in b1_loss):.4f} ms"
+        for key, what in (("loss_ms", "kernel_ms"),
+                          ("call_loss_ms", "call_ms")))
+    print(f"B1 LOSS over every distinct block, {sums}; over "
           f"{sum(x['launches'] for x in b1_loss)} launches of "
           f"{sum(x['timed_blocks'] for x in b1_loss)} blocks (timing "
           f"{sum(x['timing_s'] for x in b1_loss):.1f}s); B2 on the LM lane "

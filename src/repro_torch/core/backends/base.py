@@ -91,6 +91,9 @@ class LoweringBackend:
 
     #: registry name, also the stats key (``stats["backend_blocks"][name]``)
     name: str = "abstract"
+    #: True when executables take ``reuse=`` (the input positions a call
+    #: may overwrite); the executor grants reuse only to backends that opt in
+    donates: bool = False
 
     def claims(self, ops: Sequence, plan, ctx: LoweringContext) -> Optional[str]:
         """``None`` when this backend can lower the block, else a stable

@@ -10,7 +10,10 @@ reason slugs in the fallback stats are exactly ``codegen.REASONS`` and the
 claim matches what the ``gpu`` cost model priced during partitioning.
 
 On CPU tensors the built function evaluates the block's plan with plain
-torch ops; on a CUDA tensor it launches the kernel or raises.
+torch ops; on a CUDA tensor it launches the kernel or raises.  It donates:
+the executor grants each call the input buffers it may overwrite, and the
+kernel stores a rewritten base into its own storage when no read of that
+base is shifted against the write (``codegen.output_buffers``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from .base import LoweringBackend, LoweringContext, codegen_lower_reason
 
 class TritonBackend(LoweringBackend):
     name = "triton"
+    donates = True
 
     def claims(self, ops: Sequence, plan, ctx: LoweringContext) -> Optional[str]:
         return codegen_lower_reason(ops, plan)

@@ -11,10 +11,15 @@ below, one PyTorch call per op) or ``triton`` (the fused-block Triton
 generator).  ``BlockExecutor`` is the thin dispatch engine over that
 registry.
 
-Buffers are flat 1-D tensors on the executor's device.  They are never
-written in place: a partial write clones its base first, so a tensor once
-stored (in the buffer store or a SYNC snapshot) never changes.  In-place
-reuse of dying buffers is later work.
+Buffers are flat 1-D tensors on the executor's device.  The floor never
+writes one in place (a partial write clones its base, :func:`_write`).  A
+backend that opts in (``LoweringBackend.donates``: the ``triton`` backend)
+is told which of a block's input buffers it may overwrite — the donatable
+ones (their base dies in the block, ``BlockPlan.donatable``) and those of
+a base the block rewrites — unless another buffer or a SYNC snapshot
+shares the tensor's storage: ``Runtime.materialize`` reads SYNC snapshots,
+so a snapshot, like any buffer another base holds, never changes.  Each
+buffer a block did overwrite counts in ``stats["donated_buffers"]``.
 
 The op tables follow the reference's ``jnp`` semantics with 64-bit types
 enabled, including its type promotion (:func:`op_dtypes`), ``jnp.mod``'s
@@ -25,8 +30,9 @@ here as in ``repro.core.executor``.
 from __future__ import annotations
 
 import threading
+from collections import Counter
 from collections.abc import Mapping
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -531,7 +537,8 @@ class BlockExecutor:
         """Zero every counter (compiled executables and cached lowering
         decisions are kept — resetting is observation, not state).
 
-        ``backend_blocks[name]`` counts dispatches per backend;
+        ``donated_buffers`` counts input buffers blocks overwrote in
+        place; ``backend_blocks[name]`` counts dispatches per backend;
         ``backend_fallbacks[name][reason]`` counts, per backend the policy
         preferred over the one that ran, why it declined.  Under a
         triton-bearing policy every dispatched work block lands either in
@@ -540,7 +547,8 @@ class BlockExecutor:
         st = self.stats
         with self.metrics.lock:
             for key in ("blocks_run", "exec_cache_hits", "exec_cache_misses",
-                        "triton_blocks", "triton_fallback_blocks"):
+                        "donated_buffers", "triton_blocks",
+                        "triton_fallback_blocks"):
                 st.declare_scalar(key)
             st.declare_group("triton_fallbacks", ("reason",))
             st.declare_group("backend_blocks", ("backend",),
@@ -598,6 +606,19 @@ class BlockExecutor:
                 st.inc("triton_fallback_blocks")
                 st.inc("triton_fallbacks", labels=(reason,))
 
+    @staticmethod
+    def _grant(plan, in_bufs: Sequence[torch.Tensor],
+               refs: Counter) -> FrozenSet[int]:
+        """Input positions a block may overwrite: the donatable ones and
+        those of a base the block rewrites, whose storage no other buffer
+        and no SYNC snapshot holds (``refs`` counts the holders of each
+        storage)."""
+        outs = set(plan.outputs)
+        return frozenset(
+            k for k, u in enumerate(plan.inputs)
+            if (k in plan.donatable or u in outs)
+            and refs[_storage(in_bufs[k])] == 1)
+
     def run_schedule(self, schedule, buffers: Dict[int, torch.Tensor]) -> None:
         """Dispatch a planned flush against the buffer store.
 
@@ -606,11 +627,24 @@ class BlockExecutor:
         device tensor and is updated with each block's outputs.  Per block:
         take the plan's lowering decision (or decide now), look up (or
         build) the executable under ``(backend, signature)``, feed the
-        external input buffers plus the RNG salts, then honor SYNC
+        external input buffers plus the RNG salts (and, to a backend that
+        donates, the input positions it may overwrite), then honor SYNC
         (snapshot into ``sync_store``) and DEL (free) in Bohrium order."""
-        from .backends import select_lowering
+        from .backends import get_backend, select_lowering
         tape = schedule.tape
         ctx = self.lowering_context()
+        # holders of each storage: buffers and SYNC snapshots
+        refs = Counter(_storage(b) for b in (*buffers.values(),
+                                             *self.sync_store.values()))
+
+        def hold(store: Dict[int, torch.Tensor], u: int, buf) -> None:
+            old = store.pop(u, None)
+            if old is not None:
+                refs[_storage(old)] -= 1
+            if buf is not None:
+                store[u] = buf
+                refs[_storage(buf)] += 1
+
         with trace.span("stage.execute", n_blocks=len(schedule.blocks)):
             for plan in schedule.blocks:
                 ops = [tape[i] for i in plan.op_indices]
@@ -630,14 +664,27 @@ class BlockExecutor:
                     salts = tuple(getattr(op, "salt", op.uid) % (2**31 - 1)
                                   for op in ops if not op.is_system()
                                   and op.opcode == "random")
+                    kw = {}
+                    if get_backend(decision.backend).donates:
+                        kw["reuse"] = self._grant(plan, in_bufs, refs)
                     with trace.span("block", backend=decision.backend,
                                     n_ops=len(plan.op_indices)):
-                        out_bufs = fn(*in_bufs, salts)
+                        out_bufs = fn(*in_bufs, salts, **kw)
+                    pos = {u: k for k, u in enumerate(plan.inputs)}
+                    reused = sum(1 for u, b in zip(plan.outputs, out_bufs)
+                                 if u in pos and b is in_bufs[pos[u]])
+                    if reused:
+                        self.stats.inc("donated_buffers", reused)
                     for u, b in zip(plan.outputs, out_bufs):
-                        buffers[u] = b
+                        hold(buffers, u, b)
                 for op in ops:  # SYNC snapshots before DEL (Bohrium order)
                     for b in op.sync_bases:
                         if b.uid in buffers:
-                            self.sync_store[b.uid] = buffers[b.uid]
+                            hold(self.sync_store, b.uid, buffers[b.uid])
                     for b in op.del_bases:
-                        buffers.pop(b.uid, None)
+                        hold(buffers, b.uid, None)
+
+
+def _storage(t: torch.Tensor) -> int:
+    """Identity of a tensor's storage (tensors that share it alias)."""
+    return t.untyped_storage().data_ptr()

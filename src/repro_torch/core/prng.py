@@ -16,8 +16,11 @@ as the JAX package:
   (``_threefry_random_bits_partitionable``), whose top mantissa bits become
   a float in ``[1, 2)`` minus one (``jax._src.random._uniform``).
 
-The key schedule runs on Python integers; the per-element hash runs as
-int64 tensor ops masked to 32 bits on the caller's device.
+The key schedule runs on Python integers (:func:`key_words`); the
+per-element hash (:func:`uniform_at`) runs as int64 tensor ops masked to
+32 bits on the caller's device.  The fused-block kernel takes the same
+steps per element in-kernel, on ``uint32``, with the key words as launch
+arguments.
 """
 
 from __future__ import annotations
@@ -71,18 +74,33 @@ _LAYOUT = {
 }
 
 
-def uniform(seed: int, salt: int, shape, dtype,
-            device: torch.device) -> torch.Tensor:
-    """``jax.random.uniform(fold_in(PRNGKey(seed), salt), shape, dtype)``
-    on ``device``, bitwise."""
+#: calls of :func:`uniform` (the whole-array draw of the torch floor); the
+#: fused-block kernel draws in-kernel and never calls it, which a run can
+#: check by setting this to 0 first
+CALLS = {"uniform": 0}
+
+
+def key_words(seed: int, salt: int) -> Tuple[int, int]:
+    """The two key words of one draw, ``fold_in(PRNGKey(seed), salt)``,
+    computed on the host: a kernel takes them as launch arguments, so one
+    compiled kernel serves every salt."""
+    return fold_in(prng_key(seed), salt)
+
+
+def uniform_at(seed: int, salt: int, index: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """The value of flat element ``index`` (an int64 tensor, any shape) of
+    ``uniform(seed, salt, shape, dtype)`` for every ``shape`` that holds
+    it, in the steps the fused-block kernel takes per element: the
+    counter pair ``(i >> 32, i & MASK)``, threefry2x32 under the draw's
+    key words, then the top mantissa bits of the output words as a float
+    in ``[1, 2)`` minus one."""
     dt = np.dtype(dtype)
     if dt not in _LAYOUT:
         raise TypeError(f"uniform draws float16/32/64, not {dt}")
     view, nmant, one = _LAYOUT[dt]
-    k1, k2 = fold_in(prng_key(seed), salt)
-    n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(k1, k2, i >> 32, i & MASK)
+    k1, k2 = key_words(seed, salt)
+    b1, b2 = threefry2x32(k1, k2, index >> 32, index & MASK)
     if dt.itemsize == 8:
         # the 64-bit word is b1:b2; keep its top 52 bits without forming it
         frac = (b1 << (nmant - 32)) | (b2 >> (64 - nmant))
@@ -92,4 +110,13 @@ def uniform(seed: int, salt: int, shape, dtype,
     floats = (frac | one).to(view).view(torch.float64 if dt.itemsize == 8
                                         else torch.float32 if dt.itemsize == 4
                                         else torch.float16)
-    return (floats - 1.0).reshape(tuple(shape))
+    return floats - 1.0
+
+
+def uniform(seed: int, salt: int, shape, dtype,
+            device: torch.device) -> torch.Tensor:
+    """``jax.random.uniform(fold_in(PRNGKey(seed), salt), shape, dtype)``
+    on ``device``, bitwise: :func:`uniform_at` over every flat index."""
+    CALLS["uniform"] += 1
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return uniform_at(seed, salt, i, dtype).reshape(tuple(shape))

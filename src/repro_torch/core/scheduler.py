@@ -7,8 +7,9 @@
    blocks under a cost model.
 4. **schedule**  — this module turns the block list into a ``Schedule``: a
    topologically-ordered sequence of ``BlockPlan``s carrying each block's
-   external inputs/outputs, contracted temporaries and executable-cache
-   signature.
+   external inputs/outputs, contracted temporaries, executable-cache
+   signature and *donatable* input positions (buffers whose base dies
+   inside the block, which the block may overwrite).
 5. **lower**     — each ``BlockPlan`` is annotated with a ``lowering``
    decision: which registered backend (``repro_torch.core.backends``) runs
    the block, chosen by backend expressibility and the cost model's
@@ -30,7 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .algorithms import PartitionResult, partition
 from .backends import LoweringDecision, LoweringPolicy, select_lowering
 from .cache import MergeCache, block_signature, tape_signature
-from .executor import block_io
+from .executor import block_dead_bases, block_io
 from .ir import Op
 from .obs import trace
 
@@ -43,6 +44,7 @@ class BlockPlan:
     inputs: Tuple[int, ...]        # base uids consumed from the store
     outputs: Tuple[int, ...]       # base uids written back to the store
     contracted: Tuple[int, ...]    # new∩del temporaries (never materialized)
+    donatable: Tuple[int, ...]     # positions in `inputs` whose buffer dies
     signature: Tuple               # executable-cache key (structural)
     has_work: bool                 # False for DEL/SYNC-only blocks
     #: stage-5 decision (None until lowered / for DEL/SYNC-only blocks)
@@ -62,16 +64,23 @@ class Schedule:
 
 def plan_blocks(tape: Sequence[Op],
                 op_blocks: Sequence[Sequence[int]]) -> List[BlockPlan]:
-    """Stage 4: lower a partition's block lists into ``BlockPlan``s."""
+    """Stage 4: lower a partition's block lists into ``BlockPlan``s.
+
+    A block input is donatable when its base is deleted (and not SYNC'd)
+    inside the same block: no later block may observe it — the partition's
+    dependency edges order every access before the DEL — so the block may
+    overwrite its buffer."""
     plans: List[BlockPlan] = []
     for block in op_blocks:
         ops = [tape[i] for i in block]
         ins, outs, contracted = block_io(ops)
+        dead = block_dead_bases(ops)
         plans.append(BlockPlan(
             op_indices=tuple(block),
             inputs=tuple(ins),
             outputs=tuple(outs),
             contracted=tuple(contracted),
+            donatable=tuple(k for k, u in enumerate(ins) if u in dead),
             signature=block_signature(ops),
             has_work=any(not op.is_system() for op in ops),
         ))

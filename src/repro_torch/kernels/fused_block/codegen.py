@@ -1,19 +1,24 @@
 """Triton kernel generator for WSP partition blocks (the Hopper port of
 ``repro/kernels/fused_block/codegen.py:build_block_kernel``).
 
-A fused block becomes ONE Triton kernel over the block's common iteration
+A fused block becomes ONE Triton launch over the block's common iteration
 domain ``D`` (fusion legality guarantees every work op in a block shares
 it), canonicalized to a 2-D ``(R, C)`` space: ``C`` is the innermost domain
 axis, ``R`` the product of the leading axes; a 1-D domain is folded into
 rows of :data:`ONE_D_COLS`.  Contracted arrays (``new ∩ del``) never leave
-registers.
+registers.  The launch draws the block's ``random`` values, computes the
+block and stores every output straight into its final buffer in the base
+dtype, so no torch pass touches a whole array before or after it — apart
+from one copy of an output base the launch may not overwrite (below).
 
 **What bounds it.**  Every op the generator accepts is elementwise or a
 sum/max/min/prod reduction, far below the H100's operations-per-byte ratio,
-so a block's least time is the bytes it must move over the device-memory
-rate (3.35e12 B/s): each external input read once, each output written
-once.  The design streams each external array exactly once and keeps every
-intermediate in registers.
+so a block's least time is mostly the bytes it must move over the
+device-memory rate (3.35e12 B/s): each external input read once, each
+output written once.  A drawn value moves no bytes; its threefry hash
+(:data:`THREEFRY_OPS` ``uint32`` operations an element) makes a block that
+mostly draws bound by operations.  The design streams each external array
+exactly once and keeps every intermediate in registers.
 
 **Design.**
 
@@ -23,25 +28,53 @@ intermediate in registers.
   buffer through its view's offset and strides — dense slabs, stride-0 row,
   column and scalar broadcasts (column and scalar loads hoisted out of the
   loop) and whole-table gathers — so no operand is copied or padded first.
-  ``range`` is the global flat index; ``random`` values are drawn in a
-  torch prologue by :mod:`repro_torch.core.prng`, bit-identical to the
-  reference's XLA draw.  Window (partial) writes and output dtype casts
-  stay in a torch epilogue, as in the reference.
+  ``range`` is the global flat index.
+* *Random values.*  ``random`` is JAX's threefry2x32 in the kernel, on
+  ``tl.uint32``: the counter is the element's flat index in the domain
+  (the high word is 0: domains stay inside 32-bit indexing), the key
+  words of ``fold_in(PRNGKey(seed), salt)`` are launch arguments
+  (:func:`repro_torch.core.prng.key_words`), and the float is assembled
+  from the output words' top bits by a bit cast — the steps of
+  :func:`repro_torch.core.prng.uniform_at`, so the bits are the
+  reference's.  A key word is passed as an int64 at or above 2**32 and
+  not specialized, so its Triton type never depends on its value: one
+  compiled kernel serves every salt, and a CUDA graph captures the salt
+  as a plain argument.
+* *Stores.*  Every write of an output base is stored in the kernel
+  through its view's address into the base's output buffer, in the base
+  dtype (a reduction's result is cast once from its accumulation dtype).
+  A write that a later whole write of the same base covers is not stored;
+  one that a later write overlaps otherwise is masked off where that write
+  lands, so the result never depends on the order in which programs run.
+  The output buffer is the input's own storage when the caller allows it
+  (``reuse``: input positions the executor lets the block overwrite) and
+  every read of that base from memory is the identical view of each
+  write or disjoint from it (``_Plan.in_place``).  Otherwise a base some
+  write covers whole gets ``torch.empty``, an input base one copy of
+  itself, a base the block creates ``torch.zeros``.  A stencil that reads
+  the base it writes at shifted views therefore takes the copy: another
+  program could read elements already overwritten.  The source is the
+  same either way: reuse only chooses which pointer the launch passes.
 * *Reductions.*  The TPU kernel accumulated across a sequential grid; a
   GPU grid runs in no order.  Trailing-axis reductions finish inside the
   program (in-block reads of reduction outputs are refused by the
   analysis, so nothing needs them earlier).  Full and leading-axis
   reductions write per-program partials, and a second small kernel
-  combines them over the programs in a fixed order: no atomics, so the
-  result is the same on every run.  Accumulation is in the reduction's
-  result dtype (``jnp.sum`` semantics).
+  combines them over the programs in a fixed order into the output
+  buffer: no atomics, so the result is the same on every run.
+  Accumulation is in the reduction's result dtype (``jnp.sum``
+  semantics).
 * *Numerics.*  Launched with ``enable_fp_fusion=False`` so multiplies and
   adds are not contracted into FMAs the torch floor does not do; float32
   division and square root use the correctly rounded ``div_rn`` /
   ``sqrt_rn``; transcendental functions and ``fmod`` come from libdevice,
-  the same routines PyTorch's CUDA kernels call.  Literals reach the kernel
-  through a small float64/int64 constant table and are rounded to the
-  op's compute dtype in-kernel, as JAX rounds a weakly-typed scalar.
+  the same routines PyTorch's CUDA kernels call — except a float ``mod``
+  by a literal power of two, which is ``x − floor(x·2⁻ᵏ)·2ᵏ`` with fmod's
+  result kept on the formula's edge cases (:func:`mod_pow2`): the same
+  bits without libdevice's bit-serial float64 ``fmod``.  Literals reach
+  the kernel through a small float64/int64 constant table and are rounded
+  to the op's compute dtype in-kernel, as JAX rounds a weakly-typed
+  scalar.
 
 The analysis half (``REASONS``, ``_classify``, ``_analyze``,
 ``block_lower_reason``) keeps the reference's decline slugs letter for
@@ -50,10 +83,11 @@ the reference also declines a block whose single ``(1, C)`` row exceeds its
 VMEM budget (``vmem``); a program here loops over ``C`` and never holds a
 whole row, so ``vmem`` remains only for domains past 32-bit indexing.
 
-Beside the kernel sits its plain version (:func:`plain_slots`): the same
-plan evaluated with torch ops on whole ``(R_pad, C)`` tensors.  The
-wrapper (:class:`FusedBlockKernel`) takes it only for tensors on the CPU;
-on a CUDA tensor it launches the kernel or raises.
+Beside the kernel sits its plain version (:func:`plain_outputs`): the same
+plan evaluated with torch ops on whole ``(R_pad, C)`` tensors, its writes
+applied in program order to the same output buffers.  The wrapper
+(:class:`FusedBlockKernel`) takes it only for tensors on the CPU; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -64,14 +98,14 @@ import math
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from ...core import prng
 from ...core.device import resolve_device
-from ...core.executor import (_BINARY, _UNARY, _read, _slice_plan, _write,
+from ...core.executor import (_BINARY, _UNARY, _read, _slice_plan, _window,
                               apply_op, apply_reduce, block_io, numpy_dtype,
                               op_dtypes, reduce_dtype, reduce_identity, take,
                               torch_dtype)
@@ -81,6 +115,11 @@ ONE_D_COLS = 1024             # row width when folding a 1-D domain
 TILE_ELEMS = 2048             # elements of one (TR, BLOCK_C) tile, at most
 MAX_BLOCK_C = 1024            # widest column chunk
 NUM_WARPS = 4
+#: uint32 operations of one in-kernel draw, per element: threefry2x32's
+#: two key additions, 20 rounds of add, rotate (one funnel shift on the
+#: card) and xor, 5 key injections of two additions, and 4 to assemble the
+#: float's bits
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2 + 4
 
 #: repo-root build directory (gitignored): generated kernel sources and
 #: Triton's compile cache
@@ -135,22 +174,20 @@ class _Operand:
 
     key: Tuple
     kind: str                 # "dense" | "row" | "col" | "scalar" | "table"
-    source: str               # "buffer" | "zeros" | "random"
+    source: str               # "buffer" | "zeros"
     base_uid: int = -1
     core: Optional[View] = None      # the view's extent (plain version)
     bcast_dims: Tuple[int, ...] = ()  # broadcast axes (mixed dense case)
-    rand_pos: int = -1               # index into the block's random ops
     view: Optional[View] = None      # domain-shaped view the kernel reads
 
 
 @dataclass(frozen=True)
-class _Slot:
-    """One kernel output stream."""
+class _Store:
+    """One in-kernel store of a node's value into an output base."""
 
-    kind: str                 # "dense" | "window" | "red_full" | "red_row" | "red_col"
-    dtype: np.dtype
-    base_uid: int
-    view: Optional[View] = None      # window scatter target
+    node: int
+    view: View                # the written view (a reduction's: whole)
+    masks: Tuple[View, ...] = ()     # later overlapping writes: skip their elements
 
 
 @dataclass
@@ -161,7 +198,7 @@ class _Node:
     terms: Tuple              # ("lit", x) | ("op", operand_idx) | ("val", node_idx)
     out_dtype: np.dtype
     red_kind: Optional[str] = None   # "full" | "row" | "col"
-    out_slot: Optional[int] = None
+    rand_pos: int = -1               # index into the block's random ops
 
 
 @dataclass
@@ -175,11 +212,16 @@ class _Plan:
     G: int
     one_d: bool
     operands: List[_Operand] = field(default_factory=list)
-    slots: List[_Slot] = field(default_factory=list)
     nodes: List[_Node] = field(default_factory=list)
     rand_shapes: List[Tuple[Tuple[int, ...], np.dtype]] = field(default_factory=list)
-    # output base uid -> ordered write list: ("whole"|"window", slot, view)
-    epilogue: Dict[int, List[Tuple[str, int, Optional[View]]]] = field(default_factory=dict)
+    #: output base uid -> its stores, in program order
+    stores: Dict[int, List[_Store]] = field(default_factory=dict)
+    #: output bases some store covers whole (their buffer needs no contents)
+    full: Set[int] = field(default_factory=set)
+    #: input output bases whose own storage the kernel may write: every
+    #: read of the base from memory is identical to or disjoint from every
+    #: store into it, so no program reads what another has stored
+    in_place: Set[int] = field(default_factory=set)
     inputs: List[int] = field(default_factory=list)
     outputs: List[int] = field(default_factory=list)
     base_meta: Dict[int, Tuple[int, np.dtype]] = field(default_factory=dict)
@@ -188,10 +230,21 @@ class _Plan:
     def R_pad(self) -> int:
         return self.G * self.TR
 
-    def live_slots(self) -> List[int]:
-        """Slots some output reads (a window of a contracted base is
-        computed by the analysis but never stored)."""
-        return sorted({s for ws in self.epilogue.values() for _, s, _ in ws})
+    def store_list(self) -> List[Tuple[int, _Store]]:
+        """``(output position, store)`` of every store — the outputs in
+        order, each one's stores in program order: the kernel's ``S{n}``
+        pointer arguments, each its output buffer from the view's offset
+        on (so no offset is a literal of the source)."""
+        return [(j, st) for j, u in enumerate(self.outputs)
+                for st in self.stores[u]]
+
+    def stores_by_node(self) -> Dict[int, List[Tuple[int, int, _Store]]]:
+        """node index -> ``(store number, output position, store)`` of each
+        of its stores."""
+        out: Dict[int, List[Tuple[int, int, _Store]]] = {}
+        for n, (j, st) in enumerate(self.store_list()):
+            out.setdefault(st.node, []).append((n, j, st))
+        return out
 
 
 def _whole(v: View) -> bool:
@@ -295,7 +348,7 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
         C = domain[-1]
         R = N // C
     inputs, outputs, _contracted = block_io(ops)
-    input_set, output_set = set(inputs), set(outputs)
+    input_set = set(inputs)
     plan = _Plan(domain=domain, N=N, R=R, C=C, TR=0, BC=0, G=0,
                  one_d=one_d, inputs=list(inputs), outputs=list(outputs))
     for op in work:
@@ -303,19 +356,18 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
             plan.base_meta[v.base.uid] = (v.base.size, v.base.dtype)
 
     op_index: Dict[Tuple, int] = {}
-    dense_slot: Dict[int, int] = {}             # output base -> shared slot
+    # base -> (view, node, is_reduction) of each write, program order
     writes: Dict[int, List[Tuple[View, int, bool]]] = {}
 
-    def operand_for(v: View, source: str, rand_pos: int = -1) -> int:
+    def operand_for(v: View, source: str) -> int:
         kind, core, bdims = _classify(v, domain)
-        key = (source, v.base.uid if source != "random" else rand_pos,
-               v.offset, v.shape, v.strides)
+        key = (source, v.base.uid, v.offset, v.shape, v.strides)
         idx = op_index.get(key)
         if idx is None:
             idx = len(plan.operands)
             plan.operands.append(_Operand(
                 key=key, kind=kind, source=source, base_uid=v.base.uid,
-                core=core, bcast_dims=bdims, rand_pos=rand_pos, view=v))
+                core=core, bcast_dims=bdims, view=v))
             op_index[key] = idx
         return idx
 
@@ -352,27 +404,24 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
         oc = op.opcode
         nidx = len(plan.nodes)
         ov = op.out
+        node = _Node(opcode=oc, terms=(), out_dtype=ov.dtype)
 
         if oc == "random":
-            rand_pos = len(plan.rand_shapes)
+            node.rand_pos = len(plan.rand_shapes)
             plan.rand_shapes.append((ov.shape, ov.dtype))
-            terms = (("op", operand_for(ov, "random", rand_pos)),)
         elif oc == "range":
-            terms = ()
+            pass
         elif oc in REDUCTIONS:
-            terms = (resolve_read(op.in_views()[0]),)
+            node.terms = (resolve_read(op.in_views()[0]),)
         elif oc == "gather":
-            terms = (("op", table_operand_for(op.inputs[0])),
-                     resolve_read(op.inputs[1]))
+            node.terms = (("op", table_operand_for(op.inputs[0])),
+                          resolve_read(op.inputs[1]))
         else:
             # literals pass through unconverted: their Python type decides
             # the promotion (executor.op_dtypes), as in make_block_fn
-            terms = tuple(
+            node.terms = tuple(
                 resolve_read(t) if isinstance(t, View) else ("lit", t)
                 for t in op.inputs)
-
-        node = _Node(opcode=oc, terms=terms, out_dtype=ov.dtype)
-        u = ov.base.uid
 
         if oc in REDUCTIONS:
             axis = op.axis
@@ -392,49 +441,44 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
                     or (kind == "full" and ov.size != 1):
                 raise FusedBlockUnsupported("reduction_out", repr(ov))
             node.red_kind = kind
-            if u in output_set:
-                node.out_slot = len(plan.slots)
-                # accumulate in the reduction's result dtype; the epilogue
-                # casts once to the output base dtype, like reduce-then-write
-                plan.slots.append(_Slot(
-                    kind=f"red_{kind}",
-                    dtype=reduce_dtype(oc, op.in_views()[0].dtype),
-                    base_uid=u))
-                plan.epilogue.setdefault(u, []).append(
-                    ("whole", node.out_slot, None))
-            writes.setdefault(u, []).append((ov, nidx, True))
-        else:
-            if _whole(ov):
-                if u in output_set:
-                    slot = dense_slot.get(u)
-                    if slot is None:
-                        slot = len(plan.slots)
-                        plan.slots.append(_Slot(kind="dense", dtype=ov.dtype,
-                                                base_uid=u))
-                        dense_slot[u] = slot
-                    node.out_slot = slot
-                    plan.epilogue.setdefault(u, []).append(("whole", slot, None))
-            else:
-                if any(s == 0 and n > 1 for n, s in zip(ov.shape, ov.strides)) \
-                        or not _plannable(ov):
-                    raise FusedBlockUnsupported("irregular_view", repr(ov))
-                # window write: computed in-kernel, scattered by the epilogue.
-                # Slot created even for contracted bases so expressibility
-                # stays DEL-insensitive; only live slots are stored.
-                node.out_slot = len(plan.slots)
-                plan.slots.append(_Slot(kind="window", dtype=ov.dtype,
-                                        base_uid=u, view=ov))
-                if u in output_set:
-                    plan.epilogue.setdefault(u, []).append(
-                        ("window", node.out_slot, ov))
-            writes.setdefault(u, []).append((ov, nidx, False))
+        elif not _whole(ov):
+            if any(s == 0 and n > 1 for n, s in zip(ov.shape, ov.strides)) \
+                    or not _plannable(ov):
+                raise FusedBlockUnsupported("irregular_view", repr(ov))
+        writes.setdefault(ov.base.uid, []).append(
+            (ov, nidx, oc in REDUCTIONS))
         plan.nodes.append(node)
+
+    # Stores: a write covered by a later whole write of its base is dead; a
+    # later write that overlaps it otherwise masks its elements off, so the
+    # last write of each element wins whatever order the programs run in.
+    for u in outputs:
+        ws = writes[u]
+        stores = []
+        for i, (view, nidx, _) in enumerate(ws):
+            later = [w for w, _, _ in ws[i + 1:]]
+            if any(_whole(w) for w in later):
+                continue
+            stores.append(_Store(nidx, view, tuple(
+                w for w in later
+                if w.overlaps(view) and not w.identical(view))))
+        plan.stores[u] = stores
+        if any(_whole(st.view) for st in stores):
+            plan.full.add(u)
+        if u in input_set and all(
+                st.view.disjoint(o.view)
+                or (o.kind != "table" and st.view.identical(o.view))
+                for o in plan.operands
+                if o.source == "buffer" and o.base_uid == u
+                for st in stores):
+            plan.in_place.add(u)
 
     # Hopper tiling: a program owns TR rows and loops over C in BC-wide
     # chunks (powers of two, at least 2 and 16 so no tile axis degenerates).
-    # Every operand and node value is live in registers across a chunk, so
-    # blocks with many of them take smaller tiles rather than spill.
-    live = len(plan.operands) + len(plan.nodes)
+    # Every operand, drawn value and node value is live in registers across
+    # a chunk, so blocks with many of them take smaller tiles rather than
+    # spill.
+    live = len(plan.operands) + len(plan.rand_shapes) + len(plan.nodes)
     tile = TILE_ELEMS if live <= 8 else TILE_ELEMS // 2 if live <= 32 \
         else TILE_ELEMS // 4
     plan.BC = max(16, min(_next_pow2(C), MAX_BLOCK_C))
@@ -462,21 +506,12 @@ def block_lower_reason(ops: Sequence[Op]) -> Optional[str]:
 
 def _operand_dtypes(plan: _Plan) -> List[np.dtype]:
     """Dtype of every operand (by index) as the kernel loads it."""
-    out = []
-    for o in plan.operands:
-        if o.source == "random":
-            out.append(np.dtype(plan.rand_shapes[o.rand_pos][1]))
-        else:
-            out.append(np.dtype(plan.base_meta[o.base_uid][1]))
-    return out
+    return [np.dtype(plan.base_meta[o.base_uid][1]) for o in plan.operands]
 
 
-def _plain_operand(plan: _Plan, o: _Operand, store, rvals,
-                   device) -> torch.Tensor:
+def _plain_operand(plan: _Plan, o: _Operand, store, device) -> torch.Tensor:
     R, C, R_pad = plan.R, plan.C, plan.R_pad
-    if o.source == "random":
-        core = rvals[o.rand_pos].reshape(-1)[:o.core.size].reshape(o.core.shape)
-    elif o.source == "zeros":
+    if o.source == "zeros":
         size, dt = plan.base_meta[o.base_uid]
         core = torch.zeros(o.core.size, dtype=torch_dtype(dt),
                            device=device).reshape(o.core.shape)
@@ -501,16 +536,109 @@ def _plain_operand(plan: _Plan, o: _Operand, store, rvals,
     return pad(core.reshape(-1), R_pad * C).reshape(R_pad, C)
 
 
-def plain_slots(plan: _Plan, store: Dict[int, torch.Tensor], rvals,
-                device) -> List[Optional[torch.Tensor]]:
-    """The kernel's outputs computed with torch ops: one tensor per live
-    slot — flat ``(N,)`` for dense/window slots, ``(1,)``, ``(C,)`` or
-    ``(R,)`` for full, leading-axis and trailing-axis reductions."""
+def _wide(dt: np.dtype) -> np.dtype:
+    """The type float math runs in: float16 detours through float32."""
+    return np.dtype(np.float32) if np.dtype(dt) == np.float16 else np.dtype(dt)
+
+
+def _pow2_divisor(oc: str, raw: Sequence[Tuple]
+                  ) -> Optional[Tuple[int, np.dtype]]:
+    """``(k, compute dtype)`` when ``oc`` is a float ``mod`` of an array by
+    a literal that the op's compute dtype holds as ``2**k``, with ``2**k``
+    and ``2**-k`` both normal numbers of the type the kernel computes in;
+    else ``None`` (the general ``fmod`` path).  ``raw`` holds ``(name,
+    dtype)`` for an array term and ``(None, literal)`` for a literal, in
+    input order."""
+    if oc != "mod" or len(raw) != 2 or raw[0][0] is None \
+            or raw[1][0] is not None or isinstance(raw[1][1], bool):
+        return None
+    cd, _ = op_dtypes("mod", [d for _, d in raw])
+    if cd.kind != "f":
+        return None
+    val = float(np.asarray(float(raw[1][1])).astype(cd))
+    if not (val > 0 and math.isfinite(val)):
+        return None
+    m, e = math.frexp(val)
+    emax = np.finfo(_wide(cd)).maxexp - 2          # 1022, 126
+    return (e - 1, cd) if m == 0.5 and -emax <= e - 1 <= emax else None
+
+
+def _mod_pow2_big(dt: np.dtype, k: int) -> float:
+    """The least magnitude from which every float of ``dt`` is a multiple
+    of ``2**k`` (its unit in the last place reaches ``2**k``)."""
+    fi = np.finfo(dt)
+    return math.ldexp(1.0, fi.nmant + k) if fi.nmant + k < fi.maxexp \
+        else float("inf")
+
+
+def mod_pow2(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``jnp.mod(x, 2.0**k)`` for a float32 or float64 tensor, as the
+    kernel computes it: ``x − floor(x·2⁻ᵏ)·2ᵏ`` (every step exact but the
+    last subtraction, which rounds the same real number as ``fmod``'s
+    ``t + 2ᵏ``), with ``fmod``'s result kept where the formula leaves it:
+
+    * ``x = −0`` and a negative exact multiple of ``2ᵏ``: ``fmod`` gives
+      −0, which ``jnp.mod`` keeps; the formula gives +0;
+    * a negative subnormal ``x`` whose ``x·2⁻ᵏ`` rounds to −0: the floor
+      must be −1, not −0 (so must that of a negative subnormal ``x·2⁻ᵏ``,
+      which Triton's float32 ``floor`` flushes to −0: ``q < f`` catches
+      it);
+    * ``x·2⁻ᵏ`` overflowing (``k < 0``): every ``|x|`` past
+      :func:`_mod_pow2_big` is an exact multiple, so its result is ±0.
+
+    ``k`` must keep ``2**k`` and ``2**-k`` normal (:func:`_pow2_divisor`).
+    """
+    big = _mod_pow2_big(numpy_dtype(x.dtype), k)
+    q = x * 2.0 ** -k
+    f = torch.floor(q)
+    f = torch.where((q < f) | ((x < 0) & (q == 0)), f - 1, f)
+    t = x - f * 2.0 ** k
+    exact = (t == 0) | ((x.abs() >= big) & (x.abs() < float("inf")))
+    return torch.where(exact, x * 0.0, t)
+
+
+def output_buffers(plan: _Plan, store: Dict[int, torch.Tensor],
+                   reuse: FrozenSet[int], device) -> List[torch.Tensor]:
+    """The flat buffer each output base is stored into: the input's own
+    storage where ``reuse`` (input positions the caller lets the block
+    overwrite) allows it and ``plan.in_place`` says no program could read
+    what another stored; else new memory — empty when a store covers the
+    whole base, one copy of an input base, zeros for a base the block
+    creates."""
+    pos = {u: k for k, u in enumerate(plan.inputs)}
+    outs = []
+    for u in plan.outputs:
+        size, dt = plan.base_meta[u]
+        k = pos.get(u)
+        if k is not None and k in reuse and u in plan.in_place \
+                and store[u].is_contiguous():
+            outs.append(store[u])
+        elif u in plan.full:
+            outs.append(torch.empty(size, dtype=torch_dtype(dt),
+                                    device=device))
+        elif k is not None:
+            outs.append(store[u].clone())
+        else:
+            outs.append(torch.zeros(size, dtype=torch_dtype(dt),
+                                    device=device))
+    return outs
+
+
+def plain_outputs(plan: _Plan, store: Dict[int, torch.Tensor], seed: int,
+                  salts: Sequence[int], outs: Sequence[torch.Tensor],
+                  device) -> None:
+    """The kernel's work with torch ops: every node on whole ``(R_pad, C)``
+    tensors (``random`` through :func:`prng.uniform_at` at each element's
+    flat index), then each output base's stores applied in program order
+    to its buffer in ``outs`` (from :func:`output_buffers`)."""
     R, C, N, R_pad = plan.R, plan.C, plan.N, plan.R_pad
-    loaded = [_plain_operand(plan, o, store, rvals, device)
-              for o in plan.operands]
-    live = set(plan.live_slots())
-    slots: List[Optional[torch.Tensor]] = [None] * len(plan.slots)
+    overwritten = {u for u, b in zip(plan.outputs, outs) if store.get(u) is b}
+    loaded = []
+    for o in plan.operands:
+        x = _plain_operand(plan, o, store, device)
+        # an operand of a base stored in place keeps the values it read
+        loaded.append(x.clone() if o.base_uid in overwritten else x)
+    by_node = plan.stores_by_node()
     vals: Dict[int, torch.Tensor] = {}
     flat_idx = torch.arange(R_pad * C, device=device).reshape(R_pad, C)
 
@@ -524,6 +652,8 @@ def plain_slots(plan: _Plan, store: Dict[int, torch.Tensor], rvals,
         oc = node.opcode
         args = [resolve(t) for t in node.terms]
         if node.red_kind is not None:
+            if k not in by_node:
+                continue                # a reduction no output keeps
             x = torch.broadcast_to(args[0], (R_pad, C))
             dt = reduce_dtype(oc, numpy_dtype(x.dtype))
             if node.red_kind == "full":
@@ -534,49 +664,41 @@ def plain_slots(plan: _Plan, store: Dict[int, torch.Tensor], rvals,
                             torch.tensor(reduce_identity(oc, dt),
                                          dtype=torch_dtype(dt), device=device))
             if node.red_kind == "full":
-                part = apply_reduce(oc, x, None).reshape(1)
+                vals[k] = apply_reduce(oc, x, None).reshape(1)
             elif node.red_kind == "row":
-                part = apply_reduce(oc, x, 0)
+                vals[k] = apply_reduce(oc, x, 0)
             else:
-                part = apply_reduce(oc, x, 1)[:R]
-            if node.out_slot in live:
-                slots[node.out_slot] = part
+                vals[k] = apply_reduce(oc, x, 1)[:R]
             continue
+        raw = [(None, a) if t[0] == "lit" else ("x", numpy_dtype(a.dtype))
+               for t, a in zip(node.terms, args)]
+        pow2 = _pow2_divisor(oc, raw)
         if oc == "range":
             val = flat_idx
         elif oc == "gather":
             val = take(args[0], torch.broadcast_to(args[1], (R_pad, C)), 0)
         elif oc == "random":
-            val = args[0]
+            val = prng.uniform_at(seed, salts[node.rand_pos], flat_idx,
+                                  node.out_dtype)
+        elif pow2 is not None and pow2[1] == _wide(pow2[1]):
+            k2, cd = pow2
+            val = mod_pow2(args[0].to(torch_dtype(cd)), k2)
         else:
             val = apply_op(oc, args)
-        val = torch.broadcast_to(val, (R_pad, C)).to(
+        vals[k] = torch.broadcast_to(val, (R_pad, C)).to(
             device=device, dtype=torch_dtype(node.out_dtype))
-        vals[k] = val
-        if node.out_slot in live:
-            slots[node.out_slot] = val.reshape(-1)[:N]
-    return slots
-
-
-def epilogue(plan: _Plan, store: Dict[int, torch.Tensor],
-             slots: Sequence[Optional[torch.Tensor]], device) -> Tuple:
-    """Assemble the block's output buffers from its slots: whole writes and
-    reductions cast once to the base dtype, window writes scattered into a
-    copy of the base (or of zeros, for a base the block creates)."""
-    final = []
-    input_set = set(plan.inputs)
-    for u in plan.outputs:
-        size, dt = plan.base_meta[u]
-        cur = (store[u] if u in input_set
-               else torch.zeros(size, dtype=torch_dtype(dt), device=device))
-        for wkind, slot, view in plan.epilogue.get(u, []):
-            raw = slots[slot]
-            if wkind == "whole":
-                cur = raw[:size].to(torch_dtype(dt))
+    for u, out in zip(plan.outputs, outs):
+        dt = torch_dtype(plan.base_meta[u][1])
+        for st in plan.stores[u]:
+            val = vals[st.node].to(dt)
+            if plan.nodes[st.node].red_kind is None:
+                val = val.reshape(-1)[:N]
+            if _whole(st.view):
+                out.copy_(val.reshape(-1))
             else:
-                cur = _write(cur, view, raw[:plan.N].reshape(plan.domain))
-        final.append(cur)
-    return tuple(final)
+                dims, starts, sizes = _slice_plan(st.view)
+                out.view(dims)[_window((dims, starts, sizes))] = \
+                    val.reshape(sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -719,6 +841,15 @@ def _op_expr(src: _Source, oc: str, raw: List[Tuple]) -> Tuple[str, np.dtype]:
         cond = c if np.dtype(cdt) == np.dtype(np.bool_) else f"({c} != 0)"
         return f"tl.where({cond}, {branches[0]}, {branches[1]})", rd
     cd, rd = op_dtypes(oc, [d for _, d in raw])
+    pow2 = _pow2_divisor(oc, raw)
+    if pow2 is not None:
+        # x − floor(x·2⁻ᵏ)·2ᵏ and its edge cases (mod_pow2), in float32
+        # for float16 as every float16 op here
+        k, w = pow2[0], _wide(cd)
+        x = _cast(raw[0][0], raw[0][1], w)
+        consts = ", ".join(src.const(v, w) for v in (
+            2.0 ** k, 2.0 ** -k, _mod_pow2_big(w, k)))
+        return _cast(f"_mod_pow2({x}, {consts})", w, cd), rd
     args = [src.const(d, cd) if n is None else _cast(n, d, cd)
             for n, d in raw]
     return _elementwise(src, oc, args, cd), rd
@@ -772,11 +903,62 @@ def _fmod_jnp(a, b):
 
 
 @triton.jit
+def _mod_pow2(a, b, rb, big):
+    # jnp.mod(a, b) for b = 2**k, rb = 2**-k: codegen.mod_pow2's steps
+    q = a * rb
+    f = tl.floor(q)
+    f = tl.where((q < f) | ((a < 0) & (q == 0)), f - 1, f)
+    t = a - f * b
+    exact = (t == 0) | ((tl.abs(a) >= big) & (tl.abs(a) < float("inf")))
+    return tl.where(exact, a * 0.0, t)
+
+
+@triton.jit
 def _imod_jnp(a, b):
     b = tl.where(b == 0, 1, b)
     t = a % b
     return tl.where(((t < 0) != (b < 0)) & (t != 0), t + b, t)
 '''
+
+
+def _threefry_source() -> str:
+    """The in-kernel draw's helpers: threefry2x32 on ``uint32`` (20 rounds,
+    ``prng._ROTATIONS``; every intermediate unsigned, so ``>>`` is a
+    logical shift) and, per float width, ``prng.uniform_at``'s rule from
+    the two output words to a float in ``[0, 1)``."""
+    ks = ("k1", "k2", "k3")
+    body = ["    k3 = k1 ^ k2 ^ 0x1BD11BDA",
+            "    x1 = tl.zeros_like(c) + k1",
+            "    x2 = c + k2"]
+    for i in range(5):
+        for r in prng._ROTATIONS[i % 2]:
+            body += ["    x1 = x1 + x2",
+                     f"    x2 = x1 ^ ((x2 << {r}) | (x2 >> {32 - r}))"]
+        body += [f"    x1 = x1 + {ks[(i + 1) % 3]}",
+                 f"    x2 = x2 + {ks[(i + 2) % 3]} + {i + 1}"]
+    return "\n".join([
+        "@triton.jit",
+        "def _threefry2x32(k1, k2, c):",
+        *body,
+        "    return x1, x2",
+        "", "",
+        "@triton.jit",
+        "def _u01_float64(b1, b2):",
+        "    bits = ((b1.to(tl.uint64) << 20) | (b2 >> 12).to(tl.uint64)",
+        "            | 0x3FF0000000000000)",
+        "    return bits.to(tl.float64, bitcast=True) - 1.0",
+        "", "",
+        "@triton.jit",
+        "def _u01_float32(b1, b2):",
+        "    bits = ((b1 ^ b2) >> 9) | 0x3F800000",
+        "    return bits.to(tl.float32, bitcast=True) - 1.0",
+        "", "",
+        "@triton.jit",
+        "def _u01_float16(b1, b2):",
+        "    bits = (((b1 ^ b2) & 0xFFFF) >> 6) | 0x3C00",
+        "    f = bits.to(tl.uint16).to(tl.float16, bitcast=True)",
+        "    return (f.to(tl.float32) - 1.0).to(tl.float16)",
+        ""])
 
 
 def _address(plan: _Plan, view: View) -> Tuple[Optional[str], int]:
@@ -799,18 +981,64 @@ def _address(plan: _Plan, view: View) -> Tuple[Optional[str], int]:
     return (" + ".join(reversed(terms)) if terms else None), view.strides[-1]
 
 
+def _store_address(plan: _Plan, view: View) -> str:
+    """Where each domain element of a written view lands, from the view's
+    offset, as a whole ``(TR, BC)`` tile (a store's pointer takes its
+    mask's shape)."""
+    if _whole(view):
+        return "(rows * C + cols)"
+    rterm, cs = _address(plan, view)
+    addr = " + ".join([*([rterm] if rterm else []),
+                       *([f"cols * {cs}"] if cs else [])]) or "0"
+    return f"({addr})" if rterm and cs \
+        else f"tl.broadcast_to({addr}, (TR, BC))"
+
+
+def _outside(masks: Sequence[View], addr: str) -> str:
+    """`` & ~(...)`` terms that keep a store off the elements of each later
+    window write in ``masks``: a flat address ``a`` is in a slice-plannable
+    view when each of its coordinates in the view's ``dims`` lies in the
+    view's window."""
+    out = ""
+    for v in masks:
+        dims, starts, sizes = _slice_plan(v)
+        conds, stride = [], 1
+        for d, a0, n in reversed(list(zip(dims, starts, sizes))):
+            if n < d:
+                c = f"(({addr} // {stride}) % {d})"
+                conds.append(f"({c} >= {a0}) & ({c} < {a0 + n})")
+            stride *= d
+        out += f" & ~({' & '.join(conds)})"
+    return out
+
+
+def key_args(seed: int, salts: Sequence[int], n: int) -> List[int]:
+    """The launch arguments of ``n`` draws' key words: each as an int64 at
+    or above 2**32 (the kernel keeps its low 32 bits), so Triton types it
+    the same whatever its value."""
+    out = []
+    for salt in salts[:n]:
+        out += [k | 1 << 32 for k in prng.key_words(seed, salt)]
+    return out
+
+
 def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
                                        List[Tuple]]:
     """The generated module: ``(source, float constants, int constants,
-    combines)`` with one ``(kernel name, slot, W, WB, ...)`` entry per
-    cross-program reduction.  Everything structural (shapes, strides,
-    tiling) is a literal of the source, so one source serves exactly one
-    block signature."""
+    combines)`` with one ``(kernel name, node, store number, W, WB,
+    accumulation dtype)`` entry per cross-program reduction.  Everything structural (shapes,
+    strides, tiling) is a literal of the source, so one source serves
+    exactly one block signature — view offsets excepted: every operand
+    and store pointer arrives at its view's offset, so blocks that differ
+    only in where their windows sit (a decode step's KV-cache write) share
+    one compiled kernel.  Parameters: the operand pointers, one pointer
+    per store, the reductions' partials, two key words per draw, then the
+    constant tables."""
     R, C, N, TR, BC, G = plan.R, plan.C, plan.N, plan.TR, plan.BC, plan.G
     src = _Source()
     params: List[str] = []
-    live = set(plan.live_slots())
     dtypes = _operand_dtypes(plan)
+    by_node = plan.stores_by_node()
     mask_full = "((rows * C + cols) < N)" if plan.one_d \
         else "(rmask & (cols < C))"
 
@@ -827,35 +1055,39 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
         params.append(ptr)
         if o.kind == "table":
             continue
-        # random values arrive compact in the domain's own layout
-        view = (o.view if o.source == "buffer"
-                else View.contiguous(o.view.base, plan.domain))
-        off = view.offset if o.source == "buffer" else 0
-        rterm, cs = _address(plan, view)
+        # the pointer arrives at the view's offset (FusedBlockKernel.prepare)
+        rterm, cs = _address(plan, o.view)
         name = src.name("x")
         opval[i] = name
         if rterm is None and cs == 0:                     # scalar
-            src.pre.append(f"{name} = tl.load({ptr} + {off})")
+            src.pre.append(f"{name} = tl.load({ptr})")
         elif cs == 0:                                     # column
-            src.pre.append(f"{name} = tl.load({ptr} + ({off} + {rterm}), "
+            src.pre.append(f"{name} = tl.load({ptr} + ({rterm}), "
                            f"mask=rmask, other=0)")
         elif rterm is None:                               # row
-            src.loop.append(f"{name} = tl.load({ptr} + ({off} + cols * {cs})"
+            src.loop.append(f"{name} = tl.load({ptr} + (cols * {cs})"
                             f", mask=cols < C, other=0)")
         else:                                             # dense
-            src.loop.append(f"{name} = tl.load({ptr} + ({off} + {rterm} + "
+            src.loop.append(f"{name} = tl.load({ptr} + ({rterm} + "
                             f"cols * {cs}), mask=m, other=0)")
 
-    # -- output slots ----------------------------------------------------
-    slot_ptr: Dict[int, str] = {}
-    combines: List[Tuple] = []
-    for j, s in enumerate(plan.slots):
-        if j in live:
-            slot_ptr[j] = f"S{j}"
-            params.append(slot_ptr[j])
+    # -- outputs, partials, key words ------------------------------------
+    params += [f"S{n}" for n in range(len(plan.store_list()))]
+    partial = [k for k, node in enumerate(plan.nodes)
+               if node.red_kind in ("full", "row") and k in by_node]
+    params += [f"P{k}" for k in partial]
+    keys = []
+    for j in range(len(plan.rand_shapes)):
+        keys += [f"K{j}a", f"K{j}b"]
+        src.pre += [f"k{j}a = (K{j}a & 0xFFFFFFFF).to(tl.uint32)",
+                    f"k{j}b = (K{j}b & 0xFFFFFFFF).to(tl.uint32)"]
+    if keys:
+        src.loop.append("ctr = (rows * C + cols).to(tl.uint32)")
+    params += keys
 
     # -- nodes -----------------------------------------------------------
     vals: Dict[int, Tuple[str, np.dtype]] = {}
+    combines: List[Tuple] = []
 
     def term(t, cd: Optional[np.dtype]) -> Tuple[str, object]:
         tag, x = t
@@ -871,15 +1103,16 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
         name = src.name("v")
         if node.red_kind is not None:
             x, xdt = term(node.terms[0], None)
-            if node.out_slot not in live:
-                continue                # a dead reduction needs no work
+            if k not in by_node:
+                continue                # a reduction no output keeps
+            (n, j, st), = by_node[k]
+            base_dt = plan.base_meta[plan.outputs[j]][1]
             adt = reduce_dtype(oc, xdt)
             ident = src.const(reduce_identity(oc, adt), adt)
             fn = _combine_fn(oc, adt)
             xv = f"tl.where(m, {_cast(x, xdt, adt)}, {ident})"
-            ptr = slot_ptr[node.out_slot]
             if node.red_kind == "row":
-                src.loop.append(f"tl.store({ptr} + pid * C + c1, "
+                src.loop.append(f"tl.store(P{k} + pid * C + c1, "
                                 f"tl.reduce({xv}, 0, {fn}), mask=c1 < C)")
             else:
                 acc = src.name("acc")
@@ -887,21 +1120,44 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
                                f"+ {ident}")
                 src.loop.append(f"{acc} = {fn}({acc}, {xv})")
                 if node.red_kind == "col":
-                    src.post.append(f"tl.store({ptr} + r1, tl.reduce({acc}, "
-                                    f"1, {fn}), mask=r1 < R)")
+                    res = _cast(f"tl.reduce({acc}, 1, {fn})", adt, base_dt)
+                    src.post.append(f"tl.store(S{n} + r1, {res}, mask=r1 < R"
+                                    f"{_outside(st.masks, 'r1')})")
                 else:
-                    src.post.append(f"tl.store({ptr} + pid, tl.reduce("
+                    src.post.append(f"tl.store(P{k} + pid, tl.reduce("
                                     f"tl.reduce({acc}, 1, {fn}), 0, {fn}))")
             if node.red_kind != "col":
                 W = C if node.red_kind == "row" else 1
-                combines.append((f"combine{node.out_slot}", node.out_slot,
-                                 W, max(16, min(_next_pow2(W), 128)), oc, adt,
-                                 ident))
+                WB = max(16, min(_next_pow2(W), 128))
+                GB = max(2, 2048 // WB)
+                res = _cast(f"tl.reduce(acc, 0, {fn})", adt, base_dt)
+                combines.append((f"combine{k}", k, n, W, WB, adt, [
+                    "", "",
+                    "@triton.jit",
+                    f"def combine{k}(P, O, KF, KI):",
+                    "    pid = tl.program_id(0)",
+                    f"    c1 = pid * {WB} + tl.arange(0, {WB}).to(tl.int64)",
+                    f"    cm = c1 < {W}",
+                    f"    {ident} = {src.const_expr[ident]}",
+                    f"    acc = tl.zeros(({GB}, {WB}), {_tl(adt)}) + {ident}",
+                    f"    for g0 in range(0, G, {GB}):",
+                    f"        g1 = g0 + tl.arange(0, {GB}).to(tl.int64)",
+                    "        msk = (g1[:, None] < G) & cm[None, :]",
+                    f"        x = tl.load(P + g1[:, None] * {W} + c1[None, :], "
+                    "mask=msk, other=0)",
+                    f"        acc = {fn}(acc, tl.where(msk, x, {ident}))",
+                    f"    tl.store(O + c1, {res}, mask=cm"
+                    f"{_outside(st.masks, 'c1')})"]))
             continue
         if oc == "range":
             expr, rd = "(rows * C + cols)", np.dtype(np.int64)
         elif oc == "random":
-            expr, rd = term(node.terms[0], None)
+            j = node.rand_pos
+            bits = src.name("b")
+            src.loop.append(f"{bits}a, {bits}b = _threefry2x32(k{j}a, k{j}b, "
+                            f"ctr)")
+            expr = f"_u01_{np.dtype(out).name}({bits}a, {bits}b)"
+            rd = out
         elif oc == "gather":
             tbl = node.terms[0][1]
             o = plan.operands[tbl]
@@ -926,9 +1182,11 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
                 for t in node.terms])
         src.loop.append(f"{name} = {_cast(expr, rd, out)}")
         vals[k] = (name, out)
-        if node.out_slot in live:
-            src.loop.append(f"tl.store({slot_ptr[node.out_slot]} + "
-                            f"(rows * C + cols), {name}, mask=m)")
+        for n, _, st in by_node.get(k, ()):
+            addr = src.name("a")
+            src.loop.append(f"{addr} = {_store_address(plan, st.view)}")
+            src.loop.append(f"tl.store(S{n} + {addr}, {name}, mask=m"
+                            f"{_outside(st.masks, f'({addr} + {st.view.offset})')})")
 
     params += ["KF", "KI"]
     body = [
@@ -944,6 +1202,10 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
         *("    " + line for line in src.loop),
         *src.post,
     ]
+    # key words are not specialized (on ==1 or divisibility by 16): one
+    # compiled kernel serves every salt
+    jit = (f"@triton.jit(do_not_specialize={keys!r})" if keys
+           else "@triton.jit")
     lines = [
         "import triton",
         "import triton.language as tl",
@@ -952,32 +1214,15 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
         *(f"{k} = tl.constexpr({v})" for k, v in
           (("R", R), ("C", C), ("N", N), ("TR", TR), ("BC", BC), ("G", G))),
         _HELPERS,
-        "@triton.jit",
+        *([_threefry_source()] if keys else []),
+        jit,
         f"def block_kernel({', '.join(params)}):",
         *("    " + line for line in body),
     ]
-    for cname, slot, W, WB, oc, adt, _ in combines:
-        GB = max(2, 2048 // WB)
-        fn = _combine_fn(oc, adt)
-        ident = src.const(reduce_identity(oc, adt), adt)
-        lines += [
-            "", "",
-            "@triton.jit",
-            f"def {cname}(P, O, KF, KI):",
-            "    pid = tl.program_id(0)",
-            f"    c1 = pid * {WB} + tl.arange(0, {WB}).to(tl.int64)",
-            f"    cm = c1 < {W}",
-            f"    {ident} = {src.const_expr[ident]}",
-            f"    acc = tl.zeros(({GB}, {WB}), {_tl(adt)}) + {ident}",
-            f"    for g0 in range(0, G, {GB}):",
-            f"        g1 = g0 + tl.arange(0, {GB}).to(tl.int64)",
-            "        msk = (g1[:, None] < G) & cm[None, :]",
-            f"        x = tl.load(P + g1[:, None] * {W} + c1[None, :], "
-            "mask=msk, other=0)",
-            f"        acc = {fn}(acc, tl.where(msk, x, {ident}))",
-            f"    tl.store(O + c1, tl.reduce(acc, 0, {fn}), mask=cm)",
-        ]
-    return "\n".join(lines) + "\n", src.kf, src.ki, combines
+    for *_, combine_lines in combines:
+        lines += combine_lines
+    return ("\n".join(lines) + "\n", src.kf, src.ki,
+            [c[:6] for c in combines])
 
 
 # ---------------------------------------------------------------------------
@@ -1010,8 +1255,10 @@ def _load_module(source: str):
 
 
 class FusedBlockKernel:
-    """The executable of one claimed block: ``fn(*input_bufs, salts) ->
-    output_bufs`` with the ``make_block_fn`` calling convention.
+    """The executable of one claimed block: ``fn(*input_bufs, salts,
+    reuse=frozenset()) -> output_bufs`` with the ``make_block_fn`` calling
+    convention.  ``reuse`` holds the input positions whose buffers the call
+    may overwrite (the executor's grant); by default it overwrites none.
 
     Input buffers on the CPU take the plain version; buffers on a CUDA
     device launch the generated kernel (built at first launch) or raise.
@@ -1023,54 +1270,51 @@ class FusedBlockKernel:
         self.device = torch.device(device)
         self._gen = None            # (module, consts, combines) once built
 
-    def draw_random(self, salts, device) -> List[torch.Tensor]:
-        """The block's ``random`` values (the torch prologue)."""
-        return [prng.uniform(self.seed, salts[j], shape, dt, device)
-                for j, (shape, dt) in enumerate(self.plan.rand_shapes)]
-
     def _device_of(self, bufs) -> torch.device:
         devs = {b.device for b in bufs}
         if len(devs) > 1:
             raise ValueError(f"block inputs span devices {devs}")
         return devs.pop() if devs else self.device
 
-    def __call__(self, *bufs_and_salts):
+    def __call__(self, *bufs_and_salts, reuse: FrozenSet[int] = frozenset()):
         *bufs, salts = bufs_and_salts
         device = self._device_of(bufs)
         store = dict(zip(self.plan.inputs, bufs))
-        rvals = self.draw_random(salts, device)
         if device.type == "cpu":
-            slots = plain_slots(self.plan, store, rvals, device)
-        elif device.type == "cuda":
-            slots = self.launch(store, rvals, device)
-        else:
-            raise RuntimeError(f"no fused-block kernel for device {device}")
-        return epilogue(self.plan, store, slots, device)
+            return self._plain(store, salts, device, reuse)
+        if device.type == "cuda":
+            return self.launch(store, salts, device, reuse)
+        raise RuntimeError(f"no fused-block kernel for device {device}")
 
-    def plain(self, *bufs_and_salts):
+    def plain(self, *bufs_and_salts, reuse: FrozenSet[int] = frozenset()):
         """The plain version on any device — what the kernel is held
         against on the card."""
         *bufs, salts = bufs_and_salts
         device = self._device_of(bufs)
-        store = dict(zip(self.plan.inputs, bufs))
-        slots = plain_slots(self.plan, store, self.draw_random(salts, device),
-                            device)
-        return epilogue(self.plan, store, slots, device)
+        return self._plain(dict(zip(self.plan.inputs, bufs)), salts, device,
+                           reuse)
 
-    def launch(self, store: Dict[int, torch.Tensor], rvals,
-               device: torch.device) -> List[Optional[torch.Tensor]]:
+    def _plain(self, store, salts, device, reuse) -> Tuple:
+        outs = output_buffers(self.plan, store, reuse, device)
+        plain_outputs(self.plan, store, self.seed, salts, outs, device)
+        return tuple(outs)
+
+    def launch(self, store: Dict[int, torch.Tensor], salts,
+               device: torch.device,
+               reuse: FrozenSet[int] = frozenset()) -> Tuple:
         """Run the generated kernel (and its combine passes) on CUDA
-        tensors; returns the live slots."""
-        run, slots = self.prepare(store, rvals, device)
+        tensors; returns the output buffers."""
+        run, outs = self.prepare(store, salts, device, reuse)
         run()
         LAUNCHES["fused_block"] += 1
-        return slots
+        return tuple(outs)
 
-    def prepare(self, store: Dict[int, torch.Tensor], rvals,
-                device: torch.device):
-        """Build the kernel if needed, allocate the output slots and bind
-        the arguments.  Returns ``(run, slots)``: ``run()`` launches the
-        kernel and its combine passes (nothing else) and fills ``slots``."""
+    def prepare(self, store: Dict[int, torch.Tensor], salts,
+                device: torch.device, reuse: FrozenSet[int] = frozenset()):
+        """Build the kernel if needed, make the output buffers
+        (:func:`output_buffers`) and bind the arguments.  Returns ``(run,
+        outs)``: ``run()`` launches the kernel and its combine passes
+        (nothing else) and fills ``outs``."""
         p = self.plan
         if self._gen is None:
             source, kf, ki, combines = triton_source(p)
@@ -1080,51 +1324,39 @@ class FusedBlockKernel:
                                    device=device))
             self._gen = (_load_module(source), consts, combines)
         mod, consts, combines = self._gen
-        args = []
-        for o in p.operands:
-            if o.source == "zeros":
-                continue
-            if o.source == "random":
-                args.append(rvals[o.rand_pos].reshape(-1))
-            else:
-                args.append(store[o.base_uid].contiguous())
-        slots: List[Optional[torch.Tensor]] = [None] * len(p.slots)
-        partial: Dict[int, torch.Tensor] = {}
-        for j in p.live_slots():
-            s = p.slots[j]
-            dt = torch_dtype(s.dtype)
-            if s.kind in ("dense", "window"):
-                slots[j] = torch.empty(p.N, dtype=dt, device=device)
-            elif s.kind == "red_col":
-                slots[j] = torch.empty(p.R, dtype=dt, device=device)
-            else:
-                W = p.C if s.kind == "red_row" else 1
-                partial[j] = torch.empty(p.G * W, dtype=dt, device=device)
-                slots[j] = torch.empty(W, dtype=dt, device=device)
-            args.append(partial.get(j, slots[j]))
-        passes = [(getattr(mod, cname), (-(-W // WB),),
-                   (partial[slot], slots[slot]))
-                  for cname, slot, W, WB, *_ in combines]
+        args = [store[o.base_uid].contiguous()[o.view.offset:]
+                for o in p.operands if o.source == "buffer"]
+        outs = output_buffers(p, store, reuse, device)
+        ptrs = [outs[j][st.view.offset:] for j, st in p.store_list()]
+        partials = [torch.empty(p.G * W, dtype=torch_dtype(adt),
+                                device=device)
+                    for _, _, _, W, _, adt in combines]
+        keys = key_args(self.seed, salts, len(p.rand_shapes))
+        passes = [(getattr(mod, cname), (-(-W // WB),), (part, ptrs[n]))
+                  for (cname, _, n, W, WB, _), part in zip(combines, partials)]
 
         def run():
-            mod.block_kernel[(p.G,)](*args, *consts, num_warps=NUM_WARPS,
+            mod.block_kernel[(p.G,)](*args, *ptrs, *partials, *keys, *consts,
+                                     num_warps=NUM_WARPS,
                                      enable_fp_fusion=False)
             for fn, grid, bufs in passes:
                 fn[grid](*bufs, *consts, num_warps=NUM_WARPS,
                          enable_fp_fusion=False)
 
-        return run, slots
+        return run, outs
 
 
 def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
     """Compile a WSP block into one generated Triton kernel.
 
     Returns ``(fn, input_uids, output_uids)`` where
-    ``fn(*flat_input_bufs, salts) -> tuple(flat_output_bufs)`` mirrors the
+    ``fn(*flat_input_bufs, salts, reuse=frozenset()) ->
+    tuple(flat_output_bufs)`` mirrors the
     :func:`repro_torch.core.executor.make_block_fn` calling convention
-    (``salts`` feeds any ``random`` ops).  ``device`` is the CUDA card
-    unless given.  Raises :class:`FusedBlockUnsupported` (with a ``reason``
-    slug) for blocks the generator cannot express."""
+    (``salts`` feeds any ``random`` ops; ``reuse`` names the input
+    positions the call may overwrite).  ``device`` is the CUDA card unless
+    given.  Raises :class:`FusedBlockUnsupported` (with a ``reason`` slug)
+    for blocks the generator cannot express."""
     device = resolve_device(device)
     plan = _analyze(ops)
     return FusedBlockKernel(plan, seed, device), list(plan.inputs), \
@@ -1133,43 +1365,46 @@ def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
 
 def block_bytes(plan: _Plan) -> int:
     """Bytes one kernel launch must move at least: each external input
-    view's elements read once (at most its whole base), each ``random``
-    operand (drawn by the torch prologue into device memory) read once, and
-    each live output written once — the numerator of the kernel's bound."""
+    view's elements read once (at most its whole base) and each output
+    base's stored elements written once (at most the whole base) — the
+    numerator of the kernel's bound.  Drawn values are computed in
+    registers and move none."""
     reads: Dict[int, Dict[Tuple, int]] = {}
-    total = 0
     for o in plan.operands:
-        if o.source == "random":
-            shape, dt = plan.rand_shapes[o.rand_pos]
-            total += math.prod(shape) * np.dtype(dt).itemsize
-        elif o.source == "buffer":
+        if o.source == "buffer":
             size, dt = plan.base_meta[o.base_uid]
             reads.setdefault(o.base_uid, {})[o.key[2:]] = \
                 o.core.size * np.dtype(dt).itemsize
+    total = 0
     for u, views in reads.items():
         size, dt = plan.base_meta[u]
         total += min(size * np.dtype(dt).itemsize, sum(views.values()))
-    for u, writes in plan.epilogue.items():
+    for u, stores in plan.stores.items():
         size, dt = plan.base_meta[u]
-        n = sum(size if kind == "whole" else view.size
-                for kind, _, view in {(k, s, v) for k, s, v in writes})
+        n = sum(size if _whole(v) else v.size for v in
+                {st.view for st in stores})
         total += min(size, n) * np.dtype(dt).itemsize
     return total
 
 
 #: nodes that only move data: no arithmetic to count
-_LOAD_ONLY = {"copy", "random", "gather"}
+_LOAD_ONLY = {"copy", "gather"}
 
 
 def block_ops(plan: _Plan) -> Dict[str, int]:
-    """Arithmetic operations of one launch by compute type: every node that
-    computes (not a load-only ``copy``, ``random`` or ``gather``) is one
-    operation per domain element, in the widest type among its operands and
-    result (a transcendental function counts as one, so this is a floor)."""
+    """Arithmetic operations of one launch by compute type: a ``random``
+    node is :data:`THREEFRY_OPS` ``uint32`` operations per domain element;
+    every other node that computes (not a load-only ``copy`` or
+    ``gather``) is one operation per domain element, in the widest type
+    among its operands and result (a transcendental function counts as
+    one, so this is a floor)."""
     dts = _operand_dtypes(plan)
     out: Dict[str, int] = {}
     for node in plan.nodes:
         if node.opcode in _LOAD_ONLY:
+            continue
+        if node.opcode == "random":
+            out["uint32"] = out.get("uint32", 0) + THREEFRY_OPS * plan.N
             continue
         types = [np.dtype(node.out_dtype)]
         for kind, x in node.terms:

@@ -374,10 +374,13 @@ def test_block_bytes_and_ops_count_what_the_kernel_touches():
         pir.Op("del", None, del_bases=frozenset({R})),
     ]
     plan = codegen._analyze(ops)
-    # the drawn values are read once from device memory, O written once
-    assert codegen.block_bytes(plan) == 2 * n * 8
-    # range, mod and mul compute; random only loads
-    assert codegen.block_ops(plan) == {"float64": 3 * n}
+    # the values are drawn in registers: only O is written
+    assert codegen.block_bytes(plan) == n * 8
+    # range, mod and mul compute in float64; the draw is threefry's
+    # uint32 work
+    assert codegen.block_ops(plan) == {"float64": 3 * n,
+                                       "uint32": codegen.THREEFRY_OPS * n}
+    assert codegen.THREEFRY_OPS == 76
 
     A, B, C = (pir.BaseArray(n, np.dtype(np.float32)) for _ in range(3))
     va, vb, vc = (pir.View.contiguous(x, (n,)) for x in (A, B, C))
@@ -389,3 +392,130 @@ def test_block_bytes_and_ops_count_what_the_kernel_touches():
     assert codegen.block_bytes(plan) == 3 * n * 4      # A read once
     # the comparison runs in its operands' type, not its bool result's
     assert codegen.block_ops(plan) == {"float32": n}
+
+
+# ---------------------------------------------------------------------------
+# one launch per block: in-kernel draws, in-kernel stores, mod by 2**k
+# ---------------------------------------------------------------------------
+
+def _random_block(n=700, dtype=np.float64):
+    from repro_torch.core import ir as pir
+    R, O = pir.BaseArray(n, np.dtype(dtype)), pir.BaseArray(n, np.dtype(dtype))
+    vr, vo = pir.View.contiguous(R, (n,)), pir.View.contiguous(O, (n,))
+    return [pir.Op("random", vr, (), new_bases=frozenset({R})),
+            pir.Op("mul", vo, (vr, 3.0), new_bases=frozenset({O})),
+            pir.Op("del", None, del_bases=frozenset({R}))]
+
+
+def test_random_block_source_draws_in_kernel_from_key_arguments():
+    """The generated source reads no drawn values: the only pointer is the
+    output's, the key words are (unspecialized) launch arguments, and the
+    hash is in the module."""
+    src, kf, ki, _ = codegen.triton_source(codegen._analyze(_random_block()))
+    head = src[src.index("def block_kernel("):].splitlines()[0]
+    assert head == "def block_kernel(S0, K0a, K0b, KF, KI):"
+    assert "@triton.jit(do_not_specialize=['K0a', 'K0b'])" in src
+    assert "def _threefry2x32(k1, k2, c):" in src
+    assert "_threefry2x32(k0a, k0b, ctr)" in src and "_u01_float64(" in src
+    # the key words ride as int64s at or above 2**32 whatever their value
+    args = codegen.key_args(2 ** 40 + 3, (1, 2 ** 31 - 2), 1)
+    from repro_torch.core import prng
+    assert [a & 0xFFFFFFFF for a in args] == \
+        list(prng.key_words(2 ** 40 + 3, 1))
+    assert all(2 ** 32 <= a < 2 ** 33 for a in args)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+def test_in_kernel_draw_plain_is_the_floor_draw(dtype):
+    """The plain version draws through ``prng.uniform_at`` at each
+    element's flat index: the floor's ``prng.uniform`` bits."""
+    ops = _random_block(1031, dtype)
+    fn, _, _ = codegen.build_block_kernel(ops, seed=9, device="cpu")
+    floor, _, _ = make_block_fn(ops, seed=9, device="cpu")
+    got, = fn((2 ** 31 - 2,))
+    want, = floor((2 ** 31 - 2,))
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _mod_edges(dtype, k):
+    fi = np.finfo(dtype)
+    b = 2.0 ** k
+    t = float(fi.smallest_subnormal)
+    vals = [0.0, -0.0, t, -t, 3 * t, -3 * t, float(fi.tiny) / 2,
+            -float(fi.tiny) / 2, float(fi.tiny), -float(fi.tiny),
+            -4 * b, -b, b, 4 * b, -3 * b, -1e-20, 1e-20, -b / 3, b / 3,
+            7.25, -7.25, float(fi.max), -float(fi.max), float(fi.max) / 2,
+            -2.0 ** (fi.nmant + k), 2.0 ** (fi.nmant + k) - b,
+            np.inf, -np.inf, np.nan]
+    rng = np.random.default_rng(k + 10)
+    vals += list(rng.standard_normal(64) * b * 10)
+    vals += list(-(rng.integers(1, 1000, 16) * b))
+    return np.array(vals, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("k", [-3, 1, 5])
+def test_mod_pow2_is_jnp_mod_bitwise(dtype, k):
+    """``x − floor(x·2⁻ᵏ)·2ᵏ`` with its edge cases gives ``jnp.mod``'s bits
+    on ±0, subnormals of both signs, negative exact multiples, overflowing
+    ``x·2⁻ᵏ``, ±inf and NaN (NaN as NaN).  One difference is the
+    reference's: XLA on the CPU compares with denormals as zero, so its
+    ``mod`` of a negative subnormal keeps ``x``; IEEE arithmetic (the
+    formula, and the torch floor) gives ``x + 2ᵏ`` there."""
+    x = _mod_edges(dtype, k)
+    want = np.asarray(jnp.mod(jnp.asarray(x), dtype(2.0 ** k)))
+    got = codegen.mod_pow2(torch.from_numpy(x), k).numpy()
+    assert got.dtype == want.dtype
+    neg_sub = (x < 0) & (np.abs(x) < np.finfo(dtype).tiny)
+    ieee = (x + dtype(2.0 ** k)).astype(dtype)
+    want = np.where(neg_sub, ieee, want)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    bits = {8: np.int64, 4: np.int32}[x.dtype.itemsize]
+    np.testing.assert_array_equal(got.view(bits)[~nan], want.view(bits)[~nan])
+    assert got[1] == 0 and np.signbit(got[1])          # mod(-0, 2**k) = -0
+    assert np.signbit(got[10])                         # mod(-4·2**k) = -0
+
+
+def test_pow2_divisor_takes_only_normal_powers_of_two():
+    f64, f32, i32 = (np.dtype(d) for d in (np.float64, np.float32, np.int32))
+    pick = codegen._pow2_divisor
+    assert pick("mod", [("x", f64), (None, 2.0)]) == (1, f64)
+    assert pick("mod", [("x", f32), (None, 0.125)]) == (-3, f32)
+    assert pick("mod", [("x", f64), (None, 32)]) == (5, f64)
+    assert pick("mod", [("x", i32), (None, 2.0)]) == (1, f64)
+    for lit in (3.0, -2.0, 0.0, True, 2.0 ** -1023, 2.0 ** 1023):
+        assert pick("mod", [("x", f64), (None, lit)]) is None, lit
+    assert pick("mod", [("x", f32), (None, 2.0 ** 127)]) is None
+    assert pick("mod", [("x", i32), (None, 2)]) is None     # integer mod
+    assert pick("mul", [("x", f64), (None, 2.0)]) is None
+    assert pick("mod", [(None, 3.0), ("x", f64)]) is None
+
+
+def test_leibnitz_mod_block_uses_the_formula_and_matches_the_floor():
+    n = 5000
+    I, O = _base(n), _base(n)
+    ops = [
+        Op("range", View.contiguous(I, (n,)), (), new_bases=frozenset({I})),
+        Op("mod", View.contiguous(O, (n,)), (View.contiguous(I, (n,)), 2.0),
+           new_bases=frozenset({O})),
+        Op("del", None, del_bases=frozenset({I}))]
+    src = codegen.triton_source(codegen._analyze(to_port(ops)))[0]
+    assert "_mod_pow2(" in src and "_fmod_jnp(" not in src.split(
+        "def block_kernel")[1]
+    assert_all_equal(run_both(ops, []))
+
+
+def test_overlapping_window_writes_store_the_last_write():
+    """Two window writes of one base that overlap (a hand-built block; a
+    partition never fuses them): the earlier store is masked off the later
+    one's elements, and the plain version applies both in program order."""
+    n = 64
+    a, o = _base(n), _base(n + 10)
+    va = View.contiguous(a, (n,))
+    ops = [Op("mul", View(o, 0, (n,), (1,)), (va, 2.0)),
+           Op("add", View(o, 5, (n,), (1,)), (va, 1.0))]
+    src = codegen.triton_source(codegen._analyze(to_port(ops)))[0]
+    assert src.count("& ~(") == 1
+    rng = np.random.default_rng(5)
+    assert_all_equal(run_both(ops, [_ints(rng, n), _ints(rng, n + 10)]))

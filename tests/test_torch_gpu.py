@@ -215,6 +215,167 @@ def test_integer_block_bitwise(cuda):
 
 
 # ---------------------------------------------------------------------------
+# kernel B1, one launch a block: in-kernel draws, stores, mod by 2**k
+# ---------------------------------------------------------------------------
+
+_INT = {np.float64: torch.int64, np.float32: torch.int32,
+        np.float16: torch.int16}
+
+
+def _bits_equal(got, want):
+    """Bit for bit, NaN as NaN (whatever its payload)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    it = _INT[np.dtype(str(got.dtype).split(".")[1]).type]
+    assert torch.equal(got.view(it)[~nan], want.view(it)[~nan])
+
+
+def _compiled_variants(jit_fn) -> int:
+    """Compiled specializations of a Triton JIT function (its cache layout
+    differs across Triton versions)."""
+    caches = getattr(jit_fn, "device_caches", None)
+    if caches is not None:
+        return sum(len(c[0]) for c in caches.values())
+    return sum(len(c) for c in jit_fn.cache.values())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+@pytest.mark.parametrize("shape", [(1,), (4097,), (1_000_003,), (33, 1537),
+                                   (5, 7, 300), (2, 3, 4099)])
+def test_in_kernel_random_is_uniform_at(cuda, shape, dtype):
+    """Every element draws ``prng.uniform_at``'s bits at its flat index —
+    ragged rows and columns, 1-D to 3-D domains, three widths — for salts
+    whose key words are small, past 2**31 and anything between, and one
+    compiled kernel serves them all."""
+    from repro_torch.core import prng
+    n = int(np.prod(shape))
+    r = _base(n, dtype)
+    ops = [Op("random", View.contiguous(r, shape), (),
+              new_bases=frozenset({r}))]
+    fn, _, _ = codegen.build_block_kernel(ops, seed=2 ** 40 + 3, device=cuda)
+    idx = torch.arange(n, device=cuda)
+    salts = (0, 1, 17, 2 ** 31 - 2, 123456789)
+    for salt in salts:
+        got, = fn((salt,))
+        _bits_equal(got, prng.uniform_at(2 ** 40 + 3, salt, idx, dtype))
+    assert _compiled_variants(fn._gen[0].block_kernel) == 1
+
+
+def _rmw_ops(m):
+    g, r, h = _base(m * m), _base((m - 2) ** 2), _base(m * m)
+    win = View(g, m + 1, (m - 2, m - 2), (m, 1))
+    hwin = View(h, m + 1, (m - 2, m - 2), (m, 1))
+    vr = View.contiguous(r, (m - 2, m - 2))
+    return [Op("add", win, (vr, 1.0)), Op("mul", win, (win, 0.5)),
+            Op("add", hwin, (hwin, win))]
+
+
+@pytest.mark.parametrize("m", [10, 300, 2049])
+def test_window_writes_copy_and_in_place_bitwise(cuda, m):
+    """Window writes stored in-kernel: without a grant into copies, with
+    one into the granted input's own storage; a buffer outside the grant
+    never changes; both equal the floor and the plain version."""
+    ops = _rmw_ops(m)
+    fn, ins, outs = codegen.build_block_kernel(ops, device=cuda)
+    floor, _, _ = make_block_fn(ops, device=cuda)
+    rng = np.random.default_rng(m)
+    bufs = [torch.from_numpy(rng.standard_normal(fn.plan.base_meta[u][0]))
+            .to(cuda) for u in ins]
+    keep = [b.clone() for b in bufs]
+    want, plain = floor(*bufs, ()), fn.plain(*bufs, ())
+    copied = fn(*bufs, ())
+    assert all(torch.equal(b, k) for b, k in zip(bufs, keep))
+    pos = {u: k for k, u in enumerate(ins)}
+    g, h = (pos[u] for u in outs)
+    got = fn(*bufs, (), reuse=frozenset({g}))
+    assert got[0] is bufs[g] and torch.equal(bufs[h], keep[h])
+    for x in (copied, got):
+        for a, w, p in zip(x, want, plain):
+            _bits_equal(a, w)
+            _bits_equal(a, p)
+
+
+def test_stencil_with_shifted_reads_takes_the_copy(cuda):
+    """Reads of ``g`` at shifted views and a write of its interior in one
+    (hand-built) block: granted reuse, the kernel still stores into a copy
+    — in place, other programs would read overwritten elements — and
+    equals the floor bit for bit."""
+    m = 1500
+    g, inner = _base(m * m), _base((m - 2) ** 2)
+    win = lambda i0, j0: View(g, i0 * m + j0, (m - 2, m - 2), (m, 1))  # noqa: E731
+    vin = View.contiguous(inner, (m - 2, m - 2))
+    ops = [Op("add", vin, (win(1, 0), win(1, 2)), new_bases=frozenset({inner})),
+           Op("add", vin, (vin, win(0, 1))), Op("add", vin, (vin, win(2, 1))),
+           Op("mul", vin, (vin, 0.25)), Op("copy", win(1, 1), (vin,)),
+           Op("del", None, del_bases=frozenset({inner}))]
+    fn, _, _ = codegen.build_block_kernel(ops, device=cuda)
+    floor, _, _ = make_block_fn(ops, device=cuda)
+    assert not fn.plan.in_place
+    buf = torch.from_numpy(np.random.default_rng(2).standard_normal(m * m)) \
+        .to(cuda)
+    keep = buf.clone()
+    got, = fn(buf, (), reuse=frozenset({0}))
+    assert got is not buf and torch.equal(buf, keep)
+    _bits_equal(got, floor(buf, ())[0])
+
+
+def test_overlapping_writes_and_reduction_outputs_bitwise(cuda):
+    """Two overlapping window writes of one base (the earlier masked off
+    the later's elements) and a full reduction stored by its combine pass
+    into a float32 base (cast from its float64 sum in-kernel)."""
+    n = 100_003
+    a, o, s = _base(n), _base(n + 10), _base(1, np.float32)
+    va = View.contiguous(a, (n,))
+    ops = [Op("mul", View(o, 0, (n,), (1,)), (va, 2.0)),
+           Op("add", View(o, 5, (n,), (1,)), (va, 1.0)),
+           Op("reduce_sum", View.contiguous(s, ()), (va,), axis=0,
+              new_bases=frozenset({s}))]
+    rng = np.random.default_rng(8)
+    bufs = [torch.from_numpy(rng.integers(-9, 9, n).astype(np.float64)),
+            torch.from_numpy(rng.standard_normal(n + 10))]
+    got, floor, plain = _run_all(ops, bufs, cuda)
+    for g, f, p in zip(got, floor, plain):
+        _bits_equal(g, f)
+        _bits_equal(g, p)
+
+
+def _mod_edges(dtype, k):
+    fi = np.finfo(dtype)
+    b = 2.0 ** k
+    t = float(fi.smallest_subnormal)
+    vals = [0.0, -0.0, t, -t, 3 * t, -3 * t, float(fi.tiny) / 2,
+            -float(fi.tiny) / 2, float(fi.tiny), -float(fi.tiny),
+            -4 * b, -b, b, 4 * b, -3 * b, -1e-20, 1e-20, -b / 3, b / 3,
+            7.25, -7.25, float(fi.max), -float(fi.max), float(fi.max) / 2,
+            -2.0 ** (fi.nmant + k), 2.0 ** (fi.nmant + k) - b,
+            np.inf, -np.inf, np.nan]
+    rng = np.random.default_rng(k + 10)
+    vals += list(rng.standard_normal(4000) * b * 10)
+    vals += list(-(rng.integers(1, 1000, 100) * b))
+    return np.array(vals, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("k", [-3, 1, 5])
+def test_mod_by_power_of_two_bitwise(cuda, dtype, k):
+    """``mod`` by a literal ``2**k`` (the formula, no ``fmod``) gives the
+    floor's bits — signed zeros included — on ±0, subnormals of both
+    signs, negative exact multiples, overflowing ``x·2⁻ᵏ``, ±inf and
+    NaN."""
+    x = _mod_edges(dtype, k)
+    n = x.size
+    a, o = _base(n, dtype), _base(n, dtype)
+    ops = [Op("mod", View.contiguous(o, (n,)), (View.contiguous(a, (n,)),
+                                                2.0 ** k),
+              new_bases=frozenset({o}))]
+    got, floor, plain = _run_all(ops, [torch.from_numpy(x)], cuda)
+    _bits_equal(got[0], floor[0])
+    _bits_equal(got[0], plain[0])
+
+
+# ---------------------------------------------------------------------------
 # kernel B2: the row-replay generator
 # ---------------------------------------------------------------------------
 
