@@ -76,9 +76,10 @@ the faster float32-accurate route, three TF32 tensor-core passes
 (``TC_TF32_MACS_PER_S``), and a bfloat16 product at the bf16 tensor-core
 rate.
 
-The model-kernel phase also runs the chunk-parallel RWKV6 kernel (B7,
-CUDA) on the RWKV6-3B layer's inputs of B6's case, so the two are timed on
-the same work.
+The model-kernel phase also runs the chunked RWKV6 kernel (B7, CUDA) on
+the RWKV6-3B layer's inputs of B6's case, so the two are timed on the same
+work; B7's bound counts the route it takes, its four products on the FP64
+tensor cores (``TC_F64_MACS_PER_S``).
 
 Then the RWKV6-3B serving path (``run_rwkv``): ``configs/rwkv6_3b.py`` at
 its published widths and all 32 layers (d_model 2560, 40 heads of 64,
@@ -88,16 +89,23 @@ drawn around 1 and each layer's decay logits ``w0`` set to RWKV-LM's
 RWKV-v6 ``time_decay`` initialisation (-6 to -1 across the channels).  It
 serves 4 requests of ragged lengths (drawn as the launcher draws them,
 left-padded to 512 tokens) in one batch through
-``launch.serve.serve_requests`` — prefill, then 16 greedy tokens — with
-every launch count at 0 just before, and requires 32 B7 launches for the
-prefill and 32 B6 launches per decode step.  It holds the first and the
-last layer's B7 (prefill) and B6 (first decode step) calls against their
+``launch.serve.serve_requests`` — the weights cast once to bf16, an eager
+prefill, then 15 decode steps replayed as one CUDA graph (B6 writing
+each layer's state in place into the graph's static cache) — with every
+launch count at 0 just before.  It requires 32 B7 launches for the
+prefill, one capture of 32 B6 launches (after one eager warm-up run of
+the step) replayed 15 times, and the same tokens from the same requests
+decoded eagerly (``graph=False``), and holds 4 graph steps' logits and
+caches bitwise to eager steps.  It holds the first and the last layer's
+B7 (prefill) and B6 (the decode step's warm-up run) calls against their
 plain versions on the recorded inputs (outputs as above, final states in
 float32 at ``MODEL_TOL``), reruns a B7 call for a bitwise-equal result,
 requires prefill(P) followed by ``RWKV_EXTEND`` decode tokens to give the
 last-position logits of prefill(P + those tokens) within ``RWKV_RTOL`` of
 their largest magnitude, every logit finite, and times the warm prefill,
-the decode step and one layer against its B7 call.
+the decode step (graph replays, and eager), one layer against its B7 call,
+and B7's and B6's calls (32 launches in a graph, as a prefill or a step
+makes them) against their bounds.
 
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line (B1-B7), the card's name and power limit,
@@ -160,6 +168,9 @@ TC_BF16_MACS_PER_S = 989e12 / 2
 #: accuracy, so a float32 product's least time is the smaller of its FMAs
 #: on the CUDA cores and three TF32 passes on the tensor cores
 TC_TF32_MACS_PER_S = 494.5e12 / 2
+#: float64 products on the tensor cores (DMMA): the data sheet's 67e12
+#: FLOP/s, 33.5e12 multiply-adds per second
+TC_F64_MACS_PER_S = 67e12 / 2
 #: kernel vs plain version on the card, per element |err| <= rtol·|plain| +
 #: atol.  atol is the reference's own float32 tolerance (tests/
 #: test_kernels.py): attention and norm 2e-5, scans 3e-4 (sums in other
@@ -221,16 +232,19 @@ def call_ms(kernel, bufs_and_salts, kw=None) -> float:
     return graph_ms(lambda: kernel(*bufs_and_salts, **(kw or {})))
 
 
-def graph_ms(fn) -> float:
-    """Device time of ``fn`` with no host work timed: its launches captured
-    once in a CUDA graph, the graph replayed under :func:`cuda_ms` (for
-    kernels short enough that a Python call would show)."""
+def graph_ms(fn, calls: int = 1) -> float:
+    """Device time of ``fn`` with no host work timed: ``calls`` calls of it
+    captured in a CUDA graph, the graph replayed under :func:`cuda_ms`,
+    over ``calls`` (for kernels short enough that a Python call would
+    show; a graph replay costs about 0.011 ms of its own on an H100, so a
+    kernel of a few microseconds is timed over many calls)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay) / calls
 
 
 def max_err(got, want) -> float:
@@ -763,7 +777,8 @@ def _attention_work(q, k, causal, window, softcap):
 
 def _bound(nbytes, ops):
     rates = {"tensor_bf16": TC_BF16_MACS_PER_S,
-             "tensor_3xtf32": TC_TF32_MACS_PER_S, **PEAK_OPS_PER_S}
+             "tensor_3xtf32": TC_TF32_MACS_PER_S,
+             "tensor_f64": TC_F64_MACS_PER_S, **PEAK_OPS_PER_S}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(n / rates[t] for t, n in ops.items()) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
@@ -867,13 +882,13 @@ def _model_cases(gen):
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
     # B7 on B6's inputs: the same function, in chunks of 32 tokens; the
-    # bound counts the function's work, as B6's does
+    # bound counts the route B7 takes (_chunked_ops)
     cases.append(dict(
         kernel="rwkv6_chunked", label="RWKV6-3B BH 8x40 T2048 N64 f32, "
         "B6's inputs", args=(*ins, 32), run=lambda a: rw.rwkv6_chunked(*a),
         plain=lambda a: reference_rwkv6_chunked(*a[:5]),
         work=((5 * bh * t * n + n) * 4,
-              {"float32": bh * t * (3 * n * n + 3 * n)}),
+              _chunked_ops(bh, t, n)),
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
     return cases
@@ -993,8 +1008,10 @@ def run_model_kernels() -> dict:
 
 
 class OpRecorder:
-    """While active, wraps ``module.name``: counts its calls and keeps the
-    arguments and the result of the calls numbered in ``keep``."""
+    """While active, wraps ``module.name``: counts its calls and keeps
+    clones of the arguments and the result of the calls numbered in
+    ``keep`` (a CUDA graph's static buffers, which a call may read or
+    return, are overwritten by later replays)."""
 
     def __init__(self, module, name: str, keep):
         self.module, self.name, self.keep = module, name, set(keep)
@@ -1006,7 +1023,7 @@ class OpRecorder:
         def spy(*args, **kw):
             out = self.orig(*args, **kw)
             if self.n in self.keep:
-                self.calls[self.n] = (args, kw, out)
+                self.calls[self.n] = (_clone(args), _clone(kw), _clone(out))
             self.n += 1
             return out
 
@@ -1015,6 +1032,16 @@ class OpRecorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(z) for z in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
 
 
 def rwkv_time_decay(n_layers: int, d: int) -> torch.Tensor:
@@ -1028,10 +1055,11 @@ def rwkv_time_decay(n_layers: int, d: int) -> torch.Tensor:
     return (-6.0 + 5.0 * c[None] ** (0.7 + 1.3 * ratio)).to(torch.float32)
 
 
-def _rwkv_work(args, kw) -> tuple:
+def _rwkv_work(args, kw, chunked: bool = False) -> tuple:
     """Bytes (r, k, v, w, u and the states read once, o and the final state
-    written once) and float32 operations (3 N² + 3 N per step and row, as
-    B6's bound counts) of one recorded RWKV6 op call."""
+    written once) and operations of one recorded RWKV6 op call: B6's
+    float32 3 N² + 3 N per step and row, or B7's route
+    (:func:`_chunked_ops`)."""
     r, k, v, w, u = args
     bh, t, n = r.shape
     state = kw.get("state")
@@ -1039,7 +1067,24 @@ def _rwkv_work(args, kw) -> tuple:
     nbytes += r.numel() * r.element_size()             # o, in r's dtype
     nbytes += 4 * bh * n * n * ((state is not None) + bool(
         kw.get("return_state")))
+    if chunked:
+        return nbytes, _chunked_ops(bh, t, n, kw.get("chunk", 32))
     return nbytes, {"float32": bh * t * (3 * n * n + 3 * n)}
+
+
+def _chunked_ops(bh, t, n, chunk=32) -> dict:
+    """B7's operations on the route it takes: per row and chunk of m steps
+    the four products' multiply-adds — ``k̃ᵀV`` (N² m), ``r̃S`` (m N²),
+    the scores ``r̃k̃ᵀ`` and their product with V (N·m(m-1)/2 each, the
+    strictly causal pairs) — on the FP64 tensor cores
+    (``TC_F64_MACS_PER_S``), and on the CUDA cores 5 float32 operations an
+    element (Cum's product, ``r̃``, ``k̃``'s division, the bonus's two)
+    and 2 a state element a chunk (the update's add and multiply)."""
+    c = max(1, min(chunk, t))
+    lengths = [c] * (t // c) + ([t % c] if t % c else [])
+    macs = sum(2 * n * n * m + 2 * (m * (m - 1) // 2) * n for m in lengths)
+    return {"tensor_f64": bh * macs,
+            "float32": 5 * bh * t * n + 2 * bh * len(lengths) * n * n}
 
 
 def run_rwkv() -> dict:
@@ -1080,6 +1125,12 @@ def run_rwkv() -> dict:
           f"{float(layers['mixer']['w0'].max()):.3f}]", flush=True)
 
     # -- the main path: serve_requests, counts zeroed just before it -------
+    # the prefill runs eagerly (B7 once a layer); the decode steps are one
+    # CUDA graph, captured at the first step after one eager warm-up run of
+    # it, and replayed at every step, B6 writing each state in place into
+    # the graph's static cache: B6 runs at the warm-up and at every replay.
+    # The recorded B6 calls are the warm-up's: an eager run of the step the
+    # graph replays
     with OpRecorder(rw_ops, "rwkv6_chunked", {0, L - 1}) as rec7, \
             OpRecorder(rw_ops, "rwkv6", {0, L - 1}) as rec6:
         rc_k.LAUNCHES["rwkv6_chunked"] = 0
@@ -1089,19 +1140,44 @@ def run_rwkv() -> dict:
                                        max_prompt=RWKV_PROMPT,
                                        new_tokens=RWKV_NEW_TOKENS)
         torch.cuda.synchronize()
-        launches = {"rwkv6_chunked": rc_k.LAUNCHES["rwkv6_chunked"],
-                    "rwkv6_scan": rw_k.LAUNCHES["rwkv6_scan"]}
+        counted = {"rwkv6_chunked": rc_k.LAUNCHES["rwkv6_chunked"],
+                   "rwkv6_scan": rw_k.LAUNCHES["rwkv6_scan"]}
     steps = RWKV_NEW_TOKENS - 1
-    print(f"RWKV main path (serve_requests): launches {launches}; "
-          f"op calls B7 {rec7.n} B6 {rec6.n}", flush=True)
-    if launches != {"rwkv6_chunked": L, "rwkv6_scan": L * steps}:
+    step = times[0]["step"]
+    # the wrappers run for the prefill and, per capture, for two eager runs
+    # of one decode step (the warm-up and the capture itself); a replay
+    # launches the captured kernels again without their wrappers
+    per_step = counted["rwkv6_scan"] // (2 * max(step.captures, 1))
+    print(f"RWKV main path (serve_requests): decode steps as CUDA graph "
+          f"replays: graph={step.graph} captures={step.captures} "
+          f"replays={step.replays}; counted at the wrappers {counted} (B7: "
+          f"the prefill; B6: the warm-up run and the capture, so "
+          f"{per_step} a replay); op calls B7 {rec7.n} B6 {rec6.n}",
+          flush=True)
+    if not (step.graph and step.captures == 1 and step.replays == steps
+            and counted == {"rwkv6_chunked": L, "rwkv6_scan": 2 * L}):
         raise AssertionError(f"RWKV: want {L} B7 launches per prefill and "
-                             f"{L} B6 launches per decode step x {steps}, "
-                             f"got {launches}")
+                             f"{L} B6 launches per decode step replayed "
+                             f"{steps} times, got {counted} at the wrappers, "
+                             f"{step.captures} captures, {step.replays} "
+                             f"replays")
+    launches = {"rwkv6_chunked": counted["rwkv6_chunked"],
+                "rwkv6_scan": per_step * (1 + step.replays)}
     gen_tokens = np.stack(tokens)
     if gen_tokens.shape != (RWKV_BATCH, RWKV_NEW_TOKENS) \
             or not ((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all():
         raise AssertionError(f"RWKV: generated {gen_tokens}")
+    eager_tokens, eager_times = serve_requests(
+        cfg, params, prompts, batch=RWKV_BATCH, max_prompt=RWKV_PROMPT,
+        new_tokens=RWKV_NEW_TOKENS, graph=False)
+    same_tokens = np.array_equal(np.stack(eager_tokens), gen_tokens)
+    graph_vs_eager = _graph_vs_eager(cfg, params, prompts)
+    print(f"RWKV graph vs eager: serve_requests tokens equal={same_tokens}; "
+          f"{RWKV_EXTEND} steps through DecodeStep, logits and caches "
+          f"bitwise equal={graph_vs_eager}", flush=True)
+    if not (same_tokens and graph_vs_eager):
+        raise AssertionError("RWKV: the decode graph's replays differ from "
+                             "eager decoding")
 
     # -- the recorded calls against their plain versions -------------------
     held = {}
@@ -1139,8 +1215,9 @@ def run_rwkv() -> dict:
         toks[i, RWKV_PROMPT - len(p):] = p
     longer_toks = np.concatenate([toks, gen_tokens[:, :RWKV_EXTEND]], 1)
     max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
+    sp = T.serving_params(params, cfg)     # as serve_requests serves
     (logits, _), warm_s = _timed(
-        lambda: T.serve_prefill(params, toks, cfg, max_seq))
+        lambda: T.serve_prefill(sp, toks, cfg, max_seq))
     if not np.array_equal(logits[:, -1].argmax(-1).cpu().numpy(),
                           gen_tokens[:, 0]):
         raise AssertionError("RWKV: a rerun of the prefill picks other "
@@ -1172,8 +1249,9 @@ def run_rwkv() -> dict:
 
     # -- times ---------------------------------------------------------------
     decode_ms = statistics.mean(times[0]["decode_s"][1:]) * 1e3
-    x = T._embed(params, T._tokens(params, toks), cfg)
-    lp = T._index(layers, 0)
+    eager_decode_ms = statistics.mean(eager_times[0]["decode_s"][1:]) * 1e3
+    x = T._embed(sp, T._tokens(sp, toks), cfg)
+    lp = T._index(sp["groups"]["l0"], 0)
     state0 = T._index(T.init_cache(cfg, RWKV_BATCH, max_seq,
                                    dtype=cfg.compute_dtype,
                                    device="cuda")["l0"], 0)
@@ -1185,30 +1263,57 @@ def run_rwkv() -> dict:
              reference_rwkv6_chunked),
             ("rwkv6_scan", rec6, rw_k.rwkv6_scan, reference_rwkv6)):
         args, kw, _ = rec.calls[0]
-        nbytes, ops = _rwkv_work(args, kw)
+        nbytes, ops = _rwkv_work(args, kw, chunked=name == "rwkv6_chunked")
         bound_ms, bound_by = _bound(nbytes, ops)
         timed[name] = {
-            "ms": graph_ms(lambda: fn(*args, **kw)),
+            "ms": graph_ms(lambda: fn(*args, **kw), calls=L),
             "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=3, burst=1),
-            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+            "bytes": nbytes, "ops": ops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
     share = timed["rwkv6_chunked"]["ms"] / layer_ms
     for name, tm in timed.items():
         print(f"RWKV {name} layer-0 call: kernel_ms={tm['ms']:.4f} "
               f"plain_ms={tm['plain_ms']:.4f} bytes={tm['bytes']} "
-              f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}) "
-              f"kernel/bound={tm['ms'] / tm['bound_ms']:.2f} library=none",
-              flush=True)
+              f"ops={tm['ops']} bound_ms={tm['bound_ms']:.4f} "
+              f"({tm['bound_by']}) kernel/bound="
+              f"{tm['ms'] / tm['bound_ms']:.2f} library=none", flush=True)
     print(f"RWKV timing: prefill_ms cold={times[0]['prefill_s'] * 1e3:.1f} "
-          f"warm={warm_s * 1e3:.1f} decode_ms_per_step (steps 2-{steps})="
-          f"{decode_ms:.2f} first_decode_ms="
-          f"{times[0]['decode_s'][0] * 1e3:.2f} layer_ms (prefill, one "
-          f"layer)={layer_ms:.4f} b7_ms={timed['rwkv6_chunked']['ms']:.4f} "
-          f"b7_share_of_layer={share:.4f} "
+          f"warm={warm_s * 1e3:.1f} decode_ms_per_step (steps 2-{steps}, "
+          f"graph replays)={decode_ms:.3f} eager_decode_ms_per_step="
+          f"{eager_decode_ms:.3f} first_decode_ms (warm-up, capture, "
+          f"replay)={times[0]['decode_s'][0] * 1e3:.2f} layer_ms (prefill, "
+          f"one layer)={layer_ms:.4f} b7_ms={timed['rwkv6_chunked']['ms']:.4f}"
+          f" b7_share_of_layer={share:.4f} "
           f"({time.perf_counter() - t_start:.1f}s for the RWKV phase)",
           flush=True)
     return {"launches": launches, "held": held, "extend_err": extend_err,
             "timed": timed, "layer_ms": layer_ms, "warm_s": warm_s,
-            "decode_ms": decode_ms}
+            "decode_ms": decode_ms, "eager_decode_ms": eager_decode_ms}
+
+
+def _graph_vs_eager(cfg, params, prompts) -> bool:
+    """The first batch prefilled once, then ``RWKV_EXTEND`` steps through a
+    graph :class:`DecodeStep` and an eager one from the same cache: logits,
+    tokens and caches bitwise equal at every step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    sp = T.serving_params(params, cfg)
+    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, RWKV_PROMPT - len(p):] = p
+    logits, gc = T.serve_prefill(sp, toks, cfg, RWKV_PROMPT + RWKV_EXTEND)
+    ec = gc
+    gt = et = serve._greedy(logits)
+    graph, eager = serve.DecodeStep(sp, cfg), serve.DecodeStep(
+        sp, cfg, graph=False)
+    same = True
+    for _ in range(RWKV_EXTEND):
+        gl, gt, gc = graph(gc, gt)
+        el, et, ec = eager(ec, et)
+        same &= torch.equal(gl, el) and torch.equal(gt, et) and all(
+            torch.equal(a, b) for a, b in zip(serve._leaves(gc),
+                                              serve._leaves(ec)))
+    return bool(same)
 
 
 def _leaves(tree):

@@ -35,18 +35,35 @@
 //   bonus u is per head, row b*H + h taking u[h];
 // * w, u and the states are float32 whatever r, k, v are: a decay of
 //   0.9975 rounded to bf16 would be 0.99609 or 1.
+//
+// A decode step (T == 1) takes another form.  There the state's bytes
+// bound the call (read and written once, 5 MB at the RWKV6-3B decode step:
+// 0.0016 ms), and one block of N threads a row (160 blocks) leaves most of
+// the card idle with N serial loads a thread.  Instead a block of 128
+// threads runs 16 columns of a row (N / 16 blocks a row: 640 at that
+// decode step), thread (slice, j) holding E = N / 8 elements
+// S[slice*E .. +E, j] of column j, so 8x more loads are in flight, spread
+// over 4x more blocks; the 8 partial sums of o_j meet in shared memory and
+// add in one fixed order, and each block sums the bonus by one warp's
+// shuffle tree.  Nothing is staged.  Each thread reads its state elements
+// before it writes them and rows own disjoint states, so the final state
+// may overwrite the initial one in place (s_out == s_in), as the decode
+// graph's static cache has it; the long form's thread j likewise reads
+// column j whole before it writes it.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TC = 32;  // steps staged per pass
+constexpr int TC = 32;         // steps staged per pass
+constexpr int SLICES = 8;      // threads per state column in the step form
+constexpr int STEP_COLS = 16;  // state columns of a step-form block
 
 template <typename T, int N>
 __global__ void __launch_bounds__(N)
     rwkv6_fwd(const T* __restrict__ r, const T* __restrict__ k,
               const T* __restrict__ v, const float* __restrict__ w,
               const float* __restrict__ u, int H,
-              const float* __restrict__ s_in, float* __restrict__ s_out,
+              const float* s_in, float* s_out,
               T* __restrict__ o, int Tn) {
   __shared__ __align__(16) float rs[TC][N];
   __shared__ __align__(16) float ks[TC][N];
@@ -114,9 +131,73 @@ __global__ void __launch_bounds__(N)
 }
 
 template <typename T, int N>
+__global__ void __launch_bounds__(SLICES * STEP_COLS)
+    rwkv6_step(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ u, int H, const float* s_in,
+               float* s_out, T* __restrict__ o) {
+  constexpr int E = N / SLICES;         // state elements a thread
+  constexpr int TILES = N / STEP_COLS;  // blocks a row
+  __shared__ float rs[N], ks[N], ws[N], vs[STEP_COLS];
+  __shared__ float part[SLICES][STEP_COLS];
+  __shared__ float cb;  // the bonus sum_i r_i u_i k_i
+  const int tid = threadIdx.x, jl = tid % STEP_COLS, sl = tid / STEP_COLS;
+  const int row = blockIdx.x / TILES;
+  const int j0 = (blockIdx.x % TILES) * STEP_COLS, j = j0 + jl;
+  const size_t sbase = size_t(row) * N * N + size_t(sl) * E * N + j;
+  const size_t g = size_t(row) * N;
+  float S[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) S[e] = s_in ? s_in[sbase + e * N] : 0.f;
+  if (tid < N) {
+    rs[tid] = to_float(r[g + tid]);
+    ks[tid] = to_float(k[g + tid]);
+    ws[tid] = w[g + tid];
+  }
+  if (tid < STEP_COLS) vs[tid] = to_float(v[g + j0 + tid]);
+  __syncthreads();
+  if (tid < 32) {
+    float c = 0.f;
+#pragma unroll
+    for (int i = tid; i < N; i += 32)
+      c = fmaf(rs[i] * u[size_t(row % H) * N + i], ks[i], c);
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) c += __shfl_xor_sync(0xffffffffu, c, m);
+    if (tid == 0) cb = c;
+  }
+  const float vj = vs[jl];
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int i = sl * E + e;
+    acc = fmaf(rs[i], S[e], acc);
+    S[e] = fmaf(ws[i], S[e], ks[i] * vj);
+  }
+  part[sl][jl] = acc;
+  __syncthreads();
+  if (sl == 0) {
+    float sum = part[0][jl];
+#pragma unroll
+    for (int q = 1; q < SLICES; ++q) sum += part[q][jl];
+    o[g + j] = from_float<T>(fmaf(cb, vj, sum));
+  }
+  if (s_out) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) s_out[sbase + e * N] = S[e];
+  }
+}
+
+template <typename T, int N>
 int launch(const void* r, const void* k, const void* v, const float* w,
            const float* u, int H, const float* s_in, float* s_out, void* o,
            int BH, int Tn, cudaStream_t stream) {
+  if (Tn == 1) {
+    rwkv6_step<T, N><<<BH * (N / STEP_COLS), SLICES * STEP_COLS, 0,
+                       stream>>>(
+        static_cast<const T*>(r), static_cast<const T*>(k),
+        static_cast<const T*>(v), w, u, H, s_in, s_out, static_cast<T*>(o));
+    return cudaGetLastError();
+  }
   rwkv6_fwd<T, N><<<BH, N, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), w, u, H, s_in, s_out, static_cast<T*>(o),
@@ -139,8 +220,8 @@ int dispatch(int N, const void* r, const void* k, const void* v,
 
 // r, k, v, o: (BH, T, N) contiguous, of `dtype` (DTYPE_F32 or DTYPE_BF16);
 // w: (BH, T, N) float32; u: (H, N) float32, row b*H + h taking u[h];
-// s_in, s_out: (BH, N, N) float32 or null (zeros in; no state out);
-// N in {32, 64}.
+// s_in, s_out: (BH, N, N) float32 or null (zeros in; no state out), the
+// same storage allowed (in place); N in {32, 64}.
 extern "C" int repro_rwkv6_scan_fwd(const void* r, const void* k,
                                     const void* v, const void* w,
                                     const void* u, const void* s_in,

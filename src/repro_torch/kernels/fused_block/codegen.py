@@ -818,7 +818,10 @@ def _elementwise(src: _Source, oc: str, args: List[str],
     if oc == "abs":
         return f"tl.abs({a})"
     if oc == "neg":
-        return f"(-{a})"
+        # Triton lowers a float's unary minus to 0 - x, which gives +0 for
+        # +0; a product with -1 flips the sign bit of every value, zeros
+        # included, as jnp.negative does
+        return f"({a} * {src.const(-1.0, cd)})" if f else f"(-{a})"
     if oc == "sign":
         return (f"tl.where({a} > 0, 1, tl.where({a} < 0, -1, {a}))"
                 f".to({_tl(cd)})")

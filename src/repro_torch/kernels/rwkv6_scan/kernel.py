@@ -5,8 +5,11 @@ The kernel is ``src/repro_torch/csrc/rwkv6_scan.cu`` (its header says what
 bounds it and how it is laid out): one block per (batch x head) row, one
 loop over T inside it, thread ``j`` holding the state column ``S[:, j]``
 in float32 registers for the whole sequence, read from an optional
-initial state and written to an optional final state.  It is built by
-:mod:`..cuda_build` at first use.
+initial state and written to an optional final state; a decode step's
+one token (T == 1) splits each column over 8 threads.  The final state
+may overwrite the initial one in place (``out_state=state``), as the
+decode graph's static cache has it.  It is built by :mod:`..cuda_build`
+at first use.
 
 On CPU tensors :func:`rwkv6_scan` runs the plain version (``ref.py``); on
 CUDA tensors it launches the kernel or raises.
@@ -48,11 +51,14 @@ def check_inputs(r, k, v, w, u, state, what: str):
     return kernel_device(ins, what)
 
 
-def launch_args(r, k, v, w, u, state, return_state: bool, what: str):
+def launch_args(r, k, v, w, u, state, return_state: bool, what: str,
+                s_out=None):
     """What both RWKV6 launchers take, on CUDA tensors: r, k, v contiguous
     and of one dtype among :data:`DTYPES` (the output's too); w and u in
     float32 (a bf16 w or u is widened, which is exact); the optional state
-    float32.  Returns ``(o, final state or None, [pointers of r, k, v, w,
+    float32.  ``s_out``, when given, is the ``(BH, N, N)`` float32 tensor
+    the final state goes to (else one is made when ``return_state``).
+    Returns ``(o, final state or None, [pointers of r, k, v, w,
     u, state in, state out, o], H, keep)``; ``keep`` holds the widened
     tensors alive until the launch."""
     cuda_build.require({"r": r, "k": k, "v": v}, DTYPES, what)
@@ -70,8 +76,15 @@ def launch_args(r, k, v, w, u, state, return_state: bool, what: str):
         cuda_build.require({"state": state}, (torch.float32,), what)
     wf, uf = keep
     o = torch.empty_like(r)
-    s_out = (torch.empty((r.shape[0], n, n), dtype=torch.float32,
-                         device=r.device) if return_state else None)
+    if s_out is not None:
+        cuda_build.require({"out_state": s_out}, (torch.float32,), what)
+        if s_out.shape != (r.shape[0], n, n) or s_out.device != r.device:
+            raise ValueError(f"{what}: out_state {tuple(s_out.shape)} on "
+                             f"{s_out.device}, want {(r.shape[0], n, n)} on "
+                             f"{r.device}")
+    elif return_state:
+        s_out = torch.empty((r.shape[0], n, n), dtype=torch.float32,
+                            device=r.device)
     ptrs = [r.data_ptr(), k.data_ptr(), v.data_ptr(), wf.data_ptr(),
             uf.data_ptr(), None if state is None else state.data_ptr(),
             None if s_out is None else s_out.data_ptr(), o.data_ptr()]
@@ -79,22 +92,29 @@ def launch_args(r, k, v, w, u, state, return_state: bool, what: str):
 
 
 def rwkv6_scan(r, k, v, w, u, *, chunk: int = 64, state=None,
-               return_state: bool = False):
+               return_state: bool = False, out_state=None):
     """r, k, v, w: ``(BH, T, N)``; u: ``(N,)``, one bonus for every row, or
     ``(H, N)``, row ``b·H + h`` taking ``u[h]``.  Returns o: ``(BH, T,
     N)`` in ``r.dtype``, and with ``return_state`` the final float32
     ``(BH, N, N)`` state too; ``state`` is the initial one (zeros when
     None).  ``w`` is the per-token, per-channel decay (already
     ``exp(-exp(.))``'d).  ``T`` must be a multiple of ``chunk`` or below
-    it, as the TPU kernel asserts."""
+    it, as the TPU kernel asserts.  ``out_state``: a float32 ``(BH, N,
+    N)`` tensor the final state is written into and returned as (it may be
+    ``state`` itself, updated in place); implies ``return_state``."""
     device = check_inputs(r, k, v, w, u, state, "rwkv6_scan")
     bh, t, n = r.shape
     assert t % chunk == 0 or t < chunk, (t, chunk)
+    return_state = return_state or out_state is not None
     if device is None:
-        return reference_rwkv6(r, k, v, w, u, state=state,
-                               return_state=return_state)
+        out = reference_rwkv6(r, k, v, w, u, state=state,
+                              return_state=return_state)
+        if out_state is None:
+            return out
+        return out[0], out_state.copy_(out[1])
     o, s_out, ptrs, h, _keep = launch_args(r, k, v, w, u, state,
-                                           return_state, "rwkv6_scan")
+                                           return_state, "rwkv6_scan",
+                                           out_state)
     if bh == 0:                        # no block to launch
         return (o, s_out) if return_state else o
     cuda_build.launch(

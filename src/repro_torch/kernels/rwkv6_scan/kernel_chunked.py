@@ -3,11 +3,14 @@ the Hopper port of ``repro/kernels/rwkv6_scan/kernel_chunked.py:
 rwkv6_chunked``.
 
 The kernel is ``src/repro_torch/csrc/rwkv6_chunked.cu`` (its header says
-what bounds it and how it is laid out): one block per (batch x head) row
-looping over the chunks, the float32 state in shared memory, and per chunk
-the reference's three products (inter-chunk, masked intra-chunk, state
-update) plus the bonus diagonal as float32 FMAs.  It is built by
-:mod:`..cuda_build` at first use, with B6.
+what bounds it and how it is laid out): one launch, one block per (batch
+x head row, tile of 32 state columns) walking the chunks in order with
+its slice of the float32 state in shared memory; per chunk all four
+products (the scores ``r̃k̃ᵀ``, masked, and their product with V, ``r̃S``
+and the state contribution ``k̃ᵀV``) on the FP64 tensor cores
+(``mma.sync`` m8n8k4: float32 operands, exact products, float64 sums),
+``Cum``, ``r̃``, ``k̃``, the bonus diagonal and the state update in
+float32.  It is built by :mod:`..cuda_build` at first use, with B6.
 
 On CPU tensors :func:`rwkv6_chunked` runs the plain version
 (``ref.py:reference_rwkv6_chunked``, the same chunk algebra in PyTorch);
@@ -44,6 +47,10 @@ def rwkv6_chunked(r, k, v, w, u, *, chunk: int = 32, state=None,
     if not 1 <= chunk or c > MAX_CHUNK:
         raise ValueError(f"rwkv6_chunked: chunk {chunk} (the kernel takes "
                          f"1 to {MAX_CHUNK})")
+    # the kernel reads r, k, v and w in 16-byte loads: a view that starts
+    # off that alignment is copied
+    r, k, v, w = (z if z.data_ptr() % 16 == 0 else z.clone()
+                  for z in (r, k, v, w))
     o, s_out, ptrs, h, _keep = launch_args(r, k, v, w, u, state,
                                            return_state, "rwkv6_chunked")
     if bh == 0:                        # no block to launch

@@ -49,9 +49,19 @@ def _plain_scan(r, k, v, w, u, *, chunk, state, return_state):
 
 
 def rwkv6(r, k, v, w, u, chunk: int = 64, *, state=None,
-          return_state: bool = False):
+          return_state: bool = False, out_state=None):
     """:func:`kernel.rwkv6_scan` (kernel B6), differentiable in every
-    input."""
+    input.  With ``out_state`` (serving) the final state is written into
+    that tensor, which may be ``state`` itself, and returned; that form
+    writes in place and is not differentiable."""
+    if out_state is not None:
+        if torch.is_grad_enabled() and any(
+                z is not None and z.requires_grad
+                for z in (r, k, v, w, u, state)):
+            raise ValueError("rwkv6: out_state writes in place and takes "
+                             "no gradient")
+        return rwkv6_scan(r, k, v, w, u, chunk=chunk, state=state,
+                          out_state=out_state)
     return _RWKV6.apply(rwkv6_scan, _plain_scan, chunk, return_state, r, k,
                         v, w, u, state)
 

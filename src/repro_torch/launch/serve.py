@@ -8,8 +8,12 @@ device).
 
 Requests arrive with ragged prompt lengths drawn from ``--seed``, are
 left-padded into a fixed batch of ``--max-prompt`` tokens, prefilled
-through the direct model's ``serve_prefill`` and decoded greedily through
-``serve_decode``.  As in the reference, ``--smoke`` cannot be turned off,
+through the direct model's ``serve_prefill`` and decoded greedily by a
+:class:`DecodeStep`: the port's counterpart of the reference's
+``jax.jit(decode)``, which on the card replays ``serve_decode`` and the
+greedy pick as one CUDA graph and on the CPU runs them eagerly.  The
+weights are cast once to the compute dtype (``serving_params``).  As in
+the reference, ``--smoke`` cannot be turned off,
 so ``main`` serves the reduced config with random weights; a full-size run
 calls :func:`serve_requests` with its own config and weights.  An arch
 whose config the direct model refuses raises, naming what it lacks.
@@ -27,7 +31,7 @@ from ..configs import ARCHS, get_config
 from ..core.device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import (init_params, serve_decode, serve_prefill,
-                                  validate_config)
+                                  serving_params, validate_config)
 
 
 def draw_prompts(seed: int, requests: int, max_prompt: int,
@@ -48,16 +52,111 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return logits[:, -1].argmax(-1)[:, None].to(torch.int32)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+class DecodeStep:
+    """One greedy decode step, ``serve_decode`` and the argmax, for a batch
+    of ``(B, 1)`` tokens: ``step(caches, token) -> (logits, next token,
+    caches)``.
+
+    With ``graph`` (the default on a CUDA device) the step is captured once
+    per batch and cache shape into a ``torch.cuda.CUDAGraph`` over static
+    buffers: a ``(B, 1)`` token, the stacked caches, the logits and the next
+    token.  The first call for a shape copies its caches into the static
+    ones, runs the step once eagerly on a side stream (which builds and
+    loads what the step launches; its result is dropped) and captures it
+    with the caches updated in place (``serve_decode(..., in_place=True)``:
+    B6 writes each RWKV layer's state straight into the static cache).
+    Every call then copies the token in (and the caches, unless they are
+    the static ones the last call returned) and replays the graph.  The
+    returned logits and caches are the static buffers, overwritten by the
+    next call; the token is the caller's own.  A capture that fails raises:
+    there is no fallback to eager decoding.  Without ``graph`` (the CPU, or
+    a caller that asks) the step runs eagerly.
+
+    ``captures`` counts captures and ``replays`` replays: a replay launches
+    the captured kernels again without running their Python wrappers, so
+    their launch counters see the warm-up and the capture only."""
+
+    def __init__(self, params, cfg: ModelConfig, *, graph=None):
+        self.params, self.cfg = params, cfg
+        self.device = params["embed"].device
+        self.graph = self.device.type == "cuda" if graph is None else graph
+        if self.graph and self.device.type != "cuda":
+            raise ValueError(f"DecodeStep: a CUDA graph needs a CUDA "
+                             f"device, the params lie on {self.device}")
+        self._static = {}
+        self.replays = self.captures = 0
+
+    def _eager(self, caches, token, in_place=False):
+        logits, caches = serve_decode(self.params, caches, token, self.cfg,
+                                      in_place=in_place)
+        return logits, _greedy(logits), caches
+
+    def __call__(self, caches, token):
+        if not self.graph:
+            return self._eager(caches, token)
+        token = torch.as_tensor(token, dtype=torch.int32, device=self.device)
+        leaves = list(_leaves(caches))
+        key = (tuple(token.shape),
+               tuple((tuple(z.shape), z.dtype) for z in leaves))
+        entry = self._static.get(key)
+        if entry is None:
+            entry = self._capture(caches, token)
+            self._static[key] = entry
+        graph, s_tok, s_caches, s_logits, s_next = entry
+        s_tok.copy_(token)
+        if caches is not s_caches:
+            for dst, src in zip(_leaves(s_caches), leaves):
+                dst.copy_(src)
+        graph.replay()
+        self.replays += 1
+        return s_logits, s_next.clone(), s_caches
+
+    def _capture(self, caches, token):
+        s_tok = token.clone()
+        s_caches = _clone(caches)
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._eager(s_caches, s_tok)             # warm-up, dropped
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits, nxt, _ = self._eager(s_caches, s_tok, in_place=True)
+        self.captures += 1
+        return graph, s_tok, s_caches, logits, nxt
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
-                   max_prompt: int, new_tokens: int):
+                   max_prompt: int, new_tokens: int, graph=None):
     """Serve ``prompts`` (1-D int arrays, each at most ``max_prompt`` long)
     in batches of ``batch`` on the device ``params`` lie on: left-pad each
     batch to ``max_prompt``, prefill, then ``new_tokens - 1`` greedy decode
     steps.  Returns ``(tokens, times)``: each request's ``new_tokens``
     generated tokens (an int32 array), and per batch its size, the prefill
-    seconds and each decode step's seconds (host clock to a synchronize)."""
+    seconds, each decode step's seconds (host clock to a synchronize) and
+    the :class:`DecodeStep` that decoded it (its ``captures`` and
+    ``replays``).  ``graph`` is the step's: None decodes through a CUDA
+    graph on the card and eagerly on the CPU.  The weights are cast once
+    (:func:`serving_params`), which leaves every logit bitwise."""
     validate_config(cfg)
+    params = serving_params(params, cfg)
     device = params["embed"].device
+    step = DecodeStep(params, cfg, graph=graph)
     max_seq = max_prompt + new_tokens
     tokens, times = [], []
     for start in range(0, len(prompts), batch):
@@ -74,15 +173,14 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
         outs, steps = [tok], []
         for _ in range(new_tokens - 1):
             t0 = time.perf_counter()
-            logits, cache = serve_decode(params, cache, tok, cfg)
-            tok = _greedy(logits)
+            _, tok, cache = step(cache, tok)
             _sync(device)
             steps.append(time.perf_counter() - t0)
             outs.append(tok)
         gen = torch.cat(outs, dim=1).cpu().numpy()
         tokens.extend(gen[:len(group)])
         times.append({"batch": len(group), "prefill_s": prefill_s,
-                      "decode_s": steps})
+                      "decode_s": steps, "step": step})
     return tokens, times
 
 

@@ -130,10 +130,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None:
-        idx = int(cache["idx"])
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, idx:idx + s] = k.to(ck.dtype)
-        cv[:, idx:idx + s] = v.to(cv.dtype)
+        # the write index stays on the device (no host read), so a decode
+        # step can be captured in a CUDA graph
+        idx = cache["idx"]
+        at = (idx + torch.arange(s, device=x.device)).long()
+        ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
+        cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
         new_cache = {"k": ck, "v": cv, "idx": cache["idx"] + s}
     if cache is None or s > 1:
         o = _dense_attn(q, k, v, causal=causal, scale=1.0 / math.sqrt(hd))
@@ -143,9 +145,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  <= idx + torch.arange(s, device=x.device)[:, None])
         qg = q.transpose(1, 2).reshape(b, kvh, h // kvh, s, hd)
         # a correctly rounded divide, as jnp's (a CUDA divide by a host
-        # scalar multiplies by its reciprocal)
-        sqrt_hd = torch.tensor(math.sqrt(hd), dtype=torch.float32,
-                               device=x.device)
+        # scalar multiplies by its reciprocal), by a tensor filled on the
+        # device (no host copy, so the step can be captured in a CUDA graph)
+        sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32,
+                             device=x.device)
         sc = torch.einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
                           ck.to(torch.float32)) / sqrt_hd
         sc = torch.where(valid[None, None, None], sc, NEG_INF)
@@ -202,10 +205,12 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
-               state: Optional[Dict] = None):
+               state: Optional[Dict] = None, in_place: bool = False):
     """Returns ``(out, new_state)``; ``state`` (prefill and decode) is
     ``{"last": (B, d), "wkv": (B, H, N, N)}``: the token before ``x`` (for
-    the shift) and the float32 recurrence state."""
+    the shift) and the float32 recurrence state.  With ``in_place`` (a
+    decode token) kernel B6 writes the new wkv state into ``state["wkv"]``
+    itself, and that is returned."""
     b, s, d = x.shape
     n = cfg.rwkv.head_dim
     heads = d // n
@@ -237,7 +242,8 @@ def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     u = p["u"].to(torch.float32)
     wkv = None if state is None else state["wkv"]
     o, st = _rwkv_heads(split(r), split(k), split(v), split(w), u, b, heads,
-                        state=wkv, return_state=state is not None)
+                        state=wkv, return_state=state is not None,
+                        out_state=wkv if in_place else None)
     new_state = None
     if state is not None:
         new_state = {"last": x[:, -1].to(state["last"].dtype), "wkv": st}
@@ -251,17 +257,25 @@ def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _rwkv_heads(rh, kh, vh, wh, u, b, heads, state=None,
-                return_state=False):
+                return_state=False, out_state=None):
     """The RWKV6 recurrence over all ``B·H`` rows in ONE op call, row
     ``b·H + h`` taking the bonus ``u[h]``: a prompt or a whole sequence in
     chunks (kernel B7), one decode token (``S == 1``) as a step of the
     token recurrence (kernel B6).  ``state``: the initial ``(B, H, N, N)``
-    wkv or None.  Returns ``(o, final state as (B, H, N, N) or None)``."""
+    wkv or None.  ``out_state`` (serving a decode token in place): a
+    ``(B, H, N, N)`` float32 tensor, which may be ``state``, that B6
+    writes the final state into.  Returns ``(o, final state as (B, H, N,
+    N) or None)``."""
     s, n = rh.shape[1], rh.shape[2]
-    op = rwkv_ops.rwkv6 if s == 1 else rwkv_ops.rwkv6_chunked
     s0 = None if state is None else state.reshape(b * heads, n, n)
-    out = op(rh.contiguous(), kh.contiguous(), vh.contiguous(),
-             wh.contiguous(), u, state=s0, return_state=return_state)
+    ins = (rh.contiguous(), kh.contiguous(), vh.contiguous(),
+           wh.contiguous(), u)
+    if out_state is not None:
+        o, _ = rwkv_ops.rwkv6(*ins, state=s0,
+                              out_state=out_state.reshape(b * heads, n, n))
+        return o, out_state
+    op = rwkv_ops.rwkv6 if s == 1 else rwkv_ops.rwkv6_chunked
+    out = op(*ins, state=s0, return_state=return_state)
     if not return_state:
         return out, None
     o, st = out

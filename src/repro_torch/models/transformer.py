@@ -132,15 +132,41 @@ def params_from_numpy(tree, device=None) -> Params:
     return torch.from_numpy(np.array(tree)).to(resolve_device(device))
 
 
+#: the leaves the forward pass casts to ``cfg.compute_dtype`` before use
+#: (the projection matrices of attention, RWKV6 and the MLP, the embedding
+#: and the unembedding); every other leaf (RWKV6's ``mix``, ``w0``,
+#: ``w_a``, ``w_b``, ``u``, ``ln_g``, the norm gains) is read in float32
+COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wr", "wg", "w_gate",
+                            "w_up", "w_down", "embed", "lm_head"})
+
+
+def serving_params(params, cfg: ModelConfig) -> Params:
+    """The serving copy of ``params``: every leaf in
+    :data:`COMPUTE_LEAVES` cast once to ``cfg.compute_dtype``, every other
+    leaf the same tensor.  The layers' own casts are then no-ops, and since
+    a cast is deterministic the logits are bitwise those of ``params``;
+    the float32-read leaves stay float32, as rounding them would change
+    results."""
+    cd = cfg.compute_dtype
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else v.to(cd) if k in COMPUTE_LEAVES else v
+                for k, v in tree.items()}
+
+    return walk(params)
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
 
 def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, *, positions,
-                 cache=None):
+                 cache=None, in_place: bool = False):
     h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
     if mixer == "rwkv":
-        a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache)
+        a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
+                                  in_place=in_place)
     else:
         a, new_cache = attention(lp["mixer"], h, cfg, positions=positions,
                                  cache=cache)
@@ -149,9 +175,13 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, *, positions,
     return x + mlp(lp["ffn"], h, cfg), new_cache
 
 
-def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None):
+def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
+                in_place: bool = False):
     """The layers in order over the stacked groups.  ``caches`` is stacked
-    over the group axis (or None).  Returns ``(x, new_caches)``."""
+    over the group axis (or None).  Returns ``(x, new_caches)``; with
+    ``in_place`` the new caches are written into ``caches`` (each layer's
+    right after it runs; an RWKV layer's wkv state by the layer itself) and
+    ``caches`` is returned."""
     unit, n_groups = cfg.scan_groups()
     new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
     gp = params["groups"]
@@ -159,11 +189,18 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None):
         for i, (mixer, _) in enumerate(unit):
             c = None if caches is None else _index(caches[f"l{i}"], g)
             x, nc = _apply_layer(_index(gp[f"l{i}"], g), x, cfg, mixer,
-                                 positions=positions, cache=c)
-            if nc is not None:
+                                 positions=positions, cache=c,
+                                 in_place=in_place)
+            if nc is None:
+                continue
+            if not in_place:
                 new[f"l{i}"].append(nc)
-    if caches is None:
-        return x, None
+                continue
+            for key, dst in c.items():
+                if nc[key].data_ptr() != dst.data_ptr():  # not written yet
+                    dst.copy_(nc[key])
+    if caches is None or in_place:
+        return x, caches
     return x, {k: _stack(v) for k, v in new.items()}
 
 
@@ -182,8 +219,9 @@ def _tokens(params, tokens) -> torch.Tensor:
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig):
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     if cfg.norm_plus_one:           # gemma convention
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype,
-                             device=x.device)
+        # the scale rounded to the compute dtype, as a host scalar: no copy
+        # to the device, so a decode step can be captured in a CUDA graph
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
     return x
 
 
@@ -251,16 +289,18 @@ def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int):
     return _unembed(params, x[:, -1:], cfg), new_caches
 
 
-def serve_decode(params, caches, token, cfg: ModelConfig):
+def serve_decode(params, caches, token, cfg: ModelConfig, *,
+                 in_place: bool = False):
     """One decode step for ``(B, 1)`` tokens.  Returns ``(logits,
-    caches)``."""
+    caches)``: new caches, or with ``in_place`` the given ones, updated
+    (the decode graph's static caches)."""
     validate_config(cfg)
     token = _tokens(params, token)
     x = _embed(params, token, cfg)
     idx = _first_idx(caches, x.device)
     positions = (idx + torch.arange(1, device=x.device))[None]
     x, new_caches = _run_groups(params, x, cfg, positions=positions,
-                                caches=caches)
+                                caches=caches, in_place=in_place)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     return _unembed(params, x, cfg), new_caches
 

@@ -519,3 +519,29 @@ def test_overlapping_window_writes_store_the_last_write():
     assert src.count("& ~(") == 1
     rng = np.random.default_rng(5)
     assert_all_equal(run_both(ops, [_ints(rng, n), _ints(rng, n + 10)]))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+def test_float_neg_is_a_product_with_minus_one(dtype):
+    """``neg`` of a float is ``x * -1`` in the generated source: Triton
+    lowers a unary minus to ``0 - x``, which gives +0 for +0 where
+    ``jnp.negative`` gives -0.  Integer ``neg`` keeps the unary minus.  On
+    the CPU the plain version's sign bits equal the reference's."""
+    n = 9
+    a, o = _base(n, dtype), _base(n, dtype)
+    ops = [Op("neg", View.contiguous(o, (n,)), (View.contiguous(a, (n,)),),
+              new_bases=frozenset({o}))]
+    src = codegen.triton_source(codegen._analyze(to_port(ops)))[0]
+    body = src.split("def block_kernel")[1]
+    assert "(-" not in body and " * k" in body
+    x = np.array([0.0, -0.0, 1.5, -2.0, np.inf, -np.inf, 1e-40, -3.0, 7.0],
+                 dtype)
+    results = run_both(ops, [x])
+    bits = np.dtype(f"u{np.dtype(dtype).itemsize}")
+    for got in results:
+        np.testing.assert_array_equal(got[0].view(bits), (-x).view(bits))
+    ia, io = _base(n, np.int32), _base(n, np.int32)
+    iops = [Op("neg", View.contiguous(io, (n,)),
+               (View.contiguous(ia, (n,)),), new_bases=frozenset({io}))]
+    isrc = codegen.triton_source(codegen._analyze(to_port(iops)))[0]
+    assert "(-" in isrc.split("def block_kernel")[1]

@@ -94,6 +94,26 @@ def test_elementwise_op_bitwise(cuda, opcode, dtype):
         _assert_same(got, floor, plain)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+def test_neg_of_signed_zeros_bitwise(cuda, dtype):
+    """B1's ``neg`` flips the sign bit of every float, zeros included:
+    ``neg(+0)`` is -0, bit for bit with the floor and with IEEE negation
+    (``np.negative``, which ``jnp.negative`` is: the CPU test
+    ``test_torch_codegen.py::test_float_neg_is_a_product_with_minus_one``
+    holds the plain version against the JAX package's)."""
+    x = np.array([0.0, -0.0, 1.5, -2.0, np.inf, -np.inf, 6e-5, -3.0] * 100,
+                 dtype)
+    n = x.size
+    a, o = _base(n, dtype), _base(n, dtype)
+    ops = [Op("neg", View.contiguous(o, (n,)), (View.contiguous(a, (n,)),),
+              new_bases=frozenset({o}))]
+    got, floor, plain = _run_all(ops, [torch.from_numpy(x)], cuda)
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.itemsize]
+    want = torch.from_numpy(np.negative(x)).view(ints)
+    for res in (got, floor, plain):
+        assert torch.equal(res[0].cpu().view(ints), want)
+
+
 @pytest.mark.parametrize("literal", [0.1, 3, -2.5])
 def test_literal_promotion_and_rounding(cuda, literal):
     """int32 x float literal promotes to float64; float32 x literal rounds
@@ -826,3 +846,170 @@ def test_rwkv6_kernels_with_no_steps_pass_the_state_through(card, op):
     assert o.shape == (4, 0, 64) and torch.equal(s, s0)
     o, s = fn(r, k, v, w, u, return_state=True)
     assert torch.equal(s, torch.zeros_like(s0))
+
+
+@pytest.mark.parametrize("bh,t,n,chunk,dtype", [
+    (5, 1, 64, 32, torch.float32),            # one token, one short chunk
+    (7, 45, 32, 7, torch.float32),            # chunk 7, ragged last chunk
+    (3, 130, 64, 16, torch.bfloat16),         # chunk 16, BH odd
+    (161, 96, 64, 32, torch.bfloat16),        # BH past the model's 160
+])
+def test_rwkv6_chunked_on_odd_shapes(card, bh, t, n, chunk, dtype):
+    """B7 against its plain version and its route in plain PyTorch
+    (``chunk_products``) on chunks shorter than 32, one token, and row
+    counts that fill no wave of column tiles: the scans' 3e-4 plus one
+    bf16 ulp for bf16 outputs, the final state at 3e-4; twice, bitwise."""
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as kc
+    from repro_torch.kernels.rwkv6_scan.ref import (chunk_products,
+                                                    reference_rwkv6_chunked)
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(bh + t), bh,
+                                           t, n, dtype, card,
+                                           heads=1 if bh % 2 else bh)
+    o, s = _twice_same(lambda: kc.rwkv6_chunked(r, k, v, w, u, chunk=chunk,
+                                                state=s0, return_state=True),
+                       kc.LAUNCHES, "rwkv6_chunked")
+    for plain in (reference_rwkv6_chunked, chunk_products):
+        po, ps = plain(r, k, v, w, u, chunk=chunk, state=s0,
+                       return_state=True)
+        _hold(o, po, "scan")
+        _hold(s, ps, "scan")
+
+
+@pytest.mark.parametrize("bh,t,n,dtype", [
+    (160, 1, 64, torch.bfloat16),             # a decode step's layer
+    (5, 1, 64, torch.float32),                # BH not a multiple of 8
+    (7, 1, 32, torch.float32),                # the step form at N 32
+    (3, 4, 64, torch.bfloat16),               # the long form, in place
+])
+def test_rwkv6_short_form_in_place_and_not(card, bh, t, n, dtype):
+    """B6's decode form (T = 1: 8 threads a state column, N / 16 blocks a
+    row) and, at T = 4, its long form, against the plain version, with the
+    final state in a new tensor and in place over the initial one
+    (``out_state=state``, as the decode graph writes it)."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(bh * t), bh,
+                                           t, n, dtype, card, heads=1)
+    po, ps = reference_rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    o, s = _twice_same(lambda: rk.rwkv6_scan(r, k, v, w, u, state=s0,
+                                             return_state=True),
+                       rk.LAUNCHES, "rwkv6_scan")
+    _hold(o, po, "scan")
+    _hold(s, ps, "scan")
+    inplace = s0.clone()
+    o2, s2 = rk.rwkv6_scan(r, k, v, w, u, state=inplace, out_state=inplace)
+    torch.cuda.synchronize()
+    assert s2.data_ptr() == inplace.data_ptr()
+    assert torch.equal(o2, o) and torch.equal(s2, s)
+
+
+def _with_gains(tree, gen):
+    """Every norm gain ``g`` drawn around 1 (the zero init would zero every
+    activation of a plain-``g`` config, and every greedy token with it)."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            _with_gains(v, gen)
+        elif key == "g":
+            v.copy_(1.0 + 0.1 * torch.randn(v.shape, generator=gen,
+                                            device=v.device))
+
+
+def _serve_graph_model(card, arch):
+    """The ``rwkv6-3b`` SMOKE config, or a dense one the direct model runs
+    (float32 attention + MLP, ``norm_plus_one``), with random weights."""
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    if arch == "rwkv6-3b":
+        cfg = rwkv6_3b.SMOKE
+    else:
+        cfg = ModelConfig(name="dense_tiny", family="dense", n_layers=2,
+                          d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                          vocab_size=97, dtype="float32",
+                          param_dtype="float32", norm_plus_one=True,
+                          tie_embeddings=False)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = T.init_params(cfg, gen, card)
+    _with_gains(params, gen)
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "dense"])
+def test_decode_graph_replays_are_eager_decoding(card, arch):
+    """``serve.DecodeStep`` on the card captures ``serve_decode`` (caches
+    updated in place) and the greedy pick once and replays them: logits,
+    tokens and caches bitwise equal to the same steps run eagerly, step
+    after step.  B6's wrapper runs for the warm-up and the capture only, a
+    layer's launch each, and the replays do not pass through it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg, params = _serve_graph_model(card, arch)
+    sp = T.serving_params(params, cfg)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 21))
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    graph, eager = serve.DecodeStep(sp, cfg), serve.DecodeStep(
+        sp, cfg, graph=False)
+    assert graph.graph and not eager.graph
+    logits, gc = T.serve_prefill(sp, tokens, cfg, 32)
+    ec = gc
+    gt = et = serve._greedy(logits)
+    counted = 0
+    for _ in range(5):
+        before = rk.LAUNCHES["rwkv6_scan"]
+        gl, gt, gc = graph(gc, gt)
+        counted += rk.LAUNCHES["rwkv6_scan"] - before
+        el, et, ec = eager(ec, et)
+        assert torch.equal(gl, el) and torch.equal(gt, et)
+        for a, b in zip(serve._leaves(gc), serve._leaves(ec)):
+            assert torch.equal(a, b)
+    assert graph.captures == 1 and graph.replays == 5
+    assert counted == (2 * cfg.n_layers if arch == "rwkv6-3b" else 0)
+
+
+def test_a_decode_capture_that_fails_raises(card, monkeypatch):
+    """A step that reads the card on the host cannot be captured: the step
+    raises and never decodes eagerly instead."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg, params = _serve_graph_model(card, "rwkv6-3b")
+    sp = T.serving_params(params, cfg)
+    real = serve.serve_decode
+
+    def reads_the_host(*args, **kw):
+        logits, caches = real(*args, **kw)
+        float(logits.sum())                       # a host read
+        return logits, caches
+
+    monkeypatch.setattr(serve, "serve_decode", reads_the_host)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 9))
+    logits, cache = T.serve_prefill(sp, tokens, cfg, 16)
+    step = serve.DecodeStep(sp, cfg)
+    with pytest.raises(RuntimeError):
+        step(cache, serve._greedy(logits))
+    assert step.replays == 0
+
+
+def test_rwkv6_chunked_reads_views_off_16_byte_alignment(card):
+    """B7 loads r, k, v and w 16 bytes at a time; a contiguous view that
+    starts off that alignment is copied first, with the same result."""
+    from repro_torch.kernels.rwkv6_scan.kernel_chunked import rwkv6_chunked
+    from repro_torch.kernels.rwkv6_scan.ref import reference_rwkv6_chunked
+    r, k, v, w, u, s0 = _rwkv_model_inputs(np.random.default_rng(3), 2, 40,
+                                           32, torch.bfloat16, card, heads=2)
+
+    def shifted(z):
+        flat = torch.empty(z.numel() + 1, dtype=z.dtype, device=card)
+        out = flat[1:].view(z.shape)
+        out.copy_(z)
+        return out
+
+    moved = [shifted(z) for z in (r, k, v, w)]
+    assert all(z.data_ptr() % 16 for z in moved)
+    got = rwkv6_chunked(*moved, u, state=s0, return_state=True)
+    want = rwkv6_chunked(r, k, v, w, u, state=s0, return_state=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    po, ps = reference_rwkv6_chunked(r, k, v, w, u, state=s0,
+                                     return_state=True)
+    _hold(got[0], po, "scan")
+    _hold(got[1], ps, "scan")

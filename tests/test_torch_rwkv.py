@@ -289,6 +289,36 @@ def test_rwkv6_state_form_and_per_head_bonus(t):
     _close(one, j_ref(*_jax(*ins[:4], ins[4][0])), tol=SCAN)
 
 
+def test_rwkv6_scan_writes_the_final_state_in_place():
+    """B6's ``out_state``: the final state written into a given tensor, the
+    initial state's own storage included, equal to the returned one."""
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan
+    bh, n = 4, 32
+    ins = _torch(*_inputs(80, bh, 1, n, heads=2))
+    s0 = torch.from_numpy(_normal(np.random.default_rng(81), (bh, n, n)))
+    want_o, want_s = rwkv6_scan(*ins, state=s0, return_state=True)
+    inplace = s0.clone()
+    o, s = rwkv6_scan(*ins, state=inplace, out_state=inplace)
+    assert s is inplace and torch.equal(s, want_s) and torch.equal(o, want_o)
+    _close(s, _per_head_ref(*(z.numpy() for z in ins), 2,
+                            state=s0.numpy())[1], tol=SCAN)
+
+
+def test_rwkv6_op_writes_the_state_in_place_without_gradient():
+    """``ops.rwkv6(..., out_state=)``, serving's in-place form: the
+    kernel's result, and refused where a gradient is wanted."""
+    bh, n = 4, 32
+    ins = _torch(*_inputs(82, bh, 1, n, heads=2))
+    s0 = torch.from_numpy(_normal(np.random.default_rng(83), (bh, n, n)))
+    want_o, want_s = rwkv6(*ins, state=s0, return_state=True)
+    inplace = s0.clone()
+    o, s = rwkv6(*ins, state=inplace, out_state=inplace)
+    assert s is inplace and torch.equal(s, want_s) and torch.equal(o, want_o)
+    r = ins[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="takes no gradient"):
+        rwkv6(r, *ins[1:], state=s0.clone(), out_state=s0.clone())
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
