@@ -71,8 +71,13 @@ timed (the kernel as a CUDA graph of its launch, the plain version and,
 where one PyTorch call computes the same function, that call) beside its
 bound.  The Gemma2-9B attention case also holds two planted faults — the
 window 32 keys short and one key short — to the same check, and fails
-unless the check rejects both.  B3's bound counts a float32 product on
-the faster float32-accurate route, three TF32 tensor-core passes
+unless the check rejects both; the Jamba-v0.1 scan case two more — the
+state reset every 64 steps, A's state columns rolled by one.  B5's bound
+counts its exponentials split at best between the SFU
+(``SFU_OPS_PER_S``) and the FMA pipe (``EXP2_FMA_OPS`` each); its line
+prints beside it the bounds with all of them on the SFU and with each as
+one float32 operation.  B3's bound counts a float32 product on the
+faster float32-accurate route, three TF32 tensor-core passes
 (``TC_TF32_MACS_PER_S``), and a bfloat16 product at the bf16 tensor-core
 rate.
 
@@ -89,23 +94,26 @@ drawn around 1 and each layer's decay logits ``w0`` set to RWKV-LM's
 RWKV-v6 ``time_decay`` initialisation (-6 to -1 across the channels).  It
 serves 4 requests of ragged lengths (drawn as the launcher draws them,
 left-padded to 512 tokens) in one batch through
-``launch.serve.serve_requests`` — the weights cast once to bf16, an eager
-prefill, then 15 decode steps replayed as one CUDA graph (B6 writing
-each layer's state in place into the graph's static cache) — with every
-launch count at 0 just before.  It requires 32 B7 launches for the
-prefill, one capture of 32 B6 launches (after one eager warm-up run of
-the step) replayed 15 times, and the same tokens from the same requests
-decoded eagerly (``graph=False``), and holds 4 graph steps' logits and
-caches bitwise to eager steps.  It holds the first and the last layer's
-B7 (prefill) and B6 (the decode step's warm-up run) calls against their
-plain versions on the recorded inputs (outputs as above, final states in
+``launch.serve.serve_requests`` — the weights cast once to bf16, the
+prefill replayed as one CUDA graph, then 15 decode steps replayed as
+another (B6 writing each layer's state in place into the graph's static
+cache) — with every launch count at 0 just before.  It requires one
+capture of 32 B7 launches replayed once and one capture of 32 B6
+launches replayed 15 times (each after one eager warm-up run), and the
+same tokens from the same requests served eagerly (``graph=False``); it
+holds 4 graph steps' logits and caches bitwise to eager steps, and three
+graph prefills of two batches through one capture bitwise to eager
+prefills, and prints the graph pool's memory.  It holds the first and the
+last layer's B7 and B6 calls of the warm-up runs against their plain
+versions on the recorded inputs (outputs as above, final states in
 float32 at ``MODEL_TOL``), reruns a B7 call for a bitwise-equal result,
 requires prefill(P) followed by ``RWKV_EXTEND`` decode tokens to give the
 last-position logits of prefill(P + those tokens) within ``RWKV_RTOL`` of
-their largest magnitude, every logit finite, and times the warm prefill,
-the decode step (graph replays, and eager), one layer against its B7 call,
-and B7's and B6's calls (32 launches in a graph, as a prefill or a step
-makes them) against their bounds.
+their largest magnitude, every logit finite, and times the warm prefill
+(eager and as a replay, in turns), the decode step (graph replays, and
+eager), one layer against its B7 call, and B7's and B6's calls (32
+launches in a graph, as a prefill or a step makes them) against their
+bounds.
 
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line (B1-B7), the card's name and power limit,
@@ -171,6 +179,16 @@ TC_TF32_MACS_PER_S = 494.5e12 / 2
 #: float64 products on the tensor cores (DMMA): the data sheet's 67e12
 #: FLOP/s, 33.5e12 multiply-adds per second
 TC_F64_MACS_PER_S = 67e12 / 2
+#: special-function results (MUFU: ex2, rcp, rsqrt, ...): 16 a clock an SM
+#: on Hopper (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput, compute capability 9.0), 132 SMs at the 1.98 GHz of the
+#: rates above
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+#: float32 operations of an exponential taken on the FMA pipe in place of
+#: the SFU, to float32 accuracy: a Cody-Waite reduction (round, subtract)
+#: and a degree-5 minimax polynomial by Horner's rule (5 FMAs); the
+#: exponent's insertion runs on the integer pipe
+EXP2_FMA_OPS = 7
 #: kernel vs plain version on the card, per element |err| <= rtol·|plain| +
 #: atol.  atol is the reference's own float32 tolerance (tests/
 #: test_kernels.py): attention and norm 2e-5, scans 3e-4 (sums in other
@@ -776,13 +794,33 @@ def _attention_work(q, k, causal, window, softcap):
 
 
 def _bound(nbytes, ops):
+    """``(ms, "bytes" or "operations")``: the larger of ``nbytes`` over the
+    memory rate and each type of ``ops`` over its rate.  ``"exp2"`` counts
+    exponentials that may run on the SFU or, at :data:`EXP2_FMA_OPS`
+    float32 operations each, on the FMA pipe beside the ``"float32"``
+    ones: split at the share that has both pipes end at once."""
     rates = {"tensor_bf16": TC_BF16_MACS_PER_S,
              "tensor_3xtf32": TC_TF32_MACS_PER_S,
-             "tensor_f64": TC_F64_MACS_PER_S, **PEAK_OPS_PER_S}
+             "tensor_f64": TC_F64_MACS_PER_S, "sfu": SFU_OPS_PER_S,
+             **PEAK_OPS_PER_S}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(n / rates[t] for t, n in ops.items()) * 1e3
+    ops = dict(ops)
+    exps = ops.pop("exp2", 0)
+    times = [n / rates[t] for t, n in ops.items()]
+    if exps:
+        times.append((ops.get("float32", 0) + EXP2_FMA_OPS * exps)
+                     / (rates["float32"] + EXP2_FMA_OPS * SFU_OPS_PER_S))
+    ops_ms = max(times) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else \
         "operations"
+
+
+def mamba_ops(bsz, t, d_inner, d_state) -> dict:
+    """B5's operations: per (token, channel, state) one exponential and 4
+    float32 operations (dt·A', dx·B, the state's FMA, h·C's FMA); per
+    (token, channel) dt·x and D·x."""
+    return {"float32": bsz * t * d_inner * (4 * d_state + 2),
+            "exp2": bsz * t * d_inner * d_state}
 
 
 def _model_cases(gen):
@@ -854,19 +892,38 @@ def _model_cases(gen):
             two_calls=lambda a, d=d, g_eff=g_eff: F.rms_norm(
                 a[0] + a[1], (d,), weight=g_eff, eps=1e-6)))
     # B5 — src/repro/configs/jamba_v01_52b.py: d_model 4096, expand 2 ->
-    # d_inner 8192, d_state 16; batch 2 x 4096 tokens
+    # d_inner 8192, d_state 16; batch 2 x 4096 tokens (mamba_ops).  Beside
+    # the bound, two that count the exponentials otherwise: all on the
+    # SFU, and each as one float32 operation
     bsz, t, di, ds = 2, 4096, 8192, 16
     ins = (randn(bsz, t, di), F.softplus(randn(bsz, t, di)) * 0.1,
            randn(bsz, t, ds), randn(bsz, t, ds),
            -F.softplus(randn(di, ds)) - 0.2, randn(di))
+    nbytes = (3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) * 4
+
+    def reset_every(a, steps=64):
+        return torch.cat([reference_mamba(*(z[:, i:i + steps] for z in a[:4]),
+                                          *a[4:6])
+                          for i in range(0, a[0].shape[1], steps)], dim=1)
+
     cases.append(dict(
         kernel="mamba_scan", label="Jamba-v0.1 B2 T4096 d_inner 8192 "
         "d_state 16 f32", args=(*ins, 64), run=lambda a: ms.mamba(*a),
         plain=lambda a: reference_mamba(*a[:6]),
-        work=((3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) * 4,
-              {"float32": bsz * t * di * (5 * ds + 2)}),
+        work=(nbytes, mamba_ops(bsz, t, di, ds)),
+        other_bounds={
+            "exps on the SFU alone": (nbytes, {
+                "float32": bsz * t * di * (4 * ds + 2),
+                "sfu": bsz * t * di * ds}),
+            "exps as float32": (nbytes, {
+                "float32": bsz * t * di * (5 * ds + 2)})},
         library=("none: no PyTorch call computes a selective scan", None),
-        plain_reps=3))
+        plain_reps=3,
+        # what a kernel that dropped the state every 64 steps, or paired
+        # each state with its neighbour's decay, would return
+        faults={"state reset every 64 steps": reset_every,
+                "A's state columns rolled by one": lambda a: reference_mamba(
+                    *a[:4], a[4].roll(1, dims=1), a[5])}))
     # B6 — src/repro/configs/rwkv6_3b.py: 40 heads of 64; batch 8 x 2048.
     # Per step and row: sum_i r_i S_ij, k_i v_j and w_i S_ij + k_i v_j,
     # 3 N^2; the bonus (sum_i r_i u_i k_i) v_j, 3 N
@@ -981,6 +1038,8 @@ def run_model_kernels() -> dict:
                            burst=1 if reps < 10 else 5)
         nbytes, ops = case["work"]
         bound_ms, bound_by = _bound(nbytes, ops)
+        others = {what: _bound(*work) for what, work
+                  in case.get("other_bounds", {}).items()}
         lib_name, lib_fn = case["library"]
         library_ms = cuda_ms(lambda: lib_fn(a)) if lib_fn else None
         two_ms = cuda_ms(lambda: case["two_calls"](a)) \
@@ -990,7 +1049,7 @@ def run_model_kernels() -> dict:
                "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library": lib_name, "library_ms": library_ms,
-               "two_calls_ms": two_ms}
+               "two_calls_ms": two_ms, "faults": faults}
         results.setdefault(name, []).append(row)
         print(f"MODEL {name} [{case['label']}]: max_abs_err={err:.3g} "
               f"allowance_share={share:.3g} (|err| <= {rtol:.3g}|plain| + "
@@ -999,7 +1058,11 @@ def run_model_kernels() -> dict:
               + f" bitwise_rerun=True kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bytes={nbytes} ops={ops} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) kernel/bound="
-              f"{ms / bound_ms:.2f} library={lib_name}"
+              f"{ms / bound_ms:.2f}"
+              + "".join(f" bound_ms[{what}]={b:.4f} ({by}) kernel/bound"
+                        f"[{what}]={ms / b:.2f}"
+                        for what, (b, by) in others.items())
+              + f" library={lib_name}"
               + (f" library_ms={library_ms:.4f}" if library_ms else "")
               + (f" two_calls_ms={two_ms:.4f}" if two_ms else ""),
               flush=True)
@@ -1125,12 +1188,11 @@ def run_rwkv() -> dict:
           f"{float(layers['mixer']['w0'].max()):.3f}]", flush=True)
 
     # -- the main path: serve_requests, counts zeroed just before it -------
-    # the prefill runs eagerly (B7 once a layer); the decode steps are one
-    # CUDA graph, captured at the first step after one eager warm-up run of
-    # it, and replayed at every step, B6 writing each state in place into
-    # the graph's static cache: B6 runs at the warm-up and at every replay.
-    # The recorded B6 calls are the warm-up's: an eager run of the step the
-    # graph replays
+    # the prefill and the decode step are each one CUDA graph, captured at
+    # their first call after one eager warm-up run, and replayed: the
+    # prefill once (B7 once a layer), the decode step at every step (B6
+    # writing each state in place into the graph's static cache).  The
+    # recorded calls are the warm-ups': eager runs of what the graphs replay
     with OpRecorder(rw_ops, "rwkv6_chunked", {0, L - 1}) as rec7, \
             OpRecorder(rw_ops, "rwkv6", {0, L - 1}) as rec6:
         rc_k.LAUNCHES["rwkv6_chunked"] = 0
@@ -1143,25 +1205,29 @@ def run_rwkv() -> dict:
         counted = {"rwkv6_chunked": rc_k.LAUNCHES["rwkv6_chunked"],
                    "rwkv6_scan": rw_k.LAUNCHES["rwkv6_scan"]}
     steps = RWKV_NEW_TOKENS - 1
-    step = times[0]["step"]
-    # the wrappers run for the prefill and, per capture, for two eager runs
-    # of one decode step (the warm-up and the capture itself); a replay
-    # launches the captured kernels again without their wrappers
+    pre, step = times[0]["prefill"], times[0]["step"]
+    # the wrappers run, per capture, for two eager runs (the warm-up and
+    # the capture itself); a replay launches the captured kernels again
+    # without their wrappers
+    per_prefill = counted["rwkv6_chunked"] // (2 * max(pre.captures, 1))
     per_step = counted["rwkv6_scan"] // (2 * max(step.captures, 1))
-    print(f"RWKV main path (serve_requests): decode steps as CUDA graph "
-          f"replays: graph={step.graph} captures={step.captures} "
-          f"replays={step.replays}; counted at the wrappers {counted} (B7: "
-          f"the prefill; B6: the warm-up run and the capture, so "
-          f"{per_step} a replay); op calls B7 {rec7.n} B6 {rec6.n}",
-          flush=True)
-    if not (step.graph and step.captures == 1 and step.replays == steps
-            and counted == {"rwkv6_chunked": L, "rwkv6_scan": 2 * L}):
-        raise AssertionError(f"RWKV: want {L} B7 launches per prefill and "
-                             f"{L} B6 launches per decode step replayed "
-                             f"{steps} times, got {counted} at the wrappers, "
-                             f"{step.captures} captures, {step.replays} "
+    print(f"RWKV main path (serve_requests): prefill and decode steps as "
+          f"CUDA graph replays: prefill graph={pre.graph} captures="
+          f"{pre.captures} replays={pre.replays}; decode graph={step.graph} "
+          f"captures={step.captures} replays={step.replays}; counted at the "
+          f"wrappers {counted} (the warm-up runs and the captures, so B7 "
+          f"{per_prefill} a prefill replay, B6 {per_step} a decode replay); "
+          f"op calls B7 {rec7.n} B6 {rec6.n}", flush=True)
+    if not (pre.graph and pre.captures == 1 and pre.replays == 1
+            and step.graph and step.captures == 1 and step.replays == steps
+            and counted == {"rwkv6_chunked": 2 * L, "rwkv6_scan": 2 * L}):
+        raise AssertionError(f"RWKV: want one capture of {L} B7 launches "
+                             f"replayed once and one of {L} B6 launches "
+                             f"replayed {steps} times, got {counted} at the "
+                             f"wrappers, {pre.captures} and {step.captures} "
+                             f"captures, {pre.replays} and {step.replays} "
                              f"replays")
-    launches = {"rwkv6_chunked": counted["rwkv6_chunked"],
+    launches = {"rwkv6_chunked": per_prefill * (1 + pre.replays),
                 "rwkv6_scan": per_step * (1 + step.replays)}
     gen_tokens = np.stack(tokens)
     if gen_tokens.shape != (RWKV_BATCH, RWKV_NEW_TOKENS) \
@@ -1172,12 +1238,21 @@ def run_rwkv() -> dict:
         new_tokens=RWKV_NEW_TOKENS, graph=False)
     same_tokens = np.array_equal(np.stack(eager_tokens), gen_tokens)
     graph_vs_eager = _graph_vs_eager(cfg, params, prompts)
+    prefill = _prefill_graph_vs_eager(cfg, params, prompts)
     print(f"RWKV graph vs eager: serve_requests tokens equal={same_tokens}; "
           f"{RWKV_EXTEND} steps through DecodeStep, logits and caches "
-          f"bitwise equal={graph_vs_eager}", flush=True)
-    if not (same_tokens and graph_vs_eager):
-        raise AssertionError("RWKV: the decode graph's replays differ from "
-                             "eager decoding")
+          f"bitwise equal={graph_vs_eager}; PrefillStep, 3 prefills of 2 "
+          f"batches through {prefill['captures']} capture and "
+          f"{prefill['replays']} replays, logits, tokens and caches bitwise "
+          f"equal to the eager prefill={prefill['same']}; graph pool: "
+          f"max_memory_allocated +{prefill['peak_mb']:.1f} MB over the "
+          f"capturing call, memory_allocated +{prefill['held_mb']:.1f} MB "
+          f"and memory_reserved +{prefill['reserved_mb']:.1f} MB after it",
+          flush=True)
+    if not (same_tokens and graph_vs_eager and prefill["same"]
+            and prefill["captures"] == 1 and prefill["replays"] == 3):
+        raise AssertionError("RWKV: a graph's replays differ from eager "
+                             "serving")
 
     # -- the recorded calls against their plain versions -------------------
     held = {}
@@ -1210,9 +1285,7 @@ def run_rwkv() -> dict:
     del again
 
     # -- prefill(P) + decode tokens against prefill(P + tokens) ------------
-    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, RWKV_PROMPT - len(p):] = p
+    toks = _left_pad(prompts)
     longer_toks = np.concatenate([toks, gen_tokens[:, :RWKV_EXTEND]], 1)
     max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
     sp = T.serving_params(params, cfg)     # as serve_requests serves
@@ -1271,14 +1344,30 @@ def run_rwkv() -> dict:
             "bytes": nbytes, "ops": ops, "bound_ms": bound_ms,
             "bound_by": bound_by}
     share = timed["rwkv6_chunked"]["ms"] / layer_ms
+    # the warm prefill, eager against a replay of the captured one, in
+    # turns (eager, replay, replay, eager, eager, replay), host clock to a
+    # synchronize, the tokens' copy to the card included in both
+    pstep = prefill["step"]
+    warm = {"eager": [warm_s * 1e3], "replay": []}
+    for kind in ("replay", "replay", "eager", "eager", "replay"):
+        run = (lambda: pstep(toks, max_seq)) if kind == "replay" else \
+            (lambda: T.serve_prefill(sp, toks, cfg, max_seq))
+        warm[kind].append(_timed(run)[1] * 1e3)
+    warm_eager_ms = statistics.median(warm["eager"])
+    warm_replay_ms = statistics.median(warm["replay"])
     for name, tm in timed.items():
         print(f"RWKV {name} layer-0 call: kernel_ms={tm['ms']:.4f} "
               f"plain_ms={tm['plain_ms']:.4f} bytes={tm['bytes']} "
               f"ops={tm['ops']} bound_ms={tm['bound_ms']:.4f} "
               f"({tm['bound_by']}) kernel/bound="
               f"{tm['ms'] / tm['bound_ms']:.2f} library=none", flush=True)
-    print(f"RWKV timing: prefill_ms cold={times[0]['prefill_s'] * 1e3:.1f} "
-          f"warm={warm_s * 1e3:.1f} decode_ms_per_step (steps 2-{steps}, "
+    print(f"RWKV timing: prefill_ms cold (warm-up, capture, replay)="
+          f"{times[0]['prefill_s'] * 1e3:.1f} warm eager="
+          f"{[round(x, 2) for x in warm['eager']]} (median "
+          f"{warm_eager_ms:.2f}) warm replay="
+          f"{[round(x, 2) for x in warm['replay']]} (median "
+          f"{warm_replay_ms:.2f}, {warm_replay_ms / warm_eager_ms:.3f} of "
+          f"eager) decode_ms_per_step (steps 2-{steps}, "
           f"graph replays)={decode_ms:.3f} eager_decode_ms_per_step="
           f"{eager_decode_ms:.3f} first_decode_ms (warm-up, capture, "
           f"replay)={times[0]['decode_s'][0] * 1e3:.2f} layer_ms (prefill, "
@@ -1287,7 +1376,8 @@ def run_rwkv() -> dict:
           f"({time.perf_counter() - t_start:.1f}s for the RWKV phase)",
           flush=True)
     return {"launches": launches, "held": held, "extend_err": extend_err,
-            "timed": timed, "layer_ms": layer_ms, "warm_s": warm_s,
+            "timed": timed, "layer_ms": layer_ms,
+            "warm_eager_ms": warm_eager_ms, "warm_replay_ms": warm_replay_ms,
             "decode_ms": decode_ms, "eager_decode_ms": eager_decode_ms}
 
 
@@ -1298,9 +1388,7 @@ def _graph_vs_eager(cfg, params, prompts) -> bool:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     sp = T.serving_params(params, cfg)
-    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, RWKV_PROMPT - len(p):] = p
+    toks = _left_pad(prompts)
     logits, gc = T.serve_prefill(sp, toks, cfg, RWKV_PROMPT + RWKV_EXTEND)
     ec = gc
     gt = et = serve._greedy(logits)
@@ -1314,6 +1402,54 @@ def _graph_vs_eager(cfg, params, prompts) -> bool:
             torch.equal(a, b) for a, b in zip(serve._leaves(gc),
                                               serve._leaves(ec)))
     return bool(same)
+
+
+def _left_pad(prompts):
+    """A batch of prompts left-padded to ``RWKV_PROMPT``, as
+    ``serve_requests`` pads it."""
+    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, RWKV_PROMPT - len(p):] = p
+    return toks
+
+
+def _prefill_graph_vs_eager(cfg, params, prompts) -> dict:
+    """Two batches through one :class:`PrefillStep` capture (the first
+    again after the second), each replay's logits, token and caches held
+    bitwise to the eager prefill of the same tokens; and the graph pool's
+    memory: the rise of ``max_memory_allocated`` over the call that
+    captures (the warm-up's eager run peaks as high, and its memory is
+    freed before the capture), what stays allocated and reserved after
+    it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    sp = T.serving_params(params, cfg)
+    a = _left_pad(prompts)
+    b = _left_pad(serve.draw_prompts(1, RWKV_BATCH, RWKV_PROMPT,
+                                     cfg.vocab_size))
+    max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
+    step = serve.PrefillStep(sp, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    first = step(a, max_seq)
+    torch.cuda.synchronize()
+    mb = 2.0 ** 20
+    out = {"peak_mb": (torch.cuda.max_memory_allocated() - base) / mb,
+           "held_mb": (torch.cuda.memory_allocated() - base) / mb,
+           "reserved_mb": (torch.cuda.memory_reserved() - reserved) / mb}
+    same = True
+    for i, toks in enumerate((a, b, a)):
+        logits, tok, caches = first if i == 0 else step(toks, max_seq)
+        want_l, want_c = T.serve_prefill(sp, toks, cfg, max_seq)
+        same &= torch.equal(logits, want_l) and torch.equal(
+            tok, serve._greedy(want_l)) and all(
+            torch.equal(x, y) for x, y in zip(serve._leaves(caches),
+                                              serve._leaves(want_c)))
+    out.update(same=bool(same), captures=step.captures,
+               replays=step.replays, step=step, tokens=a)
+    return out
 
 
 def _leaves(tree):

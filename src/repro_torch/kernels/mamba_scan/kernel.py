@@ -3,12 +3,17 @@ port of ``repro/kernels/mamba_scan/kernel.py:mamba_scan``.
 
 The kernel is ``src/repro_torch/csrc/mamba_scan.cu`` (its header says what
 bounds it and how it is laid out): one loop over T inside each block, work
-split over (batch, channel), four lanes per channel holding the float32
-state in registers, B_t and C_t staged in shared memory.  It is built by
+split over (batch, channel, state), a thread holding 2 channels x ``spl``
+states in float32 registers (``lanes`` threads a channel, 64 channels a
+block), the decay as one ``ex2`` of a pre-scaled A, x/dt/B/C tiles
+streamed into shared memory by ``cp.async`` while the scan runs, and the
+lanes' partial outputs summed once a tile.  :func:`layout` picks
+``lanes`` and ``spl`` for each ``d_state``.  It is built by
 :mod:`..cuda_build` at first use.
 
-On CPU tensors :func:`mamba_scan` runs the plain version (``ref.py``); on
-CUDA tensors it launches the kernel or raises.
+On CPU tensors :func:`mamba_scan` runs the plain version
+(``ref.py:reference_mamba``; ``ref.py:route_mamba`` emulates the kernel's
+roundings); on CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -21,6 +26,19 @@ from .ref import reference_mamba
 
 MAX_STATE = 64                      # the widest d_state the kernel holds
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def layout(d_state: int) -> tuple:
+    """``(lanes, spl)`` of the kernel for ``d_state``: ``lanes`` threads a
+    channel, each holding ``spl`` of its states — 4 (2 for a d_state of 1
+    or 2), the fastest of ``tools/mamba_layouts.py``'s sweep on an H100 —
+    and as few lanes as cover ``d_state``."""
+    if not 1 <= d_state <= MAX_STATE:
+        raise ValueError(f"mamba_scan: d_state {d_state} (the kernel holds "
+                         f"1 to {MAX_STATE})")
+    spl = 2 if d_state <= 2 else 4
+    return -(-d_state // spl), spl
+
 
 #: launches of the kernel (one per call on CUDA tensors); reset it to 0 to
 #: count the launches of one run
@@ -47,16 +65,15 @@ def mamba_scan(x, dt, b, c, a, d, *, chunk: int = 64) -> torch.Tensor:
     if device is None:
         return reference_mamba(x, dt, b, c, a, d)
     cuda_build.require(ins, DTYPES, "mamba_scan")
-    if not 1 <= d_state <= MAX_STATE:
-        raise ValueError(f"mamba_scan: d_state {d_state} (the kernel holds "
-                         f"1 to {MAX_STATE})")
+    lanes, spl = layout(d_state)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     cuda_build.launch(
-        "repro_mamba_scan_fwd", "pppppppiiiiip",
+        "repro_mamba_scan_fwd", "pppppppiiiiiiip",
         [x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
          a.data_ptr(), d.data_ptr(), y.data_ptr(),
-         cuda_build.DTYPE_CODES[x.dtype], bsz, t, d_inner, d_state], device)
+         cuda_build.DTYPE_CODES[x.dtype], bsz, t, d_inner, d_state, lanes,
+         spl], device)
     LAUNCHES["mamba_scan"] += 1
     return y

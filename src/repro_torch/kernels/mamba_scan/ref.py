@@ -28,3 +28,56 @@ def reference_mamba(x, dt, b, c, a, d, state=None, return_state=False):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((bsz, 0, d_inner), device=x.device)).to(x.dtype)
     return (y, h) if return_state else y
+
+
+#: log2(e) rounded to float32, as the kernel scales A by it
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _fma(a, b, c):
+    """``a·b + c`` rounded once to float32, as the card's FFMA: the
+    product of two float32 values is exact in float64, and its sum with
+    ``c`` is rounded there and then to float32 (a double rounding that
+    differs from one rounding only on rare ties)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def route_mamba(x, dt, b, c, a, d, *, lanes: int, spl: int):
+    """The kernel's route (``csrc/mamba_scan.cu``) in plain PyTorch, for the
+    CPU tests: A pre-scaled by :data:`LOG2E` in float32, each decay
+    ``exp2(dt · A')`` of float32 operands, ``h = fma(decay, h, (dt·x)·B)``,
+    each of the ``lanes`` lanes summing its ``spl`` states' ``h·C`` in
+    state order by FMAs from ``D·x`` (lane 0) or 0, and y the lanes'
+    partial sums added in lane order, then rounded to ``x.dtype``.  Not
+    bitwise the card (its ``ex2.approx`` is within 2 ulp of ``exp2``), but
+    the same operations in the same order."""
+    bsz, t, d_inner = x.shape
+    d_state = b.shape[-1]
+    g = lanes * spl
+    if g < d_state:
+        raise ValueError(f"{lanes} lanes x {spl} states < d_state {d_state}")
+    pad = (0, g - d_state)
+    xf, dtf = x.to(torch.float32), dt.to(torch.float32)
+    bf = torch.nn.functional.pad(b.to(torch.float32), pad)
+    cf = torch.nn.functional.pad(c.to(torch.float32), pad)
+    a2 = torch.nn.functional.pad(a.to(torch.float32), pad) * LOG2E
+    df = d.to(torch.float32)
+    h = torch.zeros((bsz, d_inner, g), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        dti, xi = dtf[:, i, :, None], xf[:, i]
+        dx = (dtf[:, i] * xi)[:, :, None]
+        h = _fma(torch.exp2(dti * a2[None]), h, dx * bf[:, i, None, :])
+        parts = []
+        for lane in range(lanes):
+            p = df * xi if lane == 0 else torch.zeros_like(xi)
+            for j in range(lane * spl, (lane + 1) * spl):
+                p = _fma(h[:, :, j], cf[:, i, None, j], p)
+            parts.append(p)
+        y = parts[0]
+        for p in parts[1:]:
+            y = y + p
+        ys.append(y)
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((bsz, 0, d_inner), device=x.device))
+    return y.to(x.dtype)

@@ -7,12 +7,13 @@ device).
         --requests 8 --new-tokens 16
 
 Requests arrive with ragged prompt lengths drawn from ``--seed``, are
-left-padded into a fixed batch of ``--max-prompt`` tokens, prefilled
-through the direct model's ``serve_prefill`` and decoded greedily by a
-:class:`DecodeStep`: the port's counterpart of the reference's
-``jax.jit(decode)``, which on the card replays ``serve_decode`` and the
-greedy pick as one CUDA graph and on the CPU runs them eagerly.  The
-weights are cast once to the compute dtype (``serving_params``).  As in
+left-padded into a fixed batch of ``--max-prompt`` tokens, prefilled by a
+:class:`PrefillStep` and decoded greedily by a :class:`DecodeStep`: the
+port's counterparts of the reference's ``jax.jit(prefill)`` and
+``jax.jit(decode)``, which on the card replay the direct model's
+``serve_prefill`` / ``serve_decode`` and the greedy pick as one CUDA graph
+per shape and on the CPU run them eagerly.  The weights are cast once to
+the compute dtype (``serving_params``).  As in
 the reference, ``--smoke`` cannot be turned off,
 so ``main`` serves the reduced config with random weights; a full-size run
 calls :func:`serve_requests` with its own config and weights.  An arch
@@ -60,39 +61,120 @@ def _leaves(tree):
         yield tree
 
 
-class DecodeStep:
-    """One greedy decode step, ``serve_decode`` and the argmax, for a batch
-    of ``(B, 1)`` tokens: ``step(caches, token) -> (logits, next token,
-    caches)``.
+def _capture(device: torch.device, warm_up, body):
+    """Run ``warm_up()`` once on a side stream (it builds and loads what
+    ``body`` launches; its result is dropped), then capture ``body()`` into
+    a ``torch.cuda.CUDAGraph``, whose memory comes from the graph's own
+    pool.  Returns ``(graph, what body returned)``: static buffers that
+    every replay overwrites.  Anything in ``body`` that the card cannot
+    capture (a host read of a device value) raises here."""
+    stream = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        warm_up()
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out
 
-    With ``graph`` (the default on a CUDA device) the step is captured once
-    per batch and cache shape into a ``torch.cuda.CUDAGraph`` over static
-    buffers: a ``(B, 1)`` token, the stacked caches, the logits and the next
-    token.  The first call for a shape copies its caches into the static
-    ones, runs the step once eagerly on a side stream (which builds and
-    loads what the step launches; its result is dropped) and captures it
-    with the caches updated in place (``serve_decode(..., in_place=True)``:
-    B6 writes each RWKV layer's state straight into the static cache).
-    Every call then copies the token in (and the caches, unless they are
-    the static ones the last call returned) and replays the graph.  The
-    returned logits and caches are the static buffers, overwritten by the
-    next call; the token is the caller's own.  A capture that fails raises:
-    there is no fallback to eager decoding.  Without ``graph`` (the CPU, or
-    a caller that asks) the step runs eagerly.
 
-    ``captures`` counts captures and ``replays`` replays: a replay launches
-    the captured kernels again without running their Python wrappers, so
-    their launch counters see the warm-up and the capture only."""
+class _GraphStep:
+    """What :class:`PrefillStep` and :class:`DecodeStep` share: with
+    ``graph`` (the default on a CUDA device) a step is captured once per
+    input shape into a ``torch.cuda.CUDAGraph`` over a static token buffer
+    (:func:`_capture`: one eager warm-up on a side stream, then the
+    capture), and every call copies its tokens into the buffer and
+    replays; without ``graph`` (the CPU, or a caller that asks) a step runs
+    eagerly.  ``graph=True`` off a CUDA device raises.  A capture that
+    fails raises: there is no eager fallback.  ``captures`` counts captures
+    and ``replays`` replays: a replay launches the captured kernels again
+    without running their Python wrappers, so their launch counters see the
+    warm-up and the capture only."""
 
     def __init__(self, params, cfg: ModelConfig, *, graph=None):
         self.params, self.cfg = params, cfg
         self.device = params["embed"].device
         self.graph = self.device.type == "cuda" if graph is None else graph
         if self.graph and self.device.type != "cuda":
-            raise ValueError(f"DecodeStep: a CUDA graph needs a CUDA "
-                             f"device, the params lie on {self.device}")
+            raise ValueError(f"{type(self).__name__}: a CUDA graph needs a "
+                             f"CUDA device, the params lie on {self.device}")
         self._static = {}
         self.replays = self.captures = 0
+
+    def _replay(self, key, token, make, load=None):
+        """Replay the graph of ``key``, capturing it at its first call:
+        ``make(static token)`` returns ``(warm_up, body, state)`` for
+        :func:`_capture` and the static buffers ``load(state)`` refills
+        before each replay.  Returns ``(state, what body returned)``."""
+        entry = self._static.get(key)
+        if entry is None:
+            s_tok = token.clone()
+            warm_up, body, state = make(s_tok)
+            graph, out = _capture(self.device, warm_up, body)
+            self.captures += 1
+            entry = self._static[key] = (graph, s_tok, state, out)
+        graph, s_tok, state, out = entry
+        s_tok.copy_(token)
+        if load is not None:
+            load(state)
+        graph.replay()
+        self.replays += 1
+        return state, out
+
+
+class PrefillStep(_GraphStep):
+    """The prompt's prefill and the greedy pick of the first token, for a
+    ``(B, S)`` batch of prompt tokens: ``step(tokens, max_seq) -> (last
+    position logits, next token, caches)``, the caches stacked and ``max_seq``
+    deep.
+
+    As a graph (:class:`_GraphStep`) it is captured once per (batch, prompt
+    length, ``max_seq``) over a static ``(B, S)`` int32 token buffer, the
+    caches allocated from the graph's pool; the tokens' copy to the card
+    stays outside the graph.  The returned logits and caches are the
+    static buffers, overwritten by the next call of that shape: a
+    :class:`DecodeStep` copies them into its own caches at its first step;
+    the token is a copy.  Eager, logits and caches are bitwise those of a
+    replay."""
+
+    def _eager(self, tokens, max_seq):
+        logits, caches = serve_prefill(self.params, tokens, self.cfg,
+                                       max_seq)
+        return logits, _greedy(logits), caches
+
+    def __call__(self, tokens, max_seq: int):
+        if not self.graph:
+            return self._eager(tokens, max_seq)
+        if not isinstance(tokens, torch.Tensor):
+            tokens = np.asarray(tokens)
+        tokens = torch.as_tensor(tokens, dtype=torch.int32,
+                                 device=self.device)
+
+        def make(s_tok):
+            def run():
+                return self._eager(s_tok, max_seq)
+            return run, run, None
+
+        _, (logits, nxt, caches) = self._replay(
+            (tuple(tokens.shape), max_seq), tokens, make)
+        return logits, nxt.clone(), caches
+
+
+class DecodeStep(_GraphStep):
+    """One greedy decode step, ``serve_decode`` and the argmax, for a batch
+    of ``(B, 1)`` tokens: ``step(caches, token) -> (logits, next token,
+    caches)``.
+
+    As a graph (:class:`_GraphStep`) it is captured once per batch and
+    cache shape over a static ``(B, 1)`` token and static stacked caches,
+    with the caches updated in place (``serve_decode(..., in_place=True)``:
+    B6 writes each RWKV layer's state straight into the static cache).
+    Every call copies its caches into the static ones, unless they are the
+    static ones the last call returned, and replays.  The returned logits
+    and caches are the static buffers, overwritten by the next call; the
+    token is a copy."""
 
     def _eager(self, caches, token, in_place=False):
         logits, caches = serve_decode(self.params, caches, token, self.cfg,
@@ -106,33 +188,20 @@ class DecodeStep:
         leaves = list(_leaves(caches))
         key = (tuple(token.shape),
                tuple((tuple(z.shape), z.dtype) for z in leaves))
-        entry = self._static.get(key)
-        if entry is None:
-            entry = self._capture(caches, token)
-            self._static[key] = entry
-        graph, s_tok, s_caches, s_logits, s_next = entry
-        s_tok.copy_(token)
-        if caches is not s_caches:
-            for dst, src in zip(_leaves(s_caches), leaves):
-                dst.copy_(src)
-        graph.replay()
-        self.replays += 1
-        return s_logits, s_next.clone(), s_caches
 
-    def _capture(self, caches, token):
-        s_tok = token.clone()
-        s_caches = _clone(caches)
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._eager(s_caches, s_tok)             # warm-up, dropped
-        stream.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            logits, nxt, _ = self._eager(s_caches, s_tok, in_place=True)
-        self.captures += 1
-        return graph, s_tok, s_caches, logits, nxt
+        def make(s_tok):
+            s_caches = _clone(caches)
+            return (lambda: self._eager(s_caches, s_tok),
+                    lambda: self._eager(s_caches, s_tok, in_place=True),
+                    s_caches)
+
+        def load(s_caches):
+            if caches is not s_caches:
+                for dst, src in zip(_leaves(s_caches), leaves):
+                    dst.copy_(src)
+
+        s_caches, (logits, nxt, _) = self._replay(key, token, make, load)
+        return logits, nxt.clone(), s_caches
 
 
 def _clone(tree):
@@ -148,14 +217,16 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
     batch to ``max_prompt``, prefill, then ``new_tokens - 1`` greedy decode
     steps.  Returns ``(tokens, times)``: each request's ``new_tokens``
     generated tokens (an int32 array), and per batch its size, the prefill
-    seconds, each decode step's seconds (host clock to a synchronize) and
-    the :class:`DecodeStep` that decoded it (its ``captures`` and
-    ``replays``).  ``graph`` is the step's: None decodes through a CUDA
-    graph on the card and eagerly on the CPU.  The weights are cast once
-    (:func:`serving_params`), which leaves every logit bitwise."""
+    seconds, each decode step's seconds (host clock to a synchronize), the
+    :class:`PrefillStep` that prefilled it and the :class:`DecodeStep`
+    that decoded it (their ``captures`` and ``replays``).  ``graph`` is
+    both steps': None runs each as a CUDA graph on the card and eagerly on
+    the CPU.  The weights are cast once (:func:`serving_params`), which
+    leaves every logit bitwise."""
     validate_config(cfg)
     params = serving_params(params, cfg)
     device = params["embed"].device
+    prefill = PrefillStep(params, cfg, graph=graph)
     step = DecodeStep(params, cfg, graph=graph)
     max_seq = max_prompt + new_tokens
     tokens, times = [], []
@@ -166,8 +237,7 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
             toks[i, max_prompt - len(p):] = p           # left-pad
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = serve_prefill(params, toks, cfg, max_seq)
-        tok = _greedy(logits)
+        _, tok, cache = prefill(toks, max_seq)
         _sync(device)
         prefill_s = time.perf_counter() - t0
         outs, steps = [tok], []
@@ -180,7 +250,7 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
         gen = torch.cat(outs, dim=1).cpu().numpy()
         tokens.extend(gen[:len(group)])
         times.append({"batch": len(group), "prefill_s": prefill_s,
-                      "decode_s": steps, "step": step})
+                      "decode_s": steps, "prefill": prefill, "step": step})
     return tokens, times
 
 

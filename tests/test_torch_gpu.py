@@ -668,6 +668,77 @@ def test_mamba_kernel(card, b, t, di, ds, chunk, dtype):
     _hold(got, reference_mamba(*ins), "scan")
 
 
+@pytest.mark.parametrize("ds,dtype", [
+    (1, torch.float32),                       # 1 lane x 2 states
+    (2, torch.bfloat16),
+    (4, torch.float32),                       # 1 lane x 4
+    (5, torch.float32),                       # 2 lanes x 4, plain loads
+    (16, torch.float32),                      # 4 lanes x 4, Jamba's
+    (16, torch.bfloat16),
+    (64, torch.bfloat16),                     # 16 lanes x 4, the widest
+])
+def test_mamba_kernel_layouts(card, ds, dtype):
+    """Both kernel instances (2 and 4 states a lane) in the layouts
+    :func:`kernel.layout` gives, on ragged T (three tiles and 9 steps) and
+    channels (200, not a multiple of a block's 64), against the plain
+    version; rows that are not 16-byte multiples (d_state 1 and 5 in
+    float32) take the plain-load ring."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    ins = _mamba_inputs(np.random.default_rng(ds), 2, 105, 200, ds, dtype,
+                        card)
+    got = _twice_same(lambda: mk.mamba_scan(*ins), mk.LAUNCHES,
+                      "mamba_scan")
+    _hold(got, reference_mamba(*ins), "scan")
+
+
+@pytest.mark.parametrize("ds", [2, 5, 16, 64])
+def test_mamba_kernel_follows_its_route(card, ds):
+    """The kernel against ``ref.py:route_mamba``, its operations in its
+    order in plain PyTorch, run on the card in the kernel's layout for
+    that d_state: within 4 float32 ulps of y (4·eps·|y|), where the plain
+    version is held to 3e-4.  On the card the route's ``torch.exp2`` is
+    CUDA's ``exp2f``, the same ``ex2.approx`` the kernel issues, so a
+    different reduction order, a lost FMA or another decay shows here."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ref import route_mamba
+    ins = _mamba_inputs(np.random.default_rng(50 + ds), 2, 105, 200, ds,
+                        torch.float32, card)
+    lanes, spl = mk.layout(ds)
+    got = mk.mamba_scan(*ins)
+    want = route_mamba(*ins, lanes=lanes, spl=spl)
+    err = (got - want).abs()
+    limit = 4 * torch.finfo(torch.float32).eps * want.abs()
+    assert (err <= limit).all(), (
+        f"max |kernel - route| {err.max().item():.3g}, "
+        f"{(err / want.abs().clamp_min(1e-30)).max().item() / 2 ** -23:.3g}"
+        f" eps of |y| at most")
+
+
+def test_mamba_kernel_jamba_row(card):
+    """Jamba-v0.1's widths (d_inner 8192, d_state 16) over one 4096-token
+    row, the default layout."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    ins = _mamba_inputs(np.random.default_rng(4096), 1, 4096, 8192, 16,
+                        torch.float32, card)
+    got = _twice_same(lambda: mk.mamba_scan(*ins), mk.LAUNCHES, "mamba_scan")
+    _hold(got, reference_mamba(*ins), "scan")
+
+
+def test_mamba_kernel_reads_views_off_alignment(card):
+    """Inputs that start off 16 bytes take the plain-load ring: the same
+    arithmetic, so the same bits as the cp.async ring."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    ins = _mamba_inputs(np.random.default_rng(9), 1, 70, 64, 16,
+                        torch.float32, card)
+    flat = torch.empty(ins[0].numel() + 1, device=card)
+    moved = flat[1:].view(ins[0].shape)
+    moved.copy_(ins[0])
+    assert moved.data_ptr() % 16
+    assert torch.equal(mk.mamba_scan(moved, *ins[1:]), mk.mamba_scan(*ins))
+
+
 def test_mamba_refuses(card):
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan
     ins = _mamba_inputs(np.random.default_rng(0), 1, 8, 16, 8, torch.float32,
@@ -987,6 +1058,76 @@ def test_a_decode_capture_that_fails_raises(card, monkeypatch):
     with pytest.raises(RuntimeError):
         step(cache, serve._greedy(logits))
     assert step.replays == 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "dense"])
+def test_prefill_graph_replays_are_eager_prefills(card, arch):
+    """``serve.PrefillStep`` on the card captures ``serve_prefill`` and the
+    greedy pick once per prompt shape and replays them: two batches through
+    one capture, each bitwise equal to the eager prefill in logits, token
+    and caches.  B7's wrapper runs for the warm-up and the capture only."""
+    from repro_torch.kernels.rwkv6_scan import kernel_chunked as ck
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg, params = _serve_graph_model(card, arch)
+    sp = T.serving_params(params, cfg)
+    step = serve.PrefillStep(sp, cfg)
+    assert step.graph
+    rng = np.random.default_rng(3)
+    before = ck.LAUNCHES["rwkv6_chunked"]
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32)
+        logits, tok, caches = step(toks, 48)
+        want_l, want_c = T.serve_prefill(sp, toks, cfg, 48)
+        assert torch.equal(logits, want_l)
+        assert torch.equal(tok, serve._greedy(want_l))
+        for a, b in zip(serve._leaves(caches), serve._leaves(want_c)):
+            assert torch.equal(a, b)
+    assert step.captures == 1 and step.replays == 2
+    # the warm-up, the capture and the two eager prefills, a layer each
+    want = 4 * cfg.n_layers if arch == "rwkv6-3b" else 0
+    assert ck.LAUNCHES["rwkv6_chunked"] - before == want
+
+
+def test_a_prefill_capture_that_fails_raises(card, monkeypatch):
+    """A prefill that reads the card on the host cannot be captured: the
+    step raises and never prefills eagerly instead."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg, params = _serve_graph_model(card, "rwkv6-3b")
+    sp = T.serving_params(params, cfg)
+    real = serve.serve_prefill
+
+    def reads_the_host(*args, **kw):
+        logits, caches = real(*args, **kw)
+        float(logits.sum())                       # a host read
+        return logits, caches
+
+    monkeypatch.setattr(serve, "serve_prefill", reads_the_host)
+    step = serve.PrefillStep(sp, cfg)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 9))
+    with pytest.raises(RuntimeError):
+        step(tokens, 16)
+    assert step.replays == 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "dense"])
+def test_served_graphs_hand_over_between_batches(card, arch):
+    """``serve_requests`` on the card, three batches through one prefill
+    capture and one decode capture: each batch's prefill replay overwrites
+    the static caches the last batch's first decode step copied from, and
+    the tokens are those of eager serving (``graph=False``)."""
+    from repro_torch.launch import serve
+    cfg, params = _serve_graph_model(card, arch)
+    prompts = serve.draw_prompts(5, 6, 24, cfg.vocab_size)
+    kw = dict(batch=2, max_prompt=24, new_tokens=4)
+    tokens, times = serve.serve_requests(cfg, params, prompts, **kw)
+    eager, _ = serve.serve_requests(cfg, params, prompts, graph=False, **kw)
+    for a, b in zip(tokens, eager):
+        np.testing.assert_array_equal(a, b)
+    pre, step = times[-1]["prefill"], times[-1]["step"]
+    assert pre.captures == 1 and pre.replays == 3
+    assert step.captures == 1 and step.replays == 3 * 3
 
 
 def test_rwkv6_chunked_reads_views_off_16_byte_alignment(card):

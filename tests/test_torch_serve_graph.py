@@ -1,17 +1,18 @@
-"""Serving on the CPU with the weights cast once and the decode step
-object (``launch/serve.py:DecodeStep``), at the ``rwkv6-3b`` SMOKE config.
+"""Serving on the CPU with the weights cast once and the prefill and decode
+step objects (``launch/serve.py:PrefillStep``, ``DecodeStep``), at the
+``rwkv6-3b`` SMOKE config.
 
 ``models.transformer.serving_params`` casts the leaves the forward pass
 casts anyway, once; a float32-to-bf16 cast is deterministic, so prefill
 and decode through the serving copy are held bitwise to the float32 tree
 (and, as that tree is in ``tests/test_torch_rwkv.py``, to the jitted JAX
 model at ``BF16_MODEL`` / ``F32_MODEL`` of the largest logit).  On the CPU
-the step object runs ``serve_decode`` and the greedy pick eagerly: held
-bitwise to them, step after step.  Its CUDA graph captures
+the step objects run ``serve_prefill`` / ``serve_decode`` and the greedy
+pick eagerly: held bitwise to them, step after step.  Its CUDA graph captures
 ``serve_decode(..., in_place=True)``, which updates the given caches (B6
 writes each RWKV state into its own): held bitwise to the step that
 returns new caches, and to the jitted JAX decode at the model tolerance.
-The graph itself is held to eager decoding on the card
+The graphs themselves are held to eager prefills and decoding on the card
 (``tests/test_torch_gpu.py``).
 """
 
@@ -191,3 +192,60 @@ def test_serve_requests_reports_its_eager_step(model):
         np.testing.assert_array_equal(a, b)
     for t in times:
         assert not t["step"].graph and t["step"].replays == 0
+
+
+def test_prefill_step_on_the_cpu_is_serve_prefill(model):
+    """On the CPU the prefill step runs ``serve_prefill`` and the greedy
+    pick eagerly: logits, token and caches bitwise, for two batches of one
+    shape and one of another, and no capture."""
+    _, pcfg, _, pparams, _ = model
+    sp = PT.serving_params(pparams, pcfg)
+    step = serve.PrefillStep(sp, pcfg)
+    assert not step.graph
+    rng = np.random.default_rng(5)
+    for shape in ((2, 12), (2, 12), (3, 7)):
+        toks = rng.integers(0, pcfg.vocab_size, shape).astype(np.int32)
+        want_l, want_c = PT.serve_prefill(sp, toks, pcfg, 20)
+        got_l, tok, got_c = step(toks, 20)
+        assert torch.equal(got_l, want_l)
+        assert torch.equal(tok, serve._greedy(want_l))
+        assert tok.dtype == torch.int32 and tok.shape == (shape[0], 1)
+        for a, b in zip(serve._leaves(got_c), serve._leaves(want_c)):
+            assert torch.equal(a, b)
+    assert step.replays == step.captures == 0
+
+
+def test_prefill_step_refuses_a_graph_on_the_cpu(model):
+    _, pcfg, _, pparams, _ = model
+    with pytest.raises(ValueError, match="CUDA graph needs a CUDA device"):
+        serve.PrefillStep(pparams, pcfg, graph=True)
+
+
+def test_serve_requests_reports_its_prefill_step(model):
+    """``serve_requests`` prefills each batch through its
+    :class:`PrefillStep` (eager on the CPU: no capture, no replay) and
+    returns it beside the decode step; the tokens are a plain loop's."""
+    _, pcfg, _, pparams, _ = model
+    prompts = serve.draw_prompts(4, 3, 16, pcfg.vocab_size)
+    tokens, times = serve.serve_requests(pcfg, pparams, prompts, batch=2,
+                                         max_prompt=16, new_tokens=3)
+    assert len(times) == 2
+    assert times[0]["prefill"] is times[1]["prefill"]
+    for t in times:
+        pre = t["prefill"]
+        assert isinstance(pre, serve.PrefillStep) and not pre.graph
+        assert pre.captures == pre.replays == 0
+    sp = PT.serving_params(pparams, pcfg)
+    for start in (0, 2):
+        group = prompts[start:start + 2]
+        toks = np.zeros((2, 16), np.int32)
+        for i, p in enumerate(group):
+            toks[i, 16 - len(p):] = p
+        logits, cache = PT.serve_prefill(sp, toks, pcfg, 19)
+        outs = [serve._greedy(logits)]
+        for _ in range(2):
+            logits, cache = PT.serve_decode(sp, cache, outs[-1], pcfg)
+            outs.append(serve._greedy(logits))
+        want = torch.cat(outs, 1).numpy()
+        for got, w in zip(tokens[start:start + 2], want):
+            np.testing.assert_array_equal(got, w)

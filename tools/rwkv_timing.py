@@ -25,10 +25,14 @@ CUDA graph: ``chip_smoke.graph_ms``), beside their bounds
 and B6 and B7 on the model phase's 8 x 2048 inputs.  With ``--profile``
 one ``torch.profiler`` trace over 3 prefills and over 5 decode steps
 splits each wall into the device's busy time (the union of the kernels'
-intervals) and its idle share, the time the device waits on the host; it also times one decode step's
-device work alone (a CUDA graph of the step replayed between CUDA
-events), where the tree has the decode graph.  Prints one JSON line
-tagged ``RWKV_TIMING``.
+intervals) and its idle share, the time the device waits on the host —
+the eager prefill, and where the tree has ``PrefillStep`` its replays
+too (``profile_prefill_graph``, the step captured before the trace); it
+also times one decode step's device work alone (a CUDA graph of the step
+replayed between CUDA events), where the tree has the decode graph.
+Prints one JSON line tagged ``RWKV_TIMING``; ``prefill_ms`` is whatever
+that tree's ``serve_requests`` prefills through (a replay where it has
+``PrefillStep``).
 """
 
 from __future__ import annotations
@@ -175,6 +179,14 @@ def main(argv=None) -> int:
         max_seq = cs.RWKV_PROMPT + cs.RWKV_NEW_TOKENS
         out["profile_prefill"] = _profile(
             lambda: T.serve_prefill(sp, toks, cfg, max_seq), 3)
+        if hasattr(serve, "PrefillStep"):
+            pstep = serve.PrefillStep(sp, cfg)
+            out["profile_prefill_graph"] = _profile(
+                lambda: pstep(toks, max_seq), 3)
+            graph = next(iter(pstep._static.values()))[0]
+            out["prefill_graph_replay_ms"] = cs.cuda_ms(graph.replay,
+                                                        reps=5, burst=2)
+            del pstep, graph
         logits, cache = T.serve_prefill(sp, toks, cfg, max_seq)
         state = {"cache": cache, "tok": serve._greedy(logits)}
         if out["graph"]:
