@@ -115,6 +115,24 @@ eager), one layer against its B7 call, and B7's and B6's calls (32
 launches in a graph, as a prefill or a step makes them) against their
 bounds.
 
+Then cross-flush loop fusion (``run_loop``, the ``LOOP`` lines):
+heat_equation, sor, game_of_life and shallow_water at 4096² and
+lattice_boltzmann at 256³ (``CHIP_SIZES`` widths), ``LOOP_ITERS``
+iterations each, per-flush and loop-fused (the default threshold 3 and
+unroll 32: per-flush warm-up, two full drains of 32 replays of one
+captured CUDA graph of an iteration, a tail drain), cold then warm in one
+runtime each.  It prints wall and flush ms per iteration of both modes,
+the deferred share and drains, the captures, replays and state copies,
+B1's launches by its wrappers, and a third loop-fused run's device busy
+time under ``torch.profiler``; it requires the final arrays of the two
+modes bitwise equal, a capture and more than one replay, and no block on
+the floor.  Then a random-bearing ``IterativeProgram`` (``LOOP_RANDOM``)
+loop-fused against per-flush bitwise (the draws read their key words from
+the body's device key table, so a frozen salt would show), every
+loop-form B1 call of its body held bitwise against its plain key-table
+form on the recorded inputs, and the largest drawing block's loop form
+timed against the per-flush form and the plain version.
+
 It then measures the per-block launch cost the ``gpu`` cost model uses,
 prints a ``kernels`` JSON line (B1-B7), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises (exit code
@@ -212,6 +230,18 @@ RWKV_EXTEND = 4
 #: away and hold B6's state, carried token by token, against B7's chunks
 #: 130x tighter
 RWKV_RTOL = {"bfloat16": 0.7, "float32": 5e-3}
+#: the LOOP phase: the iterative programs at their CHIP_SIZES widths, each
+#: run for 3 x the default unroll of 32 iterations, so with the default
+#: threshold of 3 a loop-fused run has its per-flush warm-up, two full
+#: drains and a tail drain
+LOOP_PROGRAMS = ("heat_equation", "sor", "game_of_life", "shallow_water",
+                 "lattice_boltzmann")
+LOOP_ITERS = 96
+#: the random-bearing IterativeProgram held loop-fused against per-flush
+#: on the card: (seed, steps, size).  Seed 0's step draws three times and
+#: carries a stencil in place and a reduction fed back; 40 steps give a
+#: full drain of 32 and a tail of 5
+LOOP_RANDOM = (0, 40, 2 ** 20)
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -321,7 +351,7 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
     out, warm_s, stats, draws = {}, {}, {}, {}
     for backend in ("triton", "torch"):
         prng.CALLS["uniform"] = 0
-        with lazy.fresh_runtime(backend=backend) as rt:
+        with lazy.fresh_runtime(backend=backend, loop_fusion=False) as rt:
             runs = []
             for _ in range(2):
                 torch.cuda.synchronize()
@@ -1460,6 +1490,216 @@ def _leaves(tree):
         yield tree
 
 
+def _device_kernels(prof):
+    from torch.autograd import DeviceType
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+
+def _busy_ms(kernels) -> float:
+    """The device's busy time: the union of the kernels' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _loop_program(lazy, fn, args, loop_fusion: bool, profile=False) -> dict:
+    """Two runs of ``fn(*args)`` (cold, then warm) in one triton runtime,
+    each timed to the drain of its last iteration (an empty flush) and a
+    synchronize; the result read back after the clock.  With ``profile``
+    a third run goes under ``torch.profiler`` for the device's busy time.
+    Returns each run's result, wall and flush seconds, history and stats
+    deltas and B1's launches."""
+    from repro_torch.kernels.fused_block import codegen
+    out = []
+    with lazy.fresh_runtime(backend="triton", loop_fusion=loop_fusion) as rt:
+        for k in range(3 if profile else 2):
+            prof = None
+            if k == 2:
+                from torch.profiler import ProfilerActivity, profile as tp
+                prof = tp(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                prof.__enter__()
+            n_hist = len(rt.history)
+            before = rt.executor.stats.snapshot()
+            codegen.LAUNCHES["fused_block"] = 0
+            f0 = rt.flush_wall_s
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            lazy.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            flush = rt.flush_wall_s - f0
+            launches = codegen.LAUNCHES["fused_block"]
+            busy = None
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                busy = _busy_ms(_device_kernels(prof))
+            hist = list(rt.history)[n_hist:]
+            st = rt.executor.stats.snapshot()
+            delta = {key: st[key] - before[key] for key in (
+                "loop_flushes", "loop_iterations", "loop_captures",
+                "loop_replays", "loop_state_copies", "triton_blocks",
+                "triton_fallback_blocks", "donated_buffers")}
+            out.append({"result": np.asarray(res), "wall_s": wall,
+                        "flush_s": flush, "busy_ms": busy,
+                        "launches": launches, "stats": delta,
+                        "deferred": sum(1 for h in hist
+                                        if h.get("loop_deferred")),
+                        "drains": [h["n_iterations"] for h in hist
+                                   if h.get("loop_drain")]})
+            del res
+    return out
+
+
+def _key_table_copy(keys):
+    from repro_torch.core import prng
+    return prng.KeyTable(keys.table.clone(), keys.ctr.clone(), keys.off)
+
+
+class LoopFormRecorder:
+    """Records the first call of each fused-block kernel that ran its loop
+    form (``salts`` a ``prng.KeyTable``): the kernel, clones of its inputs
+    and of the key table and counter as they stood, and its keywords.  A
+    loop body's first call is its eager warm-up, so the capture after it
+    records nothing."""
+
+    def __init__(self, kernel_cls):
+        self.kernel_cls = kernel_cls
+        self.calls = {}
+        self._orig = kernel_cls.__call__
+
+    def __enter__(self):
+        from repro_torch.core import prng
+        calls, orig = self.calls, self._orig
+
+        def spy(kernel, *bufs_and_salts, **kw):
+            *bufs, salts = bufs_and_salts
+            if isinstance(salts, prng.KeyTable) and id(kernel) not in calls:
+                calls[id(kernel)] = (kernel, [b.clone() for b in bufs],
+                                     _key_table_copy(salts), dict(kw))
+            return orig(kernel, *bufs_and_salts, **kw)
+
+        self.kernel_cls.__call__ = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel_cls.__call__ = self._orig
+
+
+def _loop_form_checks(lazy, codegen) -> dict:
+    """The random-bearing ``IterativeProgram`` (``LOOP_RANDOM``) loop-fused
+    against per-flush on the card, bitwise; then every loop-form B1 call of
+    its body (three draw) held bitwise against its plain key-table form on
+    the recorded inputs, and the largest drawing block's loop form timed
+    against its per-flush form (key words as launch arguments) and its
+    plain version."""
+    from repro_torch.testing.tapegen import IterativeProgram
+    seed, steps, size = LOOP_RANDOM
+    prog = IterativeProgram(seed, steps=steps, size=size)
+    ref = prog.run(backend="triton", loop_fusion=False)
+    with LoopFormRecorder(codegen.FusedBlockKernel) as rec:
+        with lazy.fresh_runtime(backend="triton") as rt:
+            codegen.LAUNCHES["fused_block"] = 0
+            got = prog.run_current()
+            launches = codegen.LAUNCHES["fused_block"]
+            st = rt.executor.stats.snapshot()
+    for i, (r, g) in enumerate(zip(ref, got)):
+        check_close(g, r, f"LOOP random program output {i}: loop-fused vs "
+                    "per-flush", exact=True)
+    if st["loop_replays"] <= 1 or st["loop_captures"] < 1:
+        raise AssertionError(f"LOOP random program: {st['loop_captures']} "
+                             f"captures, {st['loop_replays']} replays")
+    drawing = [c for c in rec.calls.values() if c[0].plan.rand_shapes]
+    if not drawing:
+        raise AssertionError("LOOP: no loop-form call of a drawing block")
+    for kernel, bufs, keys, kw in rec.calls.values():
+        want = kernel.plain(*bufs, keys)
+        for args in ((bufs, {}), ([b.clone() for b in bufs], kw)):
+            got_k = kernel(*args[0], keys, **args[1])
+            for g, w in zip(got_k, want):
+                check_close(g.cpu().numpy(), w.cpu().numpy(),
+                            f"LOOP B1 loop form vs plain on block "
+                            f"{kernel.plan.domain}", exact=True)
+    kernel, bufs, keys, _ = max(drawing, key=lambda c: c[0].plan.N)
+    store = dict(zip(kernel.plan.inputs, bufs))
+    salts = tuple(range(1, len(kernel.plan.rand_shapes) + 1))
+    timing = {"loop_ms": kernel_ms(kernel, store, keys, bufs[0].device),
+              "arg_ms": kernel_ms(kernel, store, salts, bufs[0].device),
+              "plain_ms": cuda_ms(lambda: kernel.plain(*bufs, keys)),
+              "domain": kernel.plan.domain,
+              "draws": len(kernel.plan.rand_shapes),
+              **block_bound(kernel, codegen)}
+    return {"stats": st, "blocks": len(rec.calls), "drawing": len(drawing),
+            "timing": timing, "launches": launches}
+
+
+def run_loop(lazy, codegen) -> dict:
+    """The LOOP phase: cross-flush loop fusion on the card (module
+    docstring).  Returns B1's launches on its main path (the loop-fused
+    runs) and the loop-form check's error (0: bitwise)."""
+    from repro_torch.testing.programs import BENCHMARKS, CHIP_SIZES
+    t_start = time.perf_counter()
+    launches = 0
+    for name in LOOP_PROGRAMS:
+        args = (LOOP_ITERS,) + tuple(CHIP_SIZES[name][1:])
+        flush = _loop_program(lazy, BENCHMARKS[name], args, False)
+        torch.cuda.empty_cache()
+        fused = _loop_program(lazy, BENCHMARKS[name], args, True,
+                              profile=True)
+        torch.cuda.empty_cache()
+        for k in range(2):
+            check_close(fused[k]["result"], flush[k]["result"],
+                        f"LOOP {name} run {k}: loop-fused vs per-flush",
+                        exact=True)
+        st = fused[0]["stats"]
+        if st["loop_captures"] < 1 or fused[1]["stats"]["loop_replays"] <= 1:
+            raise AssertionError(f"LOOP {name}: captures {st} / "
+                                 f"{fused[1]['stats']}")
+        if fused[1]["stats"]["triton_fallback_blocks"]:
+            raise AssertionError(f"LOOP {name}: a block fell to the floor")
+        launches += sum(run["launches"] for run in fused)
+        w, p = fused[1], fused[2]
+        print(f"LOOP {name} args={args}: warm wall_ms/iter per-flush="
+              f"{flush[1]['wall_s'] / LOOP_ITERS * 1e3:.4f} loop-fused="
+              f"{w['wall_s'] / LOOP_ITERS * 1e3:.4f}; flush_ms/iter "
+              f"per-flush={flush[1]['flush_s'] / LOOP_ITERS * 1e3:.4f} "
+              f"loop-fused={w['flush_s'] / LOOP_ITERS * 1e3:.4f}; cold "
+              f"wall_ms/iter per-flush="
+              f"{flush[0]['wall_s'] / LOOP_ITERS * 1e3:.4f} loop-fused="
+              f"{fused[0]['wall_s'] / LOOP_ITERS * 1e3:.4f}; deferred "
+              f"{w['deferred']}/{LOOP_ITERS} drains={w['drains']}; captures "
+              f"cold={fused[0]['stats']['loop_captures']} warm="
+              f"{w['stats']['loop_captures']}, replays warm="
+              f"{w['stats']['loop_replays']}, loop_state_copies cold="
+              f"{fused[0]['stats']['loop_state_copies']} warm="
+              f"{w['stats']['loop_state_copies']}; B1 launches by the "
+              f"wrappers warm per-flush={flush[1]['launches']} "
+              f"loop-fused={w['launches']}; profiled loop-fused run: wall "
+              f"{p['wall_s'] * 1e3:.3f} ms, device busy {p['busy_ms']:.3f} "
+              f"ms, idle {1 - p['busy_ms'] / (p['wall_s'] * 1e3):.3f}; "
+              f"bitwise=True", flush=True)
+        del flush, fused
+    form = _loop_form_checks(lazy, codegen)
+    launches += form["launches"]
+    t = form["timing"]
+    print(f"LOOP random IterativeProgram{LOOP_RANDOM}: loop-fused vs "
+          f"per-flush bitwise; captures={form['stats']['loop_captures']} "
+          f"replays={form['stats']['loop_replays']}; B1 loop form vs plain "
+          f"bitwise on {form['blocks']} blocks ({form['drawing']} draw); "
+          f"largest drawing block {t['domain']} ({t['draws']} draws): "
+          f"loop form kernel_ms={t['loop_ms']:.4f}, key words as launch "
+          f"arguments {t['arg_ms']:.4f}, plain_ms={t['plain_ms']:.4f}, "
+          f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']})", flush=True)
+    print(f"LOOP phase: {time.perf_counter() - t_start:.1f}s", flush=True)
+    return {"launches": launches, "max_abs_err": 0.0}
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -1559,6 +1799,8 @@ def main() -> int:
     for (name, _), (err_o, _, err_s, _) in rwkv["held"].items():
         for row in model["cases"][name]:
             row["max_abs_err"] = max(row["max_abs_err"], err_o, err_s)
+    loop = run_loop(lazy, codegen)
+    torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
@@ -1567,7 +1809,8 @@ def main() -> int:
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
-        "launches": launches + lm["launches"]["fused_block"],
+        "launches": (launches + lm["launches"]["fused_block"]
+                     + loop["launches"]),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

@@ -1,8 +1,9 @@
 """Pluggable lowering backends for the PyTorch port.
 
 ``LoweringBackend`` is the protocol, the registry maps names to instances,
-and :func:`select_lowering` is the per-block selection rule (first
-claimant in preference order) the scheduler's **lower** stage runs.  The built-in backends register
+and :func:`select_lowering` is the per-block selection rule (the
+cheapest claimant, preference order breaking ties) the scheduler's
+**lower** stage runs.  The built-in backends register
 on import:
 
 * ``torch``  — one PyTorch call per op (claims everything; the floor);

@@ -12,10 +12,14 @@ backend runs it:
 1. every backend in the policy's preference-ordered candidate list is asked
    whether it *claims* the block (``claims`` returns ``None``, or a stable
    reason slug explaining why it cannot express the block);
-2. the first claimant in preference order wins.  (The reference also
-   prices claimants per dispatch; with one fused-block generator and the
-   floor that pricing is always a tie, so it waits for loop fusion and the
-   calibrated cost model.)
+2. among the claimants, each backend reports how many executable
+   *dispatches* the block will cost on it (the ``torch`` floor reports 2
+   for blocks the Triton generator cannot express as one kernel — the
+   same DEL-insensitive analysis the ``gpu`` cost model prices);
+3. the cost model converts dispatch counts into a price
+   (``CostModel.dispatch_price``, amortized over a fused loop's unroll
+   when a loop body is re-lowered) and the cheapest claimant wins, with
+   ties broken by the policy's preference order.
 
 The decision is recorded on the ``BlockPlan`` (and in the merge cache), so
 steady-state flushes skip both partitioning and backend probing, and the
@@ -101,9 +105,16 @@ class LoweringBackend:
         metadata check."""
         raise NotImplementedError
 
+    def dispatches(self, ops: Sequence, plan, ctx: LoweringContext) -> int:
+        """How many executable dispatches the block costs on this backend —
+        the quantity the cost model prices during selection."""
+        return 1
+
     def build(self, ops: Sequence, plan, ctx: LoweringContext):
         """Build the block: returns ``fn(*input_bufs, salts) ->
-        output_bufs``.  A failure here raises to the caller."""
+        output_bufs``, where ``salts`` is the block's per-``random``-op
+        salts or, in a fused loop body, a ``prng.KeyTable`` its draws read
+        their key words from.  A failure here raises to the caller."""
         raise NotImplementedError
 
 
@@ -173,17 +184,54 @@ def available_backends() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 def select_lowering(ops: Sequence, plan, backends: Sequence[str],
-                    ctx: LoweringContext) -> LoweringDecision:
-    """Pick the backend that runs one block: the first of the
-    preference-ordered ``backends`` that claims it.  Returns a
-    :class:`LoweringDecision` whose ``declined`` tuple keeps the reasons of
-    every backend preferred over the winner."""
+                    ctx: LoweringContext,
+                    cost_model=None, amortize: int = 1) -> LoweringDecision:
+    """Pick the backend that runs one block.
+
+    ``backends`` is the preference-ordered candidate list.  Each candidate
+    is asked to claim the block; claimants are priced through
+    ``cost_model.lowering_price(n_dispatches, ext_bytes, backend=name,
+    amortize=amortize)`` (the raw dispatch count when no model is given)
+    and the cheapest wins, preference order breaking ties.  For the
+    analytic models the price reduces to ``dispatch_price``: external
+    bytes move at one assumed bandwidth regardless of backend, so the byte
+    term cancels from the comparison, and is only computed for a model
+    that overrides ``lowering_price``.  ``amortize`` is the unroll factor
+    when the block is re-lowered for a fused cross-flush loop body: launch
+    overhead amortizes over the loop, byte traffic does not.  Returns a
+    :class:`LoweringDecision` whose ``declined`` tuple keeps the reasons
+    of every backend preferred over the winner."""
+    order = {n: i for i, n in enumerate(backends)}
     declined = []
+    claimants = []
     for name in backends:
-        reason = get_backend(name).claims(ops, plan, ctx)
+        be = get_backend(name)
+        reason = be.claims(ops, plan, ctx)
         if reason is None:
-            return LoweringDecision(backend=name, declined=tuple(declined))
-        declined.append((name, reason))
-    raise RuntimeError(
-        f"no backend claims block {plan.op_indices!r} "
-        f"(candidates {tuple(backends)}, reasons {declined})")
+            claimants.append(be)
+        else:
+            declined.append((name, reason))
+    if not claimants:
+        raise RuntimeError(
+            f"no backend claims block {plan.op_indices!r} "
+            f"(candidates {tuple(backends)}, reasons {declined})")
+    if len(claimants) == 1:
+        best = claimants[0]
+    else:
+        ext_bytes = 0.0
+        if cost_model is not None:
+            from ..cost import CostModel
+            if type(cost_model).lowering_price is not CostModel.lowering_price:
+                from ..blocks import BlockInfo
+                ext_bytes = float(BlockInfo.from_ops(ops).ext_size("bytes"))
+
+        def price(be: LoweringBackend) -> float:
+            n = be.dispatches(ops, plan, ctx)
+            return (cost_model.lowering_price(n, ext_bytes, backend=be.name,
+                                              amortize=amortize)
+                    if cost_model is not None else float(n))
+        best = min(claimants, key=lambda be: (price(be), order[be.name]))
+    cut = order[best.name]
+    return LoweringDecision(
+        backend=best.name,
+        declined=tuple((n, r) for n, r in declined if order[n] < cut))

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from .base import LoweringBackend, LoweringContext
+from .base import LoweringBackend, LoweringContext, codegen_lower_reason
 
 
 class TorchFloorBackend(LoweringBackend):
@@ -23,6 +23,11 @@ class TorchFloorBackend(LoweringBackend):
 
     def claims(self, ops: Sequence, plan, ctx: LoweringContext) -> Optional[str]:
         return None                      # the floor expresses every block
+
+    def dispatches(self, ops: Sequence, plan, ctx: LoweringContext) -> int:
+        # a block the generator cannot express is priced at 2 dispatches,
+        # the rule the gpu cost model applies during partitioning
+        return 1 if codegen_lower_reason(ops, plan) is None else 2
 
     def build(self, ops: Sequence, plan, ctx: LoweringContext):
         from ..executor import make_block_fn

@@ -12,7 +12,10 @@ generator).  ``BlockExecutor`` is the thin dispatch engine over that
 registry.
 
 Buffers are flat 1-D tensors on the executor's device.  The floor never
-writes one in place (a partial write clones its base, :func:`_write`).  A
+writes one in place (a partial write clones its base, :func:`_write`).
+A recurring flush can also run as a fused loop (:meth:`BlockExecutor.
+run_loop`, ``backends/loop_body.py``), whose state lives in static
+buffers the loop overwrites.  A
 backend that opts in (``LoweringBackend.donates``: the ``triton`` backend)
 is told which of a block's input buffers it may overwrite — the donatable
 ones (their base dies in the block, ``BlockPlan.donatable``) and those of
@@ -215,8 +218,8 @@ def take(table: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
             else torch.iinfo(dt).min)
     mask = valid.reshape((1,) * axis + idx.shape
                          + (1,) * (table.dim() - axis - 1))
-    return torch.where(mask, got, torch.tensor(fill, dtype=dt,
-                                               device=table.device))
+    return torch.where(mask, got, torch.full((), fill, dtype=dt,
+                                             device=table.device))
 
 
 _LITERALS: Dict[Tuple, torch.Tensor] = {}
@@ -237,9 +240,11 @@ def _lit(x, dt: np.dtype, device) -> torch.Tensor:
     return t
 
 
-def apply_op(opcode: str, args: Sequence) -> torch.Tensor:
+def apply_op(opcode: str, args: Sequence, device=None) -> torch.Tensor:
     """One elementwise op with the reference's semantics.  ``args`` are
-    tensors or Python scalars; the result has ``op_dtypes``' result type."""
+    tensors or Python scalars; the result has ``op_dtypes``' result type,
+    on the tensors' device (``device``, else the CPU, when every argument
+    is a literal)."""
     terms = [(_NP_DTYPES[a.dtype] if isinstance(a, torch.Tensor) else a)
              for a in args]
     if opcode == "where":
@@ -252,7 +257,7 @@ def apply_op(opcode: str, args: Sequence) -> torch.Tensor:
         return torch.where(cond, *vals)
     cd, _ = op_dtypes(opcode, terms)
     device = next((a.device for a in args if isinstance(a, torch.Tensor)),
-                  torch.device("cpu"))
+                  torch.device(device or "cpu"))
     xs = [a.to(torch_dtype(cd)) if isinstance(a, torch.Tensor)
           else _lit(a, cd, device) for a in args]
     if opcode in _UNARY:
@@ -268,14 +273,13 @@ def _is_whole(v: View) -> bool:
     return v.offset == 0 and v.size == v.base.size and v.is_contiguous()
 
 
-def _view_index(v: View) -> Optional[np.ndarray]:
-    """Static flat element indices of a view into its base, or None when the
-    view is the whole contiguous base (fast path: pure reshape)."""
-    if _is_whole(v):
-        return None
-    idx = np.full((), v.offset, dtype=np.int64)
+def _view_index(v: View, device) -> torch.Tensor:
+    """Flat element indices of a view into its base, built on ``device``
+    (nothing crosses from the host, so a CUDA graph can hold the read)."""
+    idx = torch.full((), v.offset, dtype=torch.int64, device=device)
     for s, st in zip(v.shape, v.strides):
-        idx = idx[..., None] + np.arange(s, dtype=np.int64) * st
+        idx = idx[..., None] + torch.arange(s, dtype=torch.int64,
+                                            device=device) * st
     return idx.reshape(-1)
 
 
@@ -342,8 +346,7 @@ def _read(buf: torch.Tensor, v: View) -> torch.Tensor:
         buf = buf.contiguous()
         return buf.as_strided(v.shape, v.strides, buf.storage_offset()
                               + v.offset)
-    idx = torch.from_numpy(_view_index(v)).to(buf.device)
-    return buf[idx].reshape(v.shape)
+    return buf[_view_index(v, buf.device)].reshape(v.shape)
 
 
 def _write(buf: torch.Tensor, v: View, val) -> torch.Tensor:
@@ -360,8 +363,7 @@ def _write(buf: torch.Tensor, v: View, val) -> torch.Tensor:
     if plan is not None:
         out.view(plan[0])[_window(plan)] = val.reshape(plan[2])
         return out
-    idx = torch.from_numpy(_view_index(v)).to(buf.device)
-    out[idx] = val.reshape(-1)
+    out[_view_index(v, buf.device)] = val.reshape(-1)
     return out
 
 
@@ -426,7 +428,9 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
 
     Returns ``(fn, input_uids, output_uids)`` where ``fn(*input_bufs,
     salts) -> output_bufs`` takes flat tensors on ``device`` (the CUDA card
-    unless given) and a sequence of per-``random``-op integer salts."""
+    unless given) and a sequence of per-``random``-op integer salts, or a
+    ``prng.KeyTable`` (a fused loop body) whose key words the draws read
+    on the device."""
     device = resolve_device(device)
     work = [op for op in ops if not op.is_system()]
     inputs, outputs, _contracted = block_io(ops)  # DEL/SYNC drive contraction
@@ -456,8 +460,13 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
                 # identical blocks (shared executable) draw fresh values,
                 # and the draws are partition-invariant (the salt is the
                 # op's own, not a block property)
-                val = prng.uniform(seed, salts[n_rand], op.out.shape,
-                                   op.out.dtype, device)
+                if isinstance(salts, prng.KeyTable):
+                    val = prng.uniform_from(*salts.words(n_rand),
+                                            op.out.shape, op.out.dtype,
+                                            device)
+                else:
+                    val = prng.uniform(seed, salts[n_rand], op.out.shape,
+                                       op.out.dtype, device)
                 n_rand += 1
             elif oc == "range":
                 val = torch.arange(op.out.size, dtype=torch_dtype(
@@ -465,7 +474,7 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
             elif oc == "gather":
                 val = take(ins[0], ins[1], op.axis or 0)
             elif oc in _UNARY or oc in _BINARY or oc == "where":
-                val = apply_op(oc, ins)
+                val = apply_op(oc, ins, device)
             else:
                 raise NotImplementedError(f"opcode {oc!r}")
             ov = op.out
@@ -526,6 +535,8 @@ class BlockExecutor:
         self.device = resolve_device(device)
         self.backends: Tuple[str, ...] = default_stack(backend)
         self._cache: Dict[Tuple, object] = {}
+        #: lowering decisions for plans the scheduler did not annotate
+        self._decisions: Dict[Tuple, object] = {}
         self._lock = threading.RLock()
         self.sync_store: Dict[int, torch.Tensor] = {}
         self.metrics = MetricsRegistry()
@@ -543,12 +554,24 @@ class BlockExecutor:
         preferred over the one that ran, why it declined.  Under a
         triton-bearing policy every dispatched work block lands either in
         ``triton_blocks`` or in ``triton_fallback_blocks`` with its reason
-        slug counted in ``triton_fallbacks`` (``codegen.REASONS``)."""
+        slug counted in ``triton_fallbacks`` (``codegen.REASONS``).
+
+        Fused loops (:meth:`run_loop`): ``loop_flushes`` counts drains and
+        ``loop_iterations`` the iterations they ran; ``loop_captures`` and
+        ``loop_replays`` the CUDA graphs of loop bodies captured and their
+        replays (one an iteration; none on the CPU); ``loop_state_copies``
+        every copy the loop path makes of its state — into a static state
+        buffer at a drain's start where the state is not already there, at
+        an iteration's end where a block's carried output did not land in
+        its buffer, and of another buffer or SYNC snapshot that shares a
+        state buffer's storage, before a drain overwrites it."""
         st = self.stats
         with self.metrics.lock:
             for key in ("blocks_run", "exec_cache_hits", "exec_cache_misses",
                         "donated_buffers", "triton_blocks",
-                        "triton_fallback_blocks"):
+                        "triton_fallback_blocks", "loop_flushes",
+                        "loop_iterations", "loop_captures", "loop_replays",
+                        "loop_state_copies"):
                 st.declare_scalar(key)
             st.declare_group("triton_fallbacks", ("reason",))
             st.declare_group("backend_blocks", ("backend",),
@@ -573,7 +596,29 @@ class BlockExecutor:
         return LoweringPolicy(backends=self.backends,
                               ctx=self.lowering_context())
 
+    def run(self, tape: Sequence[Op], op_blocks: Sequence[Sequence[int]],
+            buffers: Dict[int, torch.Tensor]) -> None:
+        """Legacy front door: plan the blocks, then execute the schedule."""
+        from .scheduler import Schedule, plan_blocks   # local: avoid cycle
+        self.run_schedule(Schedule(tape=list(tape),
+                                   blocks=plan_blocks(tape, op_blocks)),
+                          buffers)
+
     # -- dispatch ------------------------------------------------------
+    def _decide(self, ops: Sequence[Op], plan, ctx):
+        """Lowering decision for a plan the scheduler did not annotate
+        (legacy :meth:`run`, hand-built schedules) — the same selection
+        rule, cached by the plan's signature so steady-state dispatches
+        skip the probing."""
+        from .backends import select_lowering
+        with self._lock:
+            d = self._decisions.get(plan.signature)
+        if d is None:
+            d = select_lowering(ops, plan, self.backends, ctx)
+            with self._lock:
+                self._decisions[plan.signature] = d
+        return d
+
     def _executable(self, decision, ops: Sequence[Op], plan, ctx):
         """Look up (or build) the executable for one decided plan."""
         from .backends import get_backend
@@ -630,7 +675,7 @@ class BlockExecutor:
         external input buffers plus the RNG salts (and, to a backend that
         donates, the input positions it may overwrite), then honor SYNC
         (snapshot into ``sync_store``) and DEL (free) in Bohrium order."""
-        from .backends import get_backend, select_lowering
+        from .backends import get_backend
         tape = schedule.tape
         ctx = self.lowering_context()
         # holders of each storage: buffers and SYNC snapshots
@@ -651,8 +696,7 @@ class BlockExecutor:
                 if plan.has_work:
                     decision = plan.lowering
                     if decision is None:        # a schedule planned without
-                        decision = select_lowering(      # a lowering policy
-                            ops, plan, self.backends, ctx)
+                        decision = self._decide(ops, plan, ctx)   # a policy
                     fn = self._executable(decision, ops, plan, ctx)
                     self._account(decision)
                     in_bufs = []
@@ -683,6 +727,82 @@ class BlockExecutor:
                             hold(self.sync_store, b.uid, buffers[b.uid])
                     for b in op.del_bases:
                         hold(buffers, b.uid, None)
+
+    def run_loop(self, loop_plan, buffers: Dict[int, torch.Tensor],
+                 state_uids: Sequence[int], inv_uids: Sequence[int],
+                 salts: Sequence[Sequence[int]],
+                 unroll: int) -> Tuple[torch.Tensor, ...]:
+        """Run ``len(salts)`` iterations of a recurring flush as one fused
+        loop (cross-flush loop fusion, ``core/loop.py``); returns the final
+        state buffers.
+
+        ``loop_plan`` is the scheduler's :class:`~repro_torch.core.
+        scheduler.LoopPlan`.  The state is ``buffers[u]`` for ``u`` in
+        ``state_uids`` (one per tape-level output, canonical order: the
+        last executed flush's outputs), the loop invariants ``buffers[u]``
+        for ``u`` in ``inv_uids`` (the inputs the mapping marks ``inv``),
+        and ``salts`` holds one row per iteration: the salts of its
+        ``random`` ops in the body's block order.  ``unroll`` is the most
+        iterations a drain of this loop runs (the rows of the body's key
+        table).
+
+        The loop body (``backends.loop_body.build_loop_fn``) is built once
+        per plan key and owns static state and invariant buffers: a state
+        is copied into them only where it is not already there (after the
+        first drain it is: the final state returned is those buffers), an
+        invariant only when its storage changed, and the invariant's store
+        entry then becomes the static buffer.  The loop overwrites the
+        state buffers in place, so any other store entry or SYNC snapshot
+        that shares their storage is copied off first.  On a CUDA device
+        the body's one iteration is a CUDA graph replayed once an
+        iteration; on the CPU it runs eagerly."""
+        from .backends.loop_body import build_loop_fn
+        key = ("loop", loop_plan.key)
+        n = len(salts)
+        st = self.stats
+        with trace.span("stage.execute", loop=True, n_iterations=n):
+            with self._lock:
+                body = self._cache.get(key)
+            if body is not None:
+                st.inc("exec_cache_hits")
+                trace.instant("cache.exec", hit=True, loop=True)
+            else:
+                st.inc("exec_cache_misses")
+                trace.instant("cache.exec", hit=False, loop=True)
+                with trace.span("build", loop=True,
+                                n_ops=len(loop_plan.tape)):
+                    body = build_loop_fn(loop_plan.tape, loop_plan.plans,
+                                         loop_plan.input_sources,
+                                         loop_plan.tape_inputs,
+                                         loop_plan.tape_outputs,
+                                         self.lowering_context(), unroll)
+                with self._lock:
+                    self._cache[key] = body
+            state = [buffers[u] for u in state_uids]
+            invariants = [buffers[u] for u in inv_uids]
+            body.allocate(state, invariants)
+            keep = set(state_uids)
+            slots = {_storage(b) for b in body.slots}
+            moved = 0
+            for store in (buffers, self.sync_store):
+                for u, b in list(store.items()):
+                    if _storage(b) in slots and not (store is buffers
+                                                     and u in keep):
+                        store[u] = b.clone()
+                        moved += 1
+            moved += body.bind(state, invariants)
+            for u, b in zip(inv_uids, body.inv):
+                buffers[u] = b
+            captures, replays = body.captures, body.replays
+            copies = body.run(salts, self.seed)
+            st.inc("loop_flushes")
+            st.inc("loop_iterations", n)
+            st.inc("loop_captures", body.captures - captures)
+            st.inc("loop_replays", body.replays - replays)
+            st.inc("loop_state_copies", moved + copies)
+            st.inc("donated_buffers", sum(
+                1 for b, s in zip(state, body.slots) if b is s))
+        return tuple(body.slots)
 
 
 def _storage(t: torch.Tensor) -> int:

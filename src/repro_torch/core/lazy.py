@@ -31,6 +31,7 @@ from .cache import MergeCache
 from .device import resolve_device
 from .executor import BlockExecutor, _read, numpy_dtype, stats_delta
 from .ir import BaseArray, Op, View
+from .loop import LoopFuser
 from .obs import trace
 from .scheduler import Scheduler
 
@@ -63,8 +64,20 @@ class Runtime:
     device : ``None`` (default) runs on the CUDA card and raises when there
         is none; ``"cpu"`` (or any torch device) runs there.
     history_limit : cap on ``Runtime.history`` entries.
-    loop_fusion : the reference's cross-flush loop fusion is not ported
-        yet; ``True`` raises ``NotImplementedError``.
+    loop_fusion : fuse across the flush boundary (DESIGN.md §16): when
+        consecutive flushes re-trace a structurally identical tape with a
+        consistent carried-state mapping, steady-state flushes are
+        deferred and run in batches as one fused loop over the block
+        schedule (``core/loop.py``; on a CUDA device one captured CUDA
+        graph of an iteration, replayed once an iteration).  Bitwise the
+        per-flush results; a materialization or a structure change first
+        drains the queue in program order.  Pass ``False`` for per-flush
+        semantics, e.g. to count per-flush stats or history entries.
+    loop_threshold : recurrence hysteresis — a tape's first
+        ``loop_threshold`` occurrences execute per-flush; deferral starts
+        at occurrence ``loop_threshold + 1``.
+    loop_unroll : most deferred iterations per fused loop (the rows of the
+        loop body's key table).
     partition_backend : ``"greedy"``; the reference's ``"ilp"`` solver is
         not ported yet and raises ``NotImplementedError`` at the first
         flush.
@@ -76,11 +89,9 @@ class Runtime:
     def __init__(self, algorithm: str = "greedy", cost_model: str = "bohrium",
                  use_cache: bool = True, node_budget: int = 100_000,
                  seed: int = 0, backend="torch", device=None,
-                 history_limit: int = 1024, loop_fusion: bool = False,
+                 history_limit: int = 1024, loop_fusion: bool = True,
+                 loop_threshold: int = 3, loop_unroll: int = 32,
                  partition_backend: str = "greedy"):
-        if loop_fusion:
-            raise NotImplementedError(
-                "loop_fusion=True is not ported yet (ROADMAP A5)")
         self.algorithm = algorithm
         self.cost_model = cost_model
         self.use_cache = use_cache
@@ -91,6 +102,8 @@ class Runtime:
         self.buffers: Dict[int, torch.Tensor] = {}
         self.scheduler = Scheduler(MergeCache())
         self.cache = self.scheduler.cache
+        self._loop = (LoopFuser(threshold=loop_threshold, unroll=loop_unroll)
+                      if loop_fusion else None)
         self.executor = BlockExecutor(seed=seed, backend=backend,
                                       device=self.device)
         self._known: set = set()
@@ -116,10 +129,15 @@ class Runtime:
             # stage 1 (trace) starts here; flush() emits the retroactive
             # ``stage.trace`` span from this timestamp
             self._t_trace0 = time.perf_counter_ns()
+        # a base is pre-existing if it's on this tape already, in the buffer
+        # store, or live in the deferred loop-fusion queue (its value has
+        # not materialized yet but logically exists)
+        live = self._loop.live if self._loop is not None else ()
         new = []
         for v in (*op.in_views(), *op.out_views()):
             u = v.base.uid
-            if u not in self._known and u not in self.buffers:
+            if u not in self._known and u not in self.buffers \
+                    and u not in live:
                 new.append(v.base)
                 self._known.add(u)
         if new:
@@ -139,7 +157,9 @@ class Runtime:
         if c <= 1:
             del self._refcount[base.uid]
             self._bases.pop(base.uid, None)
-            if base.uid in self._known or base.uid in self.buffers:
+            if (base.uid in self._known or base.uid in self.buffers
+                    or (self._loop is not None
+                        and base.uid in self._loop.live)):
                 self.record(Op("del", None, del_bases=frozenset({base})))
         else:
             self._refcount[base.uid] = c - 1
@@ -149,8 +169,31 @@ class Runtime:
         """Run the staged pipeline on the recorded tape: the scheduler plans
         (graph → partition → schedule → lower, with the merge cache
         short-circuiting partition and lower), then the executor dispatches
-        the block plans."""
-        if self._flushing or not self.tape:
+        the block plans.
+
+        With loop fusion on, a recurring steady-state tape is *deferred*
+        instead: the iteration is queued and run later — with the rest of
+        its batch — as one fused loop (``LoopFuser.fuse``).  Calling
+        ``flush()`` with an EMPTY tape drains any queued iterations, as
+        does any tape that breaks the recurrence (a SYNC, a structure
+        change)."""
+        if self._flushing:
+            return
+        fus = self._loop
+        if not self.tape:
+            if fus is not None and fus.pending:
+                self._flushing = True
+                t0 = time.perf_counter()
+                try:
+                    with trace.context(flush=self.flushes), \
+                         trace.span("flush", n_ops=0, drain=True):
+                        fus.drain(self)
+                finally:
+                    self._flushing = False
+                    dt = time.perf_counter() - t0
+                    self.flush_wall_s += dt
+                    self.executor.metrics.histogram(
+                        "runtime.flush_wall_s").observe(dt)
             return
         self._flushing = True
         t0 = time.perf_counter()
@@ -167,6 +210,11 @@ class Runtime:
                                 {"n_ops": len(tape), "flush": self.flushes})
                 self._t_trace0 = None
                 h0, m0 = self.cache.hits, self.cache.misses
+                if fus is not None and fus.fuse(self, tape):
+                    fsp.set(deferred=True)
+                    self._known = set()
+                    self.flushes += 1
+                    return
                 self.last_tape = tape
                 sched = self.scheduler.plan(
                     tape, algorithm=self.algorithm,
@@ -190,6 +238,8 @@ class Runtime:
                 before = self.executor.snapshot_stats()
                 self.executor.run_schedule(sched, self.buffers)
                 entry["exec"] = stats_delta(before, self.executor.stats)
+                if fus is not None:
+                    fus.mark_executed()
                 self.history.append(entry)
                 self._known = set()
                 self.flushes += 1

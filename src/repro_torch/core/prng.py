@@ -21,12 +21,20 @@ per-element hash (:func:`uniform_at`) runs as int64 tensor ops masked to
 32 bits on the caller's device.  The fused-block kernel takes the same
 steps per element in-kernel, on ``uint32``, with the key words as launch
 arguments.
+
+A fused loop (``core/loop.py``) runs many iterations of one flush without
+the host between them, so its draws cannot take key words from the host
+at each call: a drain writes every iteration's key words into a device
+:class:`KeyTable` in one copy, and each draw reads its own from there at
+the iteration a device counter names (:func:`uniform_from`, and the
+kernel's loop form).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -91,15 +99,25 @@ def uniform_at(seed: int, salt: int, index: torch.Tensor,
                dtype) -> torch.Tensor:
     """The value of flat element ``index`` (an int64 tensor, any shape) of
     ``uniform(seed, salt, shape, dtype)`` for every ``shape`` that holds
-    it, in the steps the fused-block kernel takes per element: the
-    counter pair ``(i >> 32, i & MASK)``, threefry2x32 under the draw's
-    key words, then the top mantissa bits of the output words as a float
-    in ``[1, 2)`` minus one."""
+    it, in the steps the fused-block kernel takes per element:
+    :func:`uniform_bits` under the draw's key words."""
+    return uniform_bits(*key_words(seed, salt), index, dtype)
+
+
+Word = Union[int, torch.Tensor]
+
+
+def uniform_bits(k1: Word, k2: Word, index: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    """:func:`uniform_at` from the draw's two key words, Python ints or
+    0-dim int64 tensors holding 32-bit values (:meth:`KeyTable.words`):
+    the counter pair ``(i >> 32, i & MASK)``, threefry2x32 under the key
+    words, then the top mantissa bits of the output words as a float in
+    ``[1, 2)`` minus one."""
     dt = np.dtype(dtype)
     if dt not in _LAYOUT:
         raise TypeError(f"uniform draws float16/32/64, not {dt}")
     view, nmant, one = _LAYOUT[dt]
-    k1, k2 = key_words(seed, salt)
     b1, b2 = threefry2x32(k1, k2, index >> 32, index & MASK)
     if dt.itemsize == 8:
         # the 64-bit word is b1:b2; keep its top 52 bits without forming it
@@ -117,6 +135,49 @@ def uniform(seed: int, salt: int, shape, dtype,
             device: torch.device) -> torch.Tensor:
     """``jax.random.uniform(fold_in(PRNGKey(seed), salt), shape, dtype)``
     on ``device``, bitwise: :func:`uniform_at` over every flat index."""
+    return uniform_from(*key_words(seed, salt), shape, dtype, device)
+
+
+def uniform_from(k1: Word, k2: Word, shape, dtype,
+                 device: torch.device) -> torch.Tensor:
+    """:func:`uniform` from the draw's key words; 0-dim int64 tensors from
+    a :class:`KeyTable` keep the draw on the device, with nothing read
+    back to the host, so a CUDA graph can hold it."""
     CALLS["uniform"] += 1
     i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    return uniform_at(seed, salt, i, dtype).reshape(tuple(shape))
+    return uniform_bits(k1, k2, i, dtype).reshape(tuple(shape))
+
+
+@dataclass(frozen=True)
+class KeyTable:
+    """The key words of a fused loop's draws, on the device.
+
+    ``table`` is ``(unroll, n_rand, 2)`` ``uint32``: row ``i`` holds
+    iteration ``i``'s key words, draw by draw in the order the loop body
+    runs them (:func:`key_words` of each draw's salt).  ``ctr`` is a
+    one-element int32 tensor beside it: the iteration being run, which the
+    loop resets once per drain and advances after each iteration.  ``off``
+    is the first draw of the block this view is handed to, so a block's
+    draw ``j`` reads ``table[ctr, off + j]``.  Nothing here reads a device
+    value on the host."""
+
+    table: torch.Tensor
+    ctr: torch.Tensor
+    off: int = 0
+
+    @property
+    def stride(self) -> int:
+        """``uint32`` words from one iteration's row to the next."""
+        return 2 * self.table.shape[1]
+
+    def at(self, off: int) -> "KeyTable":
+        """The view a block whose first draw is ``off`` of a row reads."""
+        return KeyTable(self.table, self.ctr, self.off + off)
+
+    def words(self, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Draw ``j``'s two key words at the current iteration, as 0-dim
+        int64 tensors on the table's device."""
+        flat = self.table.view(torch.int32).reshape(-1)
+        at = self.ctr.to(torch.int64) * self.stride + 2 * (self.off + j)
+        pair = flat.take(torch.cat([at, at + 1])).to(torch.int64) & MASK
+        return pair[0], pair[1]

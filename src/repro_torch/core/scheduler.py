@@ -18,8 +18,9 @@
 6. **execute**   — ``executor.BlockExecutor.run_schedule`` dispatches the
    plans against the buffer store.
 
-Stages 3 and 5 are skipped on a merge-cache hit (§IV-F).  The reference's
-loop planning (``plan_loop``) waits for the loop-fusion slice.
+Stages 3 and 5 are skipped on a merge-cache hit (§IV-F).  For a tape that
+recurs across flushes, :meth:`Scheduler.plan_loop` plans the steady-state
+loop body once (cross-flush loop fusion, ``core/loop.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .algorithms import PartitionResult, partition
 from .backends import LoweringDecision, LoweringPolicy, select_lowering
 from .cache import MergeCache, block_signature, tape_signature
+from .cost import make_cost_model
 from .executor import block_dead_bases, block_io
 from .ir import Op
 from .obs import trace
@@ -62,6 +64,28 @@ class Schedule:
     key: Optional[Tuple] = None                # merge-cache key (use_cache)
 
 
+@dataclass(frozen=True)
+class LoopPlan:
+    """The loop planning product for cross-flush fusion (DESIGN.md §16):
+    everything the executor's ``run_loop`` needs to run ONE steady-state
+    iteration as a loop body (``backends.loop_body``).
+
+    The plan is purely *structural* — a template tape (any representative of
+    the recurring structure) plus per-block plans, the tape-level io in
+    canonical first-occurrence order, and the carried-state mapping saying
+    where each input position reads from (``("carry", q)`` = loop state slot
+    ``q``, ``("inv", j)`` = loop-invariant input ``j``).  It is cached in
+    the merge cache beside the block plan (under a ``("loop",)`` prefix) and
+    replayed for every structurally-equal tape, whatever its base uids."""
+
+    tape: Tuple[Op, ...]            # template tape, program order
+    plans: Tuple[BlockPlan, ...]    # per-block plans (loop-lowered)
+    tape_inputs: Tuple[int, ...]    # template tape-level input uids
+    tape_outputs: Tuple[int, ...]   # template tape-level output uids
+    input_sources: Tuple[Tuple, ...]  # carried-state mapping per input pos
+    key: Tuple                      # loop-executable cache identity
+
+
 def plan_blocks(tape: Sequence[Op],
                 op_blocks: Sequence[Sequence[int]]) -> List[BlockPlan]:
     """Stage 4: lower a partition's block lists into ``BlockPlan``s.
@@ -88,15 +112,21 @@ def plan_blocks(tape: Sequence[Op],
 
 
 def lower_plans(tape: Sequence[Op], plans: Sequence[BlockPlan],
-                policy: LoweringPolicy
-                ) -> Tuple[Optional[LoweringDecision], ...]:
-    """Stage 5: decide, per work block, which backend runs it — the first
-    of the policy's candidate backends that claims the block (see
-    ``backends.select_lowering``).  Returns one decision per plan (``None``
-    for DEL/SYNC-only blocks), aligned with ``plans``."""
+                policy: LoweringPolicy, cost_model=None,
+                amortize: int = 1) -> Tuple[Optional[LoweringDecision], ...]:
+    """Stage 5: decide, per work block, which backend runs it.
+
+    For each plan the policy's candidate backends are asked to claim the
+    block; claimants are priced via ``cost_model.dispatch_price`` over
+    their dispatch counts and the cheapest wins (preference order breaking
+    ties) — see ``backends.select_lowering``.  ``amortize`` > 1 re-lowers
+    for a fused loop body, where launch overhead amortizes over the unroll.
+    Returns one decision per plan (``None`` for DEL/SYNC-only blocks),
+    aligned with ``plans``."""
     return tuple(
         select_lowering([tape[i] for i in p.op_indices], p,
-                        policy.backends, policy.ctx)
+                        policy.backends, policy.ctx, cost_model,
+                        amortize=amortize)
         if p.has_work else None
         for p in plans)
 
@@ -155,7 +185,8 @@ class Scheduler:
             t0 = time.perf_counter()
             with trace.span("stage.lower", cached=decisions is not None):
                 if decisions is None:
-                    decisions = lower_plans(tape, plans, lowering)
+                    decisions = lower_plans(tape, plans, lowering,
+                                            make_cost_model(cost_model))
                 plans = [replace(p, lowering=d) if d is not None else p
                          for p, d in zip(plans, decisions)]
             stats["t_lower_s"] = time.perf_counter() - t0
@@ -163,3 +194,38 @@ class Scheduler:
             self.cache.put(key, (blocks, decisions))
         return Schedule(tape=list(tape), blocks=plans, result=result,
                         stats=stats, key=key)
+
+    def plan_loop(self, schedule: Schedule, *, key: Tuple, io: Tuple,
+                  mapping: Tuple, cost_model: str = "bohrium",
+                  lowering: Optional[LoweringPolicy] = None,
+                  unroll: int = 1) -> LoopPlan:
+        """Plan the steady-state loop body for a recurring tape
+        (DESIGN.md §16).
+
+        ``schedule`` is the already-planned flush serving as the structural
+        template, ``key`` its merge-cache key, ``io`` its tape-level
+        ``cache.tape_io`` and ``mapping`` the ``cache.carried_state_mapping``
+        proven stable by the recurrence detector.  Work blocks are
+        *re-lowered* with the dispatch term amortized over ``unroll`` —
+        inside a fused loop launch overhead is paid once per drain, so a
+        backend that only lost on launch cost may win back the block.  The
+        product is cached beside the block plan under ``("loop",) + key``:
+        a steady-state program plans its loop exactly once."""
+        loop_key = ("loop", key, tuple(mapping), unroll)
+        entry = self.cache.get(loop_key)
+        if entry is not None:
+            return entry
+        tape = schedule.tape
+        plans: Sequence[BlockPlan] = schedule.blocks
+        if lowering is not None:
+            decisions = lower_plans(tape, plans, lowering,
+                                    make_cost_model(cost_model),
+                                    amortize=unroll)
+            plans = [replace(p, lowering=d) if d is not None else p
+                     for p, d in zip(plans, decisions)]
+        lp = LoopPlan(tape=tuple(tape), plans=tuple(plans),
+                      tape_inputs=tuple(io[0]), tape_outputs=tuple(io[1]),
+                      input_sources=tuple(mapping),
+                      key=(key, tuple(mapping), unroll))
+        self.cache.put(loop_key, lp)
+        return lp

@@ -39,7 +39,12 @@ exactly once and keeps every intermediate in registers.
   reference's.  A key word is passed as an int64 at or above 2**32 and
   not specialized, so its Triton type never depends on its value: one
   compiled kernel serves every salt, and a CUDA graph captures the salt
-  as a plain argument.
+  as a plain argument.  A fused loop body (``core/loop.py``) replays one
+  captured iteration many times, so there the key words cannot be launch
+  arguments: the kernel's *loop form* takes a ``prng.KeyTable`` in place
+  of the salts and loads each draw's two words from ``table + ctr *
+  stride`` in the kernel (``ctr`` a device counter the loop advances);
+  its threefry and bits are the same.
 * *Stores.*  Every write of an output base is stored in the kernel
   through its view's address into the base's output buffer, in the base
   dtype (a reduction's result is cast once from its accumulation dtype).
@@ -85,7 +90,8 @@ whole row, so ``vmem`` remains only for domains past 32-bit indexing.
 
 Beside the kernel sits its plain version (:func:`plain_outputs`): the same
 plan evaluated with torch ops on whole ``(R_pad, C)`` tensors, its writes
-applied in program order to the same output buffers.  The wrapper
+applied in program order to the same output buffers, its draws keyed by
+salts or, in the loop form, by the same key table.  The wrapper
 (:class:`FusedBlockKernel`) takes it only for tensors on the CPU; on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -625,12 +631,13 @@ def output_buffers(plan: _Plan, store: Dict[int, torch.Tensor],
 
 
 def plain_outputs(plan: _Plan, store: Dict[int, torch.Tensor], seed: int,
-                  salts: Sequence[int], outs: Sequence[torch.Tensor],
-                  device) -> None:
+                  salts, outs: Sequence[torch.Tensor], device) -> None:
     """The kernel's work with torch ops: every node on whole ``(R_pad, C)``
     tensors (``random`` through :func:`prng.uniform_at` at each element's
-    flat index), then each output base's stores applied in program order
-    to its buffer in ``outs`` (from :func:`output_buffers`)."""
+    flat index, or, when ``salts`` is a ``prng.KeyTable``, through
+    :func:`prng.uniform_bits` under the key words the table holds at its
+    counter), then each output base's stores applied in program order to
+    its buffer in ``outs`` (from :func:`output_buffers`)."""
     R, C, N, R_pad = plan.R, plan.C, plan.N, plan.R_pad
     overwritten = {u for u, b in zip(plan.outputs, outs) if store.get(u) is b}
     loaded = []
@@ -678,8 +685,12 @@ def plain_outputs(plan: _Plan, store: Dict[int, torch.Tensor], seed: int,
         elif oc == "gather":
             val = take(args[0], torch.broadcast_to(args[1], (R_pad, C)), 0)
         elif oc == "random":
-            val = prng.uniform_at(seed, salts[node.rand_pos], flat_idx,
-                                  node.out_dtype)
+            if isinstance(salts, prng.KeyTable):
+                val = prng.uniform_bits(*salts.words(node.rand_pos),
+                                        flat_idx, node.out_dtype)
+            else:
+                val = prng.uniform_at(seed, salts[node.rand_pos], flat_idx,
+                                      node.out_dtype)
         elif pow2 is not None and pow2[1] == _wide(pow2[1]):
             k2, cd = pow2
             val = mod_pow2(args[0].to(torch_dtype(cd)), k2)
@@ -1025,8 +1036,8 @@ def key_args(seed: int, salts: Sequence[int], n: int) -> List[int]:
     return out
 
 
-def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
-                                       List[Tuple]]:
+def triton_source(plan: _Plan, keyed: bool = False
+                  ) -> Tuple[str, List[float], List[int], List[Tuple]]:
     """The generated module: ``(source, float constants, int constants,
     combines)`` with one ``(kernel name, node, store number, W, WB,
     accumulation dtype)`` entry per cross-program reduction.  Everything structural (shapes,
@@ -1036,7 +1047,10 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
     only in where their windows sit (a decode step's KV-cache write) share
     one compiled kernel.  Parameters: the operand pointers, one pointer
     per store, the reductions' partials, two key words per draw, then the
-    constant tables."""
+    constant tables.  ``keyed`` gives the loop form: in place of the key
+    words, a pointer to the block's first draw in a key table's row, the
+    row stride (``uint32`` words) and a pointer to the iteration counter
+    (``prng.KeyTable``); a block without draws has one form."""
     R, C, N, TR, BC, G = plan.R, plan.C, plan.N, plan.TR, plan.BC, plan.G
     src = _Source()
     params: List[str] = []
@@ -1080,10 +1094,17 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
                if node.red_kind in ("full", "row") and k in by_node]
     params += [f"P{k}" for k in partial]
     keys = []
-    for j in range(len(plan.rand_shapes)):
-        keys += [f"K{j}a", f"K{j}b"]
-        src.pre += [f"k{j}a = (K{j}a & 0xFFFFFFFF).to(tl.uint32)",
-                    f"k{j}b = (K{j}b & 0xFFFFFFFF).to(tl.uint32)"]
+    if keyed and plan.rand_shapes:
+        keys = ["KT", "KS", "CTR"]
+        src.pre.append("kt = KT + tl.load(CTR).to(tl.int64) * KS")
+        for j in range(len(plan.rand_shapes)):
+            src.pre += [f"k{j}a = tl.load(kt + {2 * j})",
+                        f"k{j}b = tl.load(kt + {2 * j + 1})"]
+    else:
+        for j in range(len(plan.rand_shapes)):
+            keys += [f"K{j}a", f"K{j}b"]
+            src.pre += [f"k{j}a = (K{j}a & 0xFFFFFFFF).to(tl.uint32)",
+                        f"k{j}b = (K{j}b & 0xFFFFFFFF).to(tl.uint32)"]
     if keys:
         src.loop.append("ctr = (rows * C + cols).to(tl.uint32)")
     params += keys
@@ -1205,9 +1226,10 @@ def triton_source(plan: _Plan) -> Tuple[str, List[float], List[int],
         *("    " + line for line in src.loop),
         *src.post,
     ]
-    # key words are not specialized (on ==1 or divisibility by 16): one
-    # compiled kernel serves every salt
-    jit = (f"@triton.jit(do_not_specialize={keys!r})" if keys
+    # key words (or the key table's stride) are not specialized (on ==1 or
+    # divisibility by 16): one compiled kernel serves every salt
+    nospec = ["KS"] if "KS" in keys else keys
+    jit = (f"@triton.jit(do_not_specialize={nospec!r})" if keys
            else "@triton.jit")
     lines = [
         "import triton",
@@ -1262,16 +1284,20 @@ class FusedBlockKernel:
     reuse=frozenset()) -> output_bufs`` with the ``make_block_fn`` calling
     convention.  ``reuse`` holds the input positions whose buffers the call
     may overwrite (the executor's grant); by default it overwrites none.
+    ``salts`` may be a ``prng.KeyTable`` (a fused loop body): the call then
+    runs the kernel's loop form, which reads its key words on the device.
 
     Input buffers on the CPU take the plain version; buffers on a CUDA
-    device launch the generated kernel (built at first launch) or raise.
+    device launch the generated kernel (each form built at its first
+    launch) or raise.
     """
 
     def __init__(self, plan: _Plan, seed: int, device: torch.device):
         self.plan = plan
         self.seed = seed
         self.device = torch.device(device)
-        self._gen = None            # (module, consts, combines) once built
+        #: keyed (loop form) -> (module, consts, combines) once built
+        self._gen: Dict[bool, Tuple] = {}
 
     def _device_of(self, bufs) -> torch.device:
         devs = {b.device for b in bufs}
@@ -1319,14 +1345,15 @@ class FusedBlockKernel:
         outs)``: ``run()`` launches the kernel and its combine passes
         (nothing else) and fills ``outs``."""
         p = self.plan
-        if self._gen is None:
-            source, kf, ki, combines = triton_source(p)
+        keyed = isinstance(salts, prng.KeyTable) and bool(p.rand_shapes)
+        if keyed not in self._gen:
+            source, kf, ki, combines = triton_source(p, keyed)
             consts = (torch.tensor(kf or [0.0], dtype=torch.float64,
                                    device=device),
                       torch.tensor(ki or [0], dtype=torch.int64,
                                    device=device))
-            self._gen = (_load_module(source), consts, combines)
-        mod, consts, combines = self._gen
+            self._gen[keyed] = (_load_module(source), consts, combines)
+        mod, consts, combines = self._gen[keyed]
         args = [store[o.base_uid].contiguous()[o.view.offset:]
                 for o in p.operands if o.source == "buffer"]
         outs = output_buffers(p, store, reuse, device)
@@ -1334,7 +1361,13 @@ class FusedBlockKernel:
         partials = [torch.empty(p.G * W, dtype=torch_dtype(adt),
                                 device=device)
                     for _, _, _, W, _, adt in combines]
-        keys = key_args(self.seed, salts, len(p.rand_shapes))
+        if keyed:
+            keys = [salts.table.view(-1)[2 * salts.off:], salts.stride,
+                    salts.ctr]
+        elif isinstance(salts, prng.KeyTable):
+            keys = []
+        else:
+            keys = key_args(self.seed, salts, len(p.rand_shapes))
         passes = [(getattr(mod, cname), (-(-W // WB),), (part, ptrs[n]))
                   for (cname, _, n, W, WB, _), part in zip(combines, partials)]
 

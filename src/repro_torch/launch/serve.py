@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config
+from ..core.cuda_graph import capture
 from ..core.device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import (init_params, serve_decode, serve_prefill,
@@ -61,31 +62,12 @@ def _leaves(tree):
         yield tree
 
 
-def _capture(device: torch.device, warm_up, body):
-    """Run ``warm_up()`` once on a side stream (it builds and loads what
-    ``body`` launches; its result is dropped), then capture ``body()`` into
-    a ``torch.cuda.CUDAGraph``, whose memory comes from the graph's own
-    pool.  Returns ``(graph, what body returned)``: static buffers that
-    every replay overwrites.  Anything in ``body`` that the card cannot
-    capture (a host read of a device value) raises here."""
-    stream = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        warm_up()
-    stream.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = body()
-    return graph, out
-
-
 class _GraphStep:
     """What :class:`PrefillStep` and :class:`DecodeStep` share: with
     ``graph`` (the default on a CUDA device) a step is captured once per
     input shape into a ``torch.cuda.CUDAGraph`` over a static token buffer
-    (:func:`_capture`: one eager warm-up on a side stream, then the
-    capture), and every call copies its tokens into the buffer and
+    (``core.cuda_graph.capture``: one eager warm-up on a side stream,
+    then the capture), and every call copies its tokens into the buffer and
     replays; without ``graph`` (the CPU, or a caller that asks) a step runs
     eagerly.  ``graph=True`` off a CUDA device raises.  A capture that
     fails raises: there is no eager fallback.  ``captures`` counts captures
@@ -106,13 +88,13 @@ class _GraphStep:
     def _replay(self, key, token, make, load=None):
         """Replay the graph of ``key``, capturing it at its first call:
         ``make(static token)`` returns ``(warm_up, body, state)`` for
-        :func:`_capture` and the static buffers ``load(state)`` refills
+        ``capture`` and the static buffers ``load(state)`` refills
         before each replay.  Returns ``(state, what body returned)``."""
         entry = self._static.get(key)
         if entry is None:
             s_tok = token.clone()
             warm_up, body, state = make(s_tok)
-            graph, out = _capture(self.device, warm_up, body)
+            graph, out = capture(self.device, warm_up, body)
             self.captures += 1
             entry = self._static[key] = (graph, s_tok, state, out)
         graph, s_tok, state, out = entry

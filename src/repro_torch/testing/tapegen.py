@@ -1,24 +1,360 @@
-"""Seeded LM-shaped lazy programs and their differential check — the port of
-``LMProgram`` and ``check_lm`` from ``repro/testing/tapegen.py``.
+"""Seeded random lazy-program generators and differential fuzzer — the port
+of ``repro/testing/tapegen.py``.
 
-:class:`LMProgram` draws the same shapes and the same numpy leaves as the
-reference for the same seed (``random.Random(seed ^ 0x1A57F00D)`` for the
-shapes, ``np.random.default_rng(seed)`` for the leaves), and records the
-same op sequence against ``repro_torch.core.lazy``.  So one seed is one
-program in both packages, and the port's tests compare the two.
+A :class:`TapeProgram` is a deterministic function of its seed: it draws
+the identical ``random.Random(seed)`` action sequence as the reference's,
+so one seed records the same tape structure in both packages (elementwise
+chains, reductions, strided and partial views, RMW partial writes,
+broadcasts, transposes, matmuls, DELs, quantized ``random`` draws and
+gathers).  Replaying one program under different runtime configurations
+is a *differential test*: every configuration must produce
+bitwise-identical results.  In ``exact=True`` mode the programs stay
+closed over low-granularity dyadic float64 data, so elementwise ops and
+reductions are exact and the answer does not depend on partition,
+tiling or summation order.  The reference's placement annotations
+(``sharded=True``) need the mesh, which is not ported yet (ROADMAP A10b).
 
-:func:`check_lm` runs a program under the ``lm`` stack and under the torch
-floor and compares them.  The rest of the reference's tapegen (the
-``TapeProgram`` grammar and its graph/exec/loop/serve/dist checks) is
-still to be ported (ROADMAP A3).
+:class:`IterativeProgram` replays one seeded step recipe with a flush per
+step — the shape cross-flush loop fusion (``core/loop.py``) defers and
+drains — and :class:`LMProgram` draws the same shapes and numpy leaves as
+the reference's LM-shaped programs.
+
+Checks (each returns normally or raises ``AssertionError``):
+
+* ``check_graph`` — staged base-indexed ``build_graph`` produces identical
+  E_d/E_f to the O(V²) ``build_graph_reference`` oracle;
+* ``check_exec``  — fused greedy torch and triton runs are bitwise
+  identical to the unfused singleton torch floor;
+* ``check_loop``  — loop-fused runs of an :class:`IterativeProgram` are
+  bitwise identical to per-flush runs, on both stacks;
+* ``check_lm``    — the ``lm`` stack against the torch floor under the
+  same partition (below).
+
+The cross-package check (``xref``: the same seed through the JAX package
+and through the port, bitwise) imports the JAX package, so it lives in the
+port's tests, not here.
+
+CLI sweep (on the CUDA card unless ``--device`` names another)::
+
+    PYTHONPATH=src python -m repro_torch.testing.tapegen --n 200
+    PYTHONPATH=src python -m repro_torch.testing.tapegen --n 40 --device cpu
+    PYTHONPATH=src python -m repro_torch.testing.tapegen --only 1337   # repro
 """
 
 from __future__ import annotations
 
 import random
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+# value bound for products: keeps every intermediate integer exactly
+# representable in float64 (see module docstring)
+_MOD = 1021.0
+
+
+class TapeProgram:
+    """One seeded random lazy program.
+
+    Parameters
+    ----------
+    seed      : the program identity; everything derives from it.
+    n_actions : number of generator actions (tape length scales with it).
+    size      : elements in the 1-D working shape (2-D uses ``(8, size//8)``;
+                sizes below 64 are rounded up so both shapes exist).
+    exact     : restrict to the dyadic/integer-valued opcode pool whose
+                results are bitwise partition-invariant (see module doc).
+    sharded   : the reference's placement annotations; the mesh is not
+                ported yet (ROADMAP A10b), so ``True`` raises
+                ``NotImplementedError``.
+    n_shards  : logical shard count (kept for the reference's signature).
+    """
+
+    def __init__(self, seed: int, *, n_actions: int = 20, size: int = 64,
+                 exact: bool = True, sharded: bool = False,
+                 n_shards: int = 4):
+        if sharded:
+            raise NotImplementedError(
+                "sharded programs need the mesh, which is not ported yet "
+                "(ROADMAP A10b)")
+        self.seed = int(seed)
+        self.n_actions = int(n_actions)
+        self.size = max(64, int(size) - int(size) % 8)
+        self.exact = bool(exact)
+        self.sharded = False
+        self.n_shards = int(n_shards)
+
+    # -- the generator --------------------------------------------------
+    def _build(self, rt, materialize: bool) -> List[np.ndarray]:
+        """Run the action sequence against runtime ``rt`` (already the
+        active runtime).  With ``materialize`` the live arrays are read
+        back (flushing the tape); without, the recorded tape is left in
+        place for graph-level checks."""
+        from ..core import lazy as bh
+        rnd = random.Random(self.seed)
+        n = self.size
+        shapes = {"1d": (n,), "2d": (8, n // 8)}
+        pool: List[Tuple[object, str, bool]] = []   # (arr, kind, whole_base)
+
+        def quantize(a):
+            # integer-valued in [0, 16): exact under float64 arithmetic
+            return bh.floor(a * 16.0)
+
+        def fresh(kind: str):
+            shape = shapes[kind]
+            w = rnd.randrange(3)
+            if w == 0:
+                a = bh.full(shape, float(rnd.randrange(-8, 9)))
+            elif w == 1 and kind == "1d":
+                a = bh.arange(n) * (0.5 if rnd.random() < 0.3 else 1.0)
+            else:
+                a = quantize(bh.random(shape))
+            pool.append((a, kind, True))
+            return a
+
+        for kind in ("1d", "2d"):
+            fresh(kind)
+        def pick(kind: Optional[str] = None):
+            cands = [e for e in pool if kind is None or e[1] == kind]
+            return cands[rnd.randrange(len(cands))] if cands else None
+
+        def clamp(a):
+            # After an array-array product, both bound the magnitude AND
+            # reset the dyadic granularity to whole integers: reductions
+            # over the result are then exactly associative no matter how
+            # deep the producing chains were (see module docstring).
+            return bh.floor(a % _MOD) if self.exact \
+                else bh.tanh(a * 0.125) * 8.0
+
+        for _ in range(self.n_actions):
+            act = rnd.randrange(15)
+            ent = pick()
+            if ent is None:
+                fresh("1d")
+                continue
+            a, kind, _whole = ent
+            if kind not in shapes and act not in (0, 2, 3, 11):
+                continue    # odd-shaped leftovers only do shape-free actions
+            shape = shapes.get(kind)
+            if act == 0:                       # new leaf
+                fresh(rnd.choice(("1d", "2d")))
+            elif act == 1:                     # elementwise binop, same shape
+                other = pick(kind)
+                oc = rnd.choice(("add", "sub", "mul", "maximum", "minimum"))
+                b = other[0]
+                r = {"add": lambda: a + b, "sub": lambda: a - b,
+                     "mul": lambda: clamp(a * b),
+                     "maximum": lambda: bh.maximum(a, b),
+                     "minimum": lambda: bh.minimum(a, b)}[oc]()
+                pool.append((r, kind, True))
+            elif act == 2:                     # scalar chain (dyadic consts)
+                c = rnd.choice((0.5, 0.25, 2.0, 3.0, -1.5))
+                r = a * c
+                if self.exact and abs(c) >= 1.5:
+                    r = r % _MOD               # upscaling: re-bound magnitude
+                r = r + float(rnd.randrange(-4, 5))
+                pool.append((r, kind, True))
+            elif act == 3:                     # unary
+                fns = [bh.absolute, bh.floor, bh.sign,
+                       lambda x: -x, lambda x: x.copy()]
+                if not self.exact:
+                    fns += [lambda x: bh.sqrt(bh.absolute(x)), bh.sin,
+                            bh.cos, bh.tanh,
+                            lambda x: bh.log(bh.absolute(x) + 1.0),
+                            lambda x: 1.0 / (bh.absolute(x) + 1.0)]
+                pool.append((fns[rnd.randrange(len(fns))](a), kind, True))
+            elif act == 4:                     # in-place update (same base)
+                other = pick(kind)
+                a += other[0] * rnd.choice((0.5, 1.0, 2.0))
+            elif act == 5:                     # where on a comparison
+                other = pick(kind)
+                pool.append((bh.where(a > other[0], a, other[0]), kind, True))
+            elif act == 6:                     # reduction
+                oc = rnd.choice(("sum", "max", "min"))
+                axis = rnd.choice((None, 0, 1)) if kind == "2d" \
+                    else rnd.choice((None, 0))
+                r = getattr(a, oc)(axis)
+                if axis is None:               # scalar: broadcast back in
+                    r = bh.zeros(shapes["1d"]) + r.broadcast_to(shapes["1d"])
+                    pool.append((r, "1d", True))
+                elif kind == "2d":
+                    # feed the genuine row/col vector forward as a stride-0
+                    # broadcast operand — vector-shaped reduction outputs
+                    # are exactly where tiling bugs would hide
+                    if axis == 0:              # row vector (n//8,)
+                        r2 = r.broadcast_to(shapes["2d"])
+                    else:                      # col vector (8,) -> column
+                        r2 = r.broadcast_to((shapes["2d"][1], 8)).T
+                    two = pick("2d")
+                    if two is not None:
+                        pool.append((two[0] + r2, "2d", True))
+                else:
+                    r = bh.zeros(shapes["1d"]) + r.broadcast_to(shapes["1d"])
+                    pool.append((r, "1d", True))
+            elif act == 7:                     # strided/partial view read
+                if kind == "1d":
+                    sl = rnd.choice((slice(0, None, 2), slice(1, None, 2),
+                                     slice(1, -1), slice(None, n // 2)))
+                    v = a[sl]
+                    c = bh.zeros(shape)
+                    c[0:v.shape[0]] = v        # partial write of the window
+                else:
+                    v = a[1:-1, :]
+                    c = bh.zeros(shape)
+                    c[1:-1, :] = v
+                pool.append((c, kind, True))
+            elif act == 8:                     # RMW partial write
+                other = pick(kind)
+                if kind == "1d":
+                    a[n // 4: 3 * n // 4] = other[0][n // 4: 3 * n // 4] + 1.0
+                else:
+                    a[2:6, :] = other[0][2:6, :] * 0.5
+            elif act == 9:                     # broadcast 1d row into 2d
+                row = pick("1d")
+                if row is not None:
+                    r2 = row[0][0: n // 8].broadcast_to(shapes["2d"])
+                    two = pick("2d")
+                    if two is not None:
+                        pool.append((two[0] + r2, "2d", True))
+            elif act == 10 and kind == "2d":   # transpose read (gather path)
+                sq = a[:, 0:8]
+                pool.append((sq.T.copy().reshape(64), "none", True))
+            elif act == 11:                    # explicit DEL
+                if len(pool) > 2:
+                    i = pool.index(ent)
+                    pool.pop(i)
+                    a.delete()
+            elif act == 12 and kind == "2d" and rnd.random() < 0.5:
+                m = a[:, 0:8]                  # opaque op: small matmul
+                r = bh.matmul(m.T.copy(), m.copy())
+                pool.append((r.reshape(64) % _MOD, "none", True))
+            elif act == 14:                    # gather / take (indexed read)
+                # table = a 1-D program array; indices = another program
+                # array floored into [0, n) — selecting integer-valued
+                # dyadics is exact, so gathers stay bitwise
+                # partition-invariant like every other action
+                tbl = pick("1d")
+                if tbl is not None:
+                    idx = bh.floor(bh.absolute(a) % float(n))
+                    pool.append((bh.take(tbl[0], idx), kind, True))
+            # other act values on mismatched kinds: no-op (keeps the action
+            # stream aligned across replays regardless of branch outcomes)
+
+        outs: List[np.ndarray] = []
+        if materialize:
+            for a, _, _ in pool:
+                outs.append(a.numpy())
+        for a, _, _ in pool:
+            a._alive = False                   # no DELs after harvest
+        return outs
+
+    # -- public entry points --------------------------------------------
+    def run(self, **runtime_kw) -> List[np.ndarray]:
+        """Execute under a fresh runtime built from ``runtime_kw`` (on the
+        CUDA card unless it names a ``device``) and return every live
+        array materialized, in creation order."""
+        from ..core.lazy import fresh_runtime
+        with fresh_runtime(**runtime_kw) as rt:
+            return self._build(rt, materialize=True)
+
+    def run_current(self) -> List[np.ndarray]:
+        """Execute against the *currently active* runtime (callers own the
+        ``fresh_runtime`` context).  Repeated calls in one runtime replay a
+        structurally-identical tape — merge-cache and executable-cache hits
+        — which is how the calibration loop gets warm, timeable dispatches."""
+        from ..core.lazy import get_runtime
+        return self._build(get_runtime(), materialize=True)
+
+    def record(self) -> List:
+        """Record the program without executing; returns the tape.  Nothing
+        runs, so the recording runtime sits on the CPU."""
+        from ..core.lazy import fresh_runtime
+        with fresh_runtime(device="cpu") as rt:
+            self._build(rt, materialize=False)
+            tape = list(rt.tape)
+            rt.tape.clear()
+        return tape
+
+
+class IterativeProgram:
+    """A seeded *iterative* lazy program: one randomly-drawn step body
+    replayed ``steps`` times with carried state and a flush per step — the
+    workload shape cross-flush loop fusion (DESIGN.md §16) detects and
+    defers.
+
+    The step recipe is drawn ONCE from the seed and replayed verbatim, so
+    every step traces a structurally identical tape.  The recipe mixes the
+    carry shapes the recurrence detector must prove safe: in-place partial
+    writes (same base every step), fresh-chain carries (new base each step,
+    old base deleted), loop-invariant reads, contracted temporaries,
+    reductions fed back through RMW partial writes, and per-step quantized
+    ``random`` draws (fresh trace-time salts each step — the loop path must
+    reproduce them bit for bit from its stacked salt matrix).  Only the
+    final state materializes; intermediate steps must never be observable.
+    """
+
+    def __init__(self, seed: int, *, steps: int = 9, n_ops: int = 6,
+                 size: int = 64):
+        self.seed = int(seed)
+        self.steps = int(steps)
+        self.n_ops = int(n_ops)
+        self.size = max(64, int(size) - int(size) % 8)
+
+    def run(self, **runtime_kw) -> List[np.ndarray]:
+        """Run the program under a fresh runtime built from ``runtime_kw``
+        (on the CUDA card unless it names a ``device``); returns the final
+        ``g``, ``a`` and ``k``."""
+        from ..core.lazy import fresh_runtime
+        with fresh_runtime(**runtime_kw):
+            return self.run_current()
+
+    def run_current(self) -> List[np.ndarray]:
+        """:meth:`run` against the *currently active* runtime (callers own
+        the ``fresh_runtime`` context and can read its stats after)."""
+        from ..core import lazy as bh
+        rnd = random.Random(self.seed ^ 0x17E5A71)
+        n = self.size
+        shapes = {"1d": (n,), "2d": (8, n // 8)}
+        # the step recipe: drawn once, replayed identically every step
+        recipe = [(rnd.randrange(6), rnd.choice((0.5, 0.25, 2.0, 3.0, -1.5)))
+                  for _ in range(self.n_ops)]
+        g = bh.floor(bh.random(shapes["2d"]) * 16.0)
+        a = bh.floor(bh.random(shapes["1d"]) * 16.0)
+        k = bh.full(shapes["1d"], float(rnd.randrange(1, 7)))  # invariant
+        bh.flush()
+        for _step in range(self.steps):
+            for act, c in recipe:
+                if act == 0:           # in-place stencil update (RMW)
+                    inner = (g[1:-1, :] + g[:-2, :] + g[2:, :]) * 0.25
+                    g[1:-1, :] = bh.floor(inner)
+                    inner.delete()
+                elif act == 1:         # fresh-chain carry on `a`
+                    b = bh.floor((a * c) % _MOD) + k
+                    a.delete()
+                    a = b
+                elif act == 2:         # per-step RNG draw
+                    r = bh.floor(bh.random(shapes["1d"]) * 16.0)
+                    b = a + r
+                    a.delete()
+                    r.delete()
+                    a = b
+                elif act == 3:         # reduction fed back through RMW
+                    s = g.sum(0)
+                    a[0: n // 8] = bh.floor((s + a[0: n // 8]) % _MOD)
+                    s.delete()
+                elif act == 4:         # in-place whole-array update
+                    a += k * c
+                elif act == 5:         # where-mix into `g`, full write
+                    m = a[0: n // 8].broadcast_to(shapes["2d"])
+                    t = bh.where(g > m, g, m)
+                    g[:, :] = t
+                    t.delete()
+            bh.flush()
+        outs = [g.numpy(), a.numpy(), k.numpy()]
+        for arr in (g, a, k):
+            arr._alive = False         # no DELs after harvest
+        return outs
+
 
 #: grammar -> the hand-written kernel claimant that must claim >= 1 block
 #: (moe is gather-dominated: no claimant, the comparison is the point)
@@ -144,6 +480,49 @@ def _assert_bitwise(ref: Sequence[np.ndarray], got: Sequence[np.ndarray],
                 f"{r.reshape(-1)[bad]!r} vs {g.reshape(-1)[bad]!r}")
 
 
+def check_graph(seed: int, *, n_actions: int = 20, size: int = 64) -> None:
+    """Staged graph builder == O(V²) reference oracle, edge for edge."""
+    from ..core import build_graph, build_graph_reference
+    tape = TapeProgram(seed, n_actions=n_actions, size=size).record()
+    a = build_graph(list(tape))
+    b = build_graph_reference(list(tape))
+    assert a.dep_out == b.dep_out, f"seed {seed}: E_d (out) differs"
+    assert a.dep_in == b.dep_in, f"seed {seed}: E_d (in) differs"
+    assert a.fuse_forbidden == b.fuse_forbidden, f"seed {seed}: E_f differs"
+
+
+def check_exec(seed: int, *, n_actions: int = 20, size: int = 64,
+               device=None) -> None:
+    """Fused (greedy; torch and triton backend stacks) == unfused singleton
+    torch floor, bitwise, on ``device`` (the CUDA card unless given; on the
+    CPU the triton stack runs its kernels' plain versions)."""
+    prog = TapeProgram(seed, n_actions=n_actions, size=size, exact=True)
+    ref = prog.run(algorithm="singleton", backend="torch", device=device)
+    for algorithm, backend in (("greedy", "torch"), ("greedy", "triton")):
+        got = prog.run(algorithm=algorithm, backend=backend, device=device)
+        _assert_bitwise(ref, got,
+                        f"seed {seed} [{algorithm}/{backend} vs singleton]")
+
+
+def check_loop(seed: int, *, n_actions: int = 6, size: int = 64,
+               steps: int = 9, device=None) -> None:
+    """Loop-fused steady-state execution == per-flush execution, bitwise.
+
+    A small threshold/unroll (2/4) forces the interesting transitions in
+    one program: per-flush warmup, deferral, a capacity drain mid-run AND a
+    tail drain at the final materialization.  Checked on both the torch
+    and the triton backend stacks (the loop body composes whatever
+    per-block backends the lower stage picked), on ``device`` (the CUDA
+    card unless given, where a drain replays a CUDA graph)."""
+    prog = IterativeProgram(seed, steps=steps, n_ops=n_actions, size=size)
+    for backend in ("torch", "triton"):
+        ref = prog.run(loop_fusion=False, backend=backend, device=device)
+        got = prog.run(loop_fusion=True, loop_threshold=2, loop_unroll=4,
+                       backend=backend, device=device)
+        _assert_bitwise(ref, got,
+                        f"seed {seed} [{backend} loop-fused vs per-flush]")
+
+
 def check_lm(seed: int, *, size: int = 64, device="cpu") -> None:
     """The ``lm`` stack against the torch floor, under the SAME partition.
 
@@ -159,7 +538,8 @@ def check_lm(seed: int, *, size: int = 64, device="cpu") -> None:
     declining matcher would otherwise turn this into floor vs floor."""
     from ..core.lazy import fresh_runtime
     prog = LMProgram(seed, size=size)
-    kw = dict(algorithm="greedy", cost_model="bohrium", device=device)
+    kw = dict(algorithm="greedy", cost_model="bohrium", device=device,
+              loop_fusion=False)
     ref = prog.run(backend="torch", **kw)
     with fresh_runtime(backend="lm", **kw) as rt:
         got = prog._trace(rt)
@@ -177,3 +557,75 @@ def check_lm(seed: int, *, size: int = 64, device="cpu") -> None:
         assert blocks.get(claimant, 0) >= 1, (
             f"seed {seed}: grammar {prog.grammar!r} never exercised the "
             f"{claimant!r} claimant (backend_blocks={blocks})")
+
+
+CHECKS = {"graph": check_graph, "exec": check_exec, "loop": check_loop,
+          "lm": check_lm}
+
+
+def check_seed(seed: int, checks: Sequence[str] = ("graph", "exec"),
+               device=None, **kw) -> None:
+    """Run the named differential checks for one seed (raises on failure);
+    the ones that execute run on ``device`` (the CUDA card unless given)."""
+    for name in checks:
+        if name == "graph":
+            check_graph(seed, n_actions=kw.get("n_actions", 20),
+                        size=kw.get("size", 64))
+        elif name == "exec":
+            check_exec(seed, n_actions=kw.get("n_actions", 20),
+                       size=kw.get("size", 64), device=device)
+        elif name == "loop":
+            check_loop(seed, n_actions=max(3, kw.get("n_actions", 20) // 3),
+                       size=kw.get("size", 64), device=device)
+        elif name == "lm":
+            check_lm(seed, size=kw.get("size", 64),
+                     device="cuda" if device is None else device)
+        else:
+            raise ValueError(f"unknown check {name!r}; have {sorted(CHECKS)}")
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    import argparse
+    import sys
+    import time
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--n", type=int, default=200,
+                    help="number of consecutive seeds to sweep")
+    ap.add_argument("--start", type=int, default=0, help="first seed")
+    ap.add_argument("--only", type=int, default=None,
+                    help="run a single seed (failure repro)")
+    ap.add_argument("--actions", type=int, default=20,
+                    help="generator actions per program")
+    ap.add_argument("--size", type=int, default=64,
+                    help="1-D working-shape elements")
+    ap.add_argument("--checks", default="graph,exec,loop",
+                    help=f"comma list from {sorted(CHECKS)}")
+    ap.add_argument("--device", default=None,
+                    help="where the checks run (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    checks = [c for c in args.checks.split(",") if c]
+    seeds = ([args.only] if args.only is not None
+             else list(range(args.start, args.start + args.n)))
+    dev = f" --device {args.device}" if args.device else ""
+    t0 = time.time()
+    for i, seed in enumerate(seeds):
+        try:
+            check_seed(seed, checks, device=args.device,
+                       n_actions=args.actions, size=args.size)
+        except Exception:
+            print(f"\nFAIL seed={seed}  (checks: {','.join(checks)})",
+                  file=sys.stderr)
+            print("repro: PYTHONPATH=src python -m repro_torch.testing.tapegen "
+                  f"--only {seed} --actions {args.actions} "
+                  f"--size {args.size} --checks {','.join(checks)}{dev}",
+                  file=sys.stderr, flush=True)
+            raise
+        if (i + 1) % 25 == 0:
+            print(f"  …{i + 1}/{len(seeds)} seeds ok "
+                  f"({time.time() - t0:.0f}s)", flush=True)
+    print(f"tapegen: {len(seeds)} seeds x [{','.join(checks)}] "
+          f"differential-identical ({time.time() - t0:.0f}s)", flush=True)
+
+
+if __name__ == "__main__":
+    main()

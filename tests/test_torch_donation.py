@@ -166,7 +166,8 @@ def test_stencil_reading_shifted_views_takes_the_copy():
 
 
 def test_runtime_writes_in_place_but_never_into_a_sync_snapshot():
-    with fresh_runtime(backend="triton", device="cpu") as rt:
+    with fresh_runtime(backend="triton", device="cpu",
+                       loop_fusion=False) as rt:
         g = bh.zeros((8, 8))
         g[0:1, :] = 100.0
         seen = g.numpy()                        # SYNC: snapshot of g's buffer
@@ -195,7 +196,8 @@ PROGRAMS = dict(BENCHMARKS, quickstart=quickstart)
 def test_program_on_triton_equals_the_floor(name, args):
     out = {}
     for backend in ("torch", "triton"):
-        with fresh_runtime(backend=backend, device="cpu") as rt:
+        with fresh_runtime(backend=backend, device="cpu",
+                           loop_fusion=False) as rt:
             out[backend] = np.asarray(PROGRAMS[name](*args))
             donated = rt.executor.stats["donated_buffers"]
     if name in EXACT:

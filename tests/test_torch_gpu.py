@@ -5,6 +5,9 @@ scan and B7 chunked RWKV6 in CUDA C++, B4 add+RMSNorm in Triton) and the
 RWKV6 model path that runs B6 and B7 — skipped without a CUDA device
 (and, for the Triton kernels, Triton).
 
+Also cross-flush loop fusion on the card: a drain replays one captured
+CUDA graph of an iteration, bitwise the per-flush run.
+
 Run on a GPU with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Each case builds one block in the port's IR,
 runs the generated kernel on CUDA tensors, and holds it against the torch
@@ -200,7 +203,7 @@ def test_program_end_to_end_matches_floor(cuda):
     from repro_torch.testing.programs import BENCHMARKS
     out = {}
     for backend in ("torch", "triton"):
-        with fresh_runtime(backend=backend) as rt:
+        with fresh_runtime(backend=backend, loop_fusion=False) as rt:
             out[backend] = np.asarray(BENCHMARKS["heat_equation"](3, 200))
             if backend == "triton":
                 assert rt.executor.stats["triton_blocks"] > 0
@@ -280,7 +283,7 @@ def test_in_kernel_random_is_uniform_at(cuda, shape, dtype):
     for salt in salts:
         got, = fn((salt,))
         _bits_equal(got, prng.uniform_at(2 ** 40 + 3, salt, idx, dtype))
-    assert _compiled_variants(fn._gen[0].block_kernel) == 1
+    assert _compiled_variants(fn._gen[False][0].block_kernel) == 1
 
 
 def _rmw_ops(m):
@@ -1154,3 +1157,112 @@ def test_rwkv6_chunked_reads_views_off_16_byte_alignment(card):
                                      return_state=True)
     _hold(got[0], po, "scan")
     _hold(got[1], ps, "scan")
+
+
+# ---------------------------------------------------------------------------
+# Cross-flush loop fusion: a drain replays one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+def _chain(iters, draw=False, **rt_kw):
+    """x <- x * 1.01 + 0.5 (+ a quantized draw) with a flush per step, on
+    the card; returns the final x and the runtime's stats."""
+    from repro_torch.core import lazy as bh
+    with bh.fresh_runtime(**rt_kw) as rt:
+        x = bh.full((64, 1000), 1.0)
+        bh.flush()
+        for _ in range(iters):
+            y = x * 1.01 + 0.5
+            if draw:
+                r = bh.floor(bh.random((64, 1000)) * 8.0)
+                z = y + r
+                r.delete()
+                y.delete()
+                y = z
+            x.delete()
+            x = y
+            bh.flush()
+        out = x.numpy()
+        st = rt.executor.stats.snapshot()
+        x._alive = False
+    return out, st, rt
+
+
+@pytest.mark.parametrize("backend", ["triton", "torch"])
+@pytest.mark.parametrize("iters", [2 + 4, 2 + 4 + 4 + 3])
+def test_loop_graph_drains_are_per_flush(cuda, backend, iters):
+    """Full drains (4 iterations) and a tail drain replay the captured
+    iteration and give the per-flush bits."""
+    ref, *_ = _chain(iters, backend=backend, loop_fusion=False)
+    got, st, _ = _chain(iters, backend=backend, loop_threshold=2,
+                        loop_unroll=4)
+    assert got.tobytes() == ref.tobytes()
+    assert st["loop_captures"] == 1
+    assert st["loop_replays"] == st["loop_iterations"] == iters - 2
+
+
+@pytest.mark.parametrize("backend", ["triton", "torch"])
+def test_loop_graph_draws_fresh_numbers_each_iteration(cuda, backend):
+    """A random-bearing body: each replay reads its iteration's key words
+    from the key table, so the iterations of one drain and of two drains
+    draw different numbers — the per-flush ones (every per-flush step
+    draws under its own salt, so a frozen key would not match)."""
+    from repro_torch.core.backends.loop_body import LoopBody
+    ref, *_ = _chain(2 + 4 + 4, draw=True, backend=backend,
+                     loop_fusion=False)
+    got, st, rt = _chain(2 + 4 + 4, draw=True, backend=backend,
+                         loop_threshold=2, loop_unroll=4)
+    assert st["loop_flushes"] == 2 and st["loop_replays"] == 8
+    assert got.tobytes() == ref.tobytes()
+    body, = [b for b in rt.executor._cache.values()
+             if isinstance(b, LoopBody)]
+    rows = body.keys.table.view(torch.int32).cpu().numpy().reshape(4, -1)
+    assert len({r.tobytes() for r in rows}) == 4
+
+
+def test_loop_capture_that_fails_raises(cuda, monkeypatch):
+    """A loop body that reads the card on the host cannot be captured: the
+    drain raises and never runs the iterations eagerly instead."""
+    from repro_torch.core.backends import loop_body
+    real = loop_body.LoopBody._step
+
+    def reads_the_host(self, slots):
+        n = real(self, slots)
+        float(slots[0].sum())                     # a host read
+        return n
+
+    monkeypatch.setattr(loop_body.LoopBody, "_step", reads_the_host)
+    with pytest.raises(RuntimeError):
+        _chain(2 + 4, backend="triton", loop_threshold=2, loop_unroll=4)
+
+
+def test_loop_sync_snapshot_is_copied_not_overwritten(cuda):
+    """A SYNC snapshot holding a state buffer (the mid-loop ``.numpy()``
+    right after a drain) keeps its values through the next drain."""
+    from repro_torch.core import lazy as bh
+    with bh.fresh_runtime(backend="triton", loop_threshold=2,
+                          loop_unroll=4) as rt:
+        x = bh.full(4096, 1.0)
+        bh.flush()
+        for i in range(12):
+            y = x * 1.01 + 0.5
+            x.delete()
+            x = y
+            bh.flush()
+            if i == 5:
+                seen = x.numpy()
+                uid = x.view.base.uid
+        x.numpy()
+        snap = rt.executor.sync_store[uid].cpu().numpy()
+        x._alive = False
+    assert snap.tobytes() == seen.tobytes()
+
+
+def test_loop_warm_up_leaves_the_state_alone(cuda):
+    """The capture's eager warm-up runs on scratch copies of the state:
+    after the first drain (warm-up, capture, replays) the state is the
+    per-flush state, not one iteration further."""
+    ref, *_ = _chain(2 + 1, backend="triton", loop_fusion=False)
+    got, st, _ = _chain(2 + 1, backend="triton", loop_threshold=2,
+                        loop_unroll=4)
+    assert (st["loop_captures"], st["loop_replays"]) == (1, 1)
+    assert got.tobytes() == ref.tobytes()

@@ -138,9 +138,10 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, name):
 
 
 def test_deferred_options_raise():
+    """The ILP partitioner is not ported yet: asking for it raises at the
+    first flush.  Loop fusion is ported (the default)."""
     from repro_torch.core import lazy
-    with pytest.raises(NotImplementedError):
-        lazy.Runtime(device="cpu", loop_fusion=True)
+    assert lazy.Runtime(device="cpu", loop_fusion=True)._loop is not None
     with lazy.fresh_runtime(device="cpu", partition_backend="ilp"):
         x = lazy.ones(8) * 2.0
         with pytest.raises(NotImplementedError):

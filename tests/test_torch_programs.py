@@ -72,7 +72,7 @@ def test_program_matches_reference(name, args):
         want = np.asarray(REF[name](*args))
     for backend in ("torch", "triton"):
         with fresh_runtime(algorithm="greedy", backend=backend,
-                           device="cpu") as rt:
+                           device="cpu", loop_fusion=False) as rt:
             blocks = _record_blocks(rt)
             got = np.asarray(PORT[name](*args))
         np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9,

@@ -44,7 +44,8 @@ def test_aliasing_copy_then_update_does_not_leak():
 
 
 def test_stats_shape_and_caches():
-    with fresh_runtime(backend="triton", device="cpu") as rt:
+    with fresh_runtime(backend="triton", device="cpu",
+                       loop_fusion=False) as rt:
         for _ in range(3):
             a = bh.random((64,))
             b = (a * 2.0 + 1.0).sum()
@@ -63,7 +64,8 @@ def test_stats_shape_and_caches():
 
 
 def test_decline_is_counted_with_its_slug_and_runs_on_the_floor():
-    with fresh_runtime(backend="triton", device="cpu") as rt:
+    with fresh_runtime(backend="triton", device="cpu",
+                       loop_fusion=False) as rt:
         a = bh.asarray(np.arange(12.0).reshape(3, 4))
         b = bh.asarray(np.arange(12.0)[::-1].reshape(4, 3))
         mm = bh.matmul(a, b)                       # opaque -> "opcode"

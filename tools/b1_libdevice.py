@@ -124,7 +124,7 @@ def reweigh(costs: dict) -> dict:
     out = {}
     for prog in ("black_scholes", "leibnitz_pi"):
         with cs.BlockRecorder(codegen.FusedBlockKernel) as rec:
-            with lazy.fresh_runtime(backend="triton"):
+            with lazy.fresh_runtime(backend="triton", loop_fusion=False):
                 np.asarray(BENCHMARKS[prog](*CHIP_SIZES[prog]))
         kernel, bufs_and_salts, _ = max(
             rec.calls.values(), key=lambda c: cs.block_size(c[0], codegen))
