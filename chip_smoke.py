@@ -133,12 +133,34 @@ loop-form B1 call of its body held bitwise against its plain key-table
 form on the recorded inputs, and the largest drawing block's loop form
 timed against the per-flush form and the plain version.
 
-It then measures the per-block launch cost the ``gpu`` cost model uses,
-prints a ``kernels`` JSON line (B1-B7), the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises (exit code
-1).  The Triton kernels are generated and compiled under ``build/`` as the
-run needs them; the CUDA kernels are compiled into ``build/cuda/`` at
-their first launch, one ``nvcc`` per source at once, then linked.
+It then measures the per-block launch cost the ``gpu`` cost model uses
+(``LAUNCH_COST``) and runs the calibration phases (``run_a7``).
+``CALIBRATE``: ``tuning.calibrate`` on the card at its default sizes (32
+KiB to 32 MiB an array), both backends, seeds 0-3, 3 flushes each, the
+profile saved to ``build/calibration_profile.json`` and installed again
+from the file, which must give the same fit; it prints the samples, the
+fitted launch price per backend in us and byte slope per backend as a
+multiple of 1/3.35e12 s/B, the residual, the ``gpu`` model's constant and
+this run's ``LAUNCH_COST``. ``CALIBRATED <program>``: every program at
+``CHIP_SIZES`` under ``cost_model="gpu"`` and ``"calibrated"`` (the fit
+installed), triton backend, loop fusion off, cold then warm in one runtime
+each: the blocks a run, how many lowering decisions of the gpu runs'
+executed blocks differ when recomputed under both models, the blocks on
+triton and on the floor, warm and cold walls, and agreement (bitwise on
+the exact programs, else ``TOL``). ``ILP <program>``: the same programs
+with ``partition_backend="ilp"`` and ``time_budget_s`` = ``ILP_BUDGET_S``
+under ``gpu``: the solver's statuses, objectives against greedy's (never
+greater), gap, nodes and wall, blocks and walls against the greedy runs,
+and agreement with them as above. ``EXPLAIN``: ``tools/explain_torch.py
+--json`` on the card, requiring a rejected merge with a priced saving, the
+flush's plan resident in the merge cache and every work block's replayed
+winner to be the backend the executor ran. B1's launches in these phases
+are counted from 0 in each and join the ``kernels`` line. Last it prints a
+``kernels`` JSON line (B1-B7), the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
+Triton kernels are generated and compiled under ``build/`` as the run
+needs them; the CUDA kernels are compiled into ``build/cuda/`` at their
+first launch, one ``nvcc`` per source at once, then linked.
 """
 
 from __future__ import annotations
@@ -242,6 +264,11 @@ LOOP_ITERS = 96
 #: carries a stencil in place and a reduction fed back; 40 steps give a
 #: full drain of 32 and a tail of 5
 LOOP_RANDOM = (0, 40, 2 ** 20)
+ROOT = Path(__file__).resolve().parent
+#: the CALIBRATE phase's profile (``build/`` is not committed)
+CALIBRATION_PROFILE = ROOT / "build" / "calibration_profile.json"
+#: the ILP phase: the solver's wall-clock cap a flush
+ILP_BUDGET_S = 1.0
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -1700,6 +1727,281 @@ def run_loop(lazy, codegen) -> dict:
     return {"launches": launches, "max_abs_err": 0.0}
 
 
+def run_calibrate(codegen, launch_s: float) -> dict:
+    """The CALIBRATE phase: ``tuning.calibrate`` on the card at its default
+    sizes (module docstring), the profile saved under ``build/`` and
+    installed again from the file in this process; ``launch_s`` is this
+    run's ``LAUNCH_COST`` reading.  Returns the installed fit and B1's
+    launches."""
+    from repro_torch.core import cost, tuning
+    from repro_torch.core.tuning.calibrate import CARD_SIZES
+    t_start = time.perf_counter()
+    CALIBRATION_PROFILE.parent.mkdir(parents=True, exist_ok=True)
+    tuning.clear_fit()
+    codegen.LAUNCHES["fused_block"] = 0
+    fit = tuning.calibrate(seeds=range(4), repeats=3,
+                           device=torch.device("cuda"),
+                           save=str(CALIBRATION_PROFILE))
+    launches = codegen.LAUNCHES["fused_block"]
+    if launches == 0:
+        raise AssertionError("CALIBRATE: no fused-block kernel launched")
+    if set(fit.launch_s) != {"torch", "triton"}:
+        raise AssertionError(f"CALIBRATE: fitted backends {fit.launch_s}")
+    loaded = tuning.load_and_install(str(CALIBRATION_PROFILE))
+    for key in ("launch_s", "hbm_slope_s", "hbm_s_per_byte",
+                "fabric_s_per_byte", "n_samples", "n_keys", "residual_s"):
+        if getattr(loaded, key) != getattr(fit, key):
+            raise AssertionError(f"CALIBRATE: the saved profile refits "
+                                 f"{key} to {getattr(loaded, key)}, not "
+                                 f"{getattr(fit, key)}")
+    slope = {b: (f"{fit.hbm_slope_s[b] * cost.HBM_BW:.3f}"
+                 if b in fit.hbm_slope_s else "unidentified")
+             for b in ("torch", "triton")}
+    # beside the fit, what its samples say directly: per backend the median
+    # best wall of the keys that move at most 1 MiB (launch-bound) and the
+    # median wall per byte of those that move at least 32 MiB
+    keys = tuning.Profile.load(str(CALIBRATION_PROFILE)).grouped()
+    direct = {}
+    for b in ("torch", "triton"):
+        small = [k.wall_s for (kb, _), k in keys.items()
+                 if kb == b and k.hbm_bytes <= 2 ** 20]
+        large = [k.wall_s / k.hbm_bytes * cost.HBM_BW
+                 for (kb, _), k in keys.items()
+                 if kb == b and k.hbm_bytes >= 2 ** 25]
+        direct[b] = (f"{statistics.median(small) * 1e6:.2f} us over "
+                     f"{len(small)} keys <= 1 MiB, "
+                     + (f"{statistics.median(large):.3f} x over "
+                        f"{len(large)} keys >= 32 MiB" if large
+                        else "no key >= 32 MiB"))
+    print(f"CALIBRATE tuning.calibrate(seeds=range(4), repeats=3, "
+          f"sizes={CARD_SIZES}) on the card: n_samples={fit.n_samples} "
+          f"n_keys={fit.n_keys}; launch_us torch="
+          f"{fit.launch_s['torch'] * 1e6:.2f} triton="
+          f"{fit.launch_s['triton'] * 1e6:.2f}; byte slope x (1/3.35e12 "
+          f"s/B) torch={slope['torch']} triton={slope['triton']}; "
+          f"hbm_s_per_byte x 3.35e12 = {fit.hbm_s_per_byte * cost.HBM_BW:.3f}"
+          f"; residual_us={fit.residual_s * 1e6:.2f}; the samples "
+          f"directly: torch {direct['torch']}; triton {direct['triton']}"
+          f"; gpu model launch_us="
+          f"{cost.KERNEL_LAUNCH_S * 1e6:.2f} (constant), LAUNCH_COST this "
+          f"run {launch_s * 1e6:.2f} us; B1 launches {launches}; "
+          f"load_and_install({CALIBRATION_PROFILE.relative_to(ROOT)}): the "
+          f"same fit, epoch {loaded.epoch} "
+          f"({time.perf_counter() - t_start:.1f}s)", flush=True)
+    return {"fit": loaded, "launches": launches}
+
+
+def _program_runs(lazy, fn, args, **runtime_kw) -> dict:
+    """Two runs of ``fn(*args)`` (cold, then warm) in one triton runtime
+    with loop fusion off (per-flush decisions), each timed from a
+    synchronize to a synchronize.  Returns each run's result, wall and
+    stats delta, every executed work block ``(ops, plan)`` of both runs,
+    the history and the lowering context and stack."""
+    from repro_torch.core.executor import stats_delta
+    blocks, runs = [], []
+    with lazy.fresh_runtime(backend="triton", loop_fusion=False,
+                            **runtime_kw) as rt:
+        ex = rt.executor
+        orig = ex.run_schedule
+
+        def spy(schedule, buffers):
+            for plan in schedule.blocks:
+                if plan.has_work:
+                    blocks.append(([schedule.tape[i]
+                                    for i in plan.op_indices], plan))
+            return orig(schedule, buffers)
+
+        ex.run_schedule = spy
+        for _ in range(2):
+            before = ex.snapshot_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = np.asarray(fn(*args))
+            torch.cuda.synchronize()
+            runs.append({"result": res, "wall_s": time.perf_counter() - t0,
+                         "stats": stats_delta(before, ex.stats)})
+        out = {"runs": runs, "blocks": blocks, "history": list(rt.history),
+               "ctx": ex.lowering_context(), "stack": ex.backends}
+    return out
+
+
+def _agree(name, got, want, what) -> float:
+    """``got``'s runs against ``want``'s: bitwise on the exact programs,
+    else ``TOL``; every value finite."""
+    err = 0.0
+    for k in range(2):
+        a, b = got["runs"][k]["result"], want["runs"][k]["result"]
+        err = max(err, check_close(a, b, f"{what} {name} run {k}",
+                                   name in EXACT))
+        if not np.all(np.isfinite(a)):
+            raise AssertionError(f"{what} {name}: non-finite result")
+    return err
+
+
+def _split(run) -> str:
+    bb = run["stats"]["backend_blocks"]
+    return f"{bb.get('triton', 0)}/{bb.get('torch', 0)}"
+
+
+def run_calibrated_and_ilp(lazy, codegen, programs) -> dict:
+    """The CALIBRATED and ILP phases (module docstring): every program at
+    ``CHIP_SIZES`` under ``gpu`` (greedy), ``calibrated`` (the installed
+    fit) and ``gpu`` with the ILP partitioner.  Returns B1's launches in
+    each phase."""
+    from repro_torch.core.backends import select_lowering
+    from repro_torch.core.cost import make_cost_model
+    from repro_torch.testing.programs import CHIP_SIZES
+    launches = {"CALIBRATED": 0, "ILP": 0}
+    t_phase = {"CALIBRATED": 0.0, "ILP": 0.0}
+    gpu_m, cal_m = make_cost_model("gpu"), make_cost_model("calibrated")
+    if cal_m.fit is None:
+        raise AssertionError("CALIBRATED: no fit installed")
+    for name, fn in programs.items():
+        args = CHIP_SIZES[name]
+        t0 = time.perf_counter()
+        codegen.LAUNCHES["fused_block"] = 0
+        g = _program_runs(lazy, fn, args, cost_model="gpu")
+        c = _program_runs(lazy, fn, args, cost_model="calibrated")
+        launches["CALIBRATED"] += codegen.LAUNCHES["fused_block"]
+        err = _agree(name, c, g, "CALIBRATED calibrated vs gpu")
+        differ = sum(
+            1 for ops, plan in g["blocks"]
+            if select_lowering(ops, plan, g["stack"], g["ctx"],
+                               gpu_m).backend
+            != select_lowering(ops, plan, g["stack"], g["ctx"],
+                               cal_m).backend)
+        gw, cw = g["runs"][1], c["runs"][1]
+        t_phase["CALIBRATED"] += time.perf_counter() - t0
+        print(f"CALIBRATED {name} args={args}: blocks a run gpu="
+              f"{gw['stats']['blocks_run']} calibrated="
+              f"{cw['stats']['blocks_run']}; lowering decisions differing "
+              f"{differ}/{len(g['blocks'])} (the gpu runs' executed "
+              f"blocks, recomputed under both models); triton/torch blocks "
+              f"gpu={_split(gw)} calibrated={_split(cw)}; warm_ms gpu="
+              f"{gw['wall_s'] * 1e3:.3f} calibrated={cw['wall_s'] * 1e3:.3f}"
+              f"; cold_ms gpu={g['runs'][0]['wall_s'] * 1e3:.1f} calibrated="
+              f"{c['runs'][0]['wall_s'] * 1e3:.1f}; "
+              f"{'bitwise' if name in EXACT else 'max_abs_err'}={err:.3g} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        del c
+        t0 = time.perf_counter()
+        codegen.LAUNCHES["fused_block"] = 0
+        i = _program_runs(lazy, fn, args, cost_model="gpu",
+                          partition_backend="ilp",
+                          time_budget_s=ILP_BUDGET_S)
+        launches["ILP"] += codegen.LAUNCHES["fused_block"]
+        err = _agree(name, i, g, "ILP ilp vs greedy")
+        solves = [h for h in i["history"] if "ilp_status" in h]
+        if not solves:
+            raise AssertionError(f"ILP {name}: no flush was solved")
+        for h in solves:
+            if not h["ilp_objective"] <= h["greedy_cost"]:
+                raise AssertionError(f"ILP {name}: objective "
+                                     f"{h['ilp_objective']} > greedy "
+                                     f"{h['greedy_cost']}")
+        iw = i["runs"][1]
+        status = {}
+        for h in solves:
+            status[h["ilp_status"]] = status.get(h["ilp_status"], 0) + 1
+        t_phase["ILP"] += time.perf_counter() - t0
+        objective = sum(h["ilp_objective"] for h in solves)
+        greedy = sum(h["greedy_cost"] for h in solves)
+        print(f"ILP {name} args={args}: {len(solves)} solves, status "
+              f"{status}; objective sum={objective:.9g}"
+              f" greedy_cost sum={greedy:.9g}"
+              f" (s, the gpu model); max gap="
+              f"{max(h['ilp_gap'] for h in solves):.3g}; nodes="
+              f"{sum(h['ilp_nodes'] for h in solves)} edges max="
+              f"{max(h['ilp_edges'] for h in solves)}; solver wall_s="
+              f"{sum(h['ilp_wall_s'] for h in solves):.3f} (max "
+              f"{max(h['ilp_wall_s'] for h in solves):.3f}); blocks a run "
+              f"ilp={iw['stats']['blocks_run']} greedy="
+              f"{g['runs'][1]['stats']['blocks_run']}; warm_ms ilp="
+              f"{iw['wall_s'] * 1e3:.3f} greedy="
+              f"{g['runs'][1]['wall_s'] * 1e3:.3f}; cold_ms ilp="
+              f"{i['runs'][0]['wall_s'] * 1e3:.1f}; "
+              f"{'bitwise' if name in EXACT else 'max_abs_err'}={err:.3g} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        del g, i
+        torch.cuda.empty_cache()
+    for phase in ("CALIBRATED", "ILP"):
+        if launches[phase] == 0:
+            raise AssertionError(f"{phase}: no fused-block kernel launched")
+        print(f"{phase} phase: B1 launches {launches[phase]}, "
+              f"{t_phase[phase]:.1f}s", flush=True)
+    return launches
+
+
+def run_explain(codegen) -> dict:
+    """The EXPLAIN phase: ``tools/explain_torch.py --json`` on the card.
+    Requires a rejected merge with a priced saving, the merge cache
+    resident, and every work block's replayed winner to be the backend the
+    executor ran (``history[-1]["exec"]["backend_blocks"]``)."""
+    from tools import explain_torch
+    t0 = time.perf_counter()
+    codegen.LAUNCHES["fused_block"] = 0
+    args = explain_torch.parse(["--json"])
+    report, executed = explain_torch.run(args)
+    launches = codegen.LAUNCHES["fused_block"]
+    doc = json.loads(report.to_json())
+    if doc["schema"] != "repro_explain_v1":
+        raise AssertionError(f"EXPLAIN: schema {doc['schema']}")
+    rejected = [m for m in doc["merges"]
+                if m["action"] == "rejected" and m["saving"] > 0]
+    if not rejected:
+        raise AssertionError("EXPLAIN: no rejected merge with a saving")
+    winners = {}
+    for b in doc["blocks"]:
+        if b["backend"] is None:
+            continue
+        won = [v["backend"] for v in b["verdicts"] if v["winner"]]
+        if won != [b["backend"]]:
+            raise AssertionError(f"EXPLAIN: block {b['index']} winners "
+                                 f"{won}")
+        winners[b["backend"]] = winners.get(b["backend"], 0) + 1
+    ran = {k: v for k, v in executed.items() if v}
+    if winners != ran or not winners.get("triton"):
+        raise AssertionError(f"EXPLAIN: winners {winners}, executed {ran}")
+    if not doc["cache"]["resident"] or launches == 0:
+        raise AssertionError(f"EXPLAIN: cache {doc['cache']}, B1 launches "
+                             f"{launches}")
+    declines = sorted({v["reason"] for b in doc["blocks"]
+                       for v in b["verdicts"] if v["reason"]})
+    print(f"EXPLAIN tools/explain_torch.py --json on the card: "
+          f"{doc['n_ops']} ops -> {doc['n_blocks']} blocks; merges taken "
+          f"{sum(1 for m in doc['merges'] if m['action'] == 'merged')}, "
+          f"rejected {len(rejected)} (savings "
+          f"{sorted({m['saving'] for m in rejected})}, "
+          f"{sorted({m['reason'] for m in rejected})}); winners {winners} = "
+          f"executed {ran}; declines {declines}; cache resident; B1 "
+          f"launches {launches} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return {"launches": launches}
+
+
+def run_a7(launch_s=None) -> int:
+    """The calibration, calibrated-model, ILP and explain phases (module
+    docstring), in that order; returns B1's launches over them.  Runs
+    alone: ``PYTHONPATH=src python3 -c "import chip_smoke as c;
+    c.run_a7()"`` (``launch_s`` is then measured here)."""
+    from repro_torch.core import lazy
+    from repro_torch.kernels.fused_block import codegen
+    from repro_torch.testing.programs import BENCHMARKS, quickstart
+    t0 = time.perf_counter()
+    if launch_s is None:
+        launch_s = launch_cost_s(lazy, codegen)
+    calib = run_calibrate(codegen, launch_s)
+    torch.cuda.empty_cache()
+    priced = run_calibrated_and_ilp(lazy, codegen,
+                                    dict(BENCHMARKS, quickstart=quickstart))
+    explained = run_explain(codegen)
+    launches = calib["launches"] + sum(priced.values()) + \
+        explained["launches"]
+    print(f"A7 phases (CALIBRATE, CALIBRATED, ILP, EXPLAIN): B1 launches "
+          f"{launches}, {time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -1717,7 +2019,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import lazy
     from repro_torch.kernels.fused_block import codegen
     from repro_torch.testing.programs import BENCHMARKS, CHIP_SIZES, quickstart
@@ -1804,13 +2106,14 @@ def main() -> int:
     launch_s = launch_cost_s(lazy, codegen)
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
+    a7_launches = run_a7(launch_s)
     kernels = {"kernels": [{
         "name": "fused_block",
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
-                     + loop["launches"]),
+                     + loop["launches"] + a7_launches),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

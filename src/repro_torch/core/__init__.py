@@ -6,9 +6,9 @@ from .ir import BaseArray, COMM_OPS, Op, View                    # noqa: F401
 from .fusion import (WSPGraph, build_graph,                      # noqa: F401
                      build_graph_reference, fusible, depends)
 from .blocks import BlockInfo                                    # noqa: F401
-from .cost import (BohriumCost, CostModel, GPUCost,              # noqa: F401
-                   MaxContractCost, MaxLocalityCost, RobinsonCost,
-                   make_cost_model)
+from .cost import (BohriumCost, CalibratedCost, CostModel,       # noqa: F401
+                   GPUCost, MaxContractCost, MaxLocalityCost,
+                   RobinsonCost, make_cost_model, model_cache_token)
 from .partition import PartitionState                            # noqa: F401
 from .algorithms import PartitionResult, partition               # noqa: F401
 from .cache import MergeCache, tape_signature                    # noqa: F401
@@ -19,3 +19,4 @@ from .backends import (LoweringBackend, LoweringContext,         # noqa: F401
 from .executor import BlockExecutor, make_block_fn, block_io     # noqa: F401
 from .scheduler import BlockPlan, Schedule, Scheduler, plan_blocks  # noqa: F401
 from . import lazy                                               # noqa: F401
+from . import tuning                                             # noqa: F401

@@ -361,7 +361,8 @@ def partition(ops: Sequence[Op], algorithm: str = "greedy",
               builder: str = "indexed",
               dense_weights: Optional[bool] = None,
               merge_log: Optional[List[Dict]] = None,
-              partition_backend: str = "greedy") -> PartitionResult:
+              partition_backend: str = "greedy",
+              time_budget_s: Optional[float] = None) -> PartitionResult:
     """Front door: the graph + partition stages of the scheduler pipeline
     (tape → WSP graph → partition under a cost model).
 
@@ -372,9 +373,11 @@ def partition(ops: Sequence[Op], algorithm: str = "greedy",
     the algorithms that decide merge-by-merge (linear/greedy/
     greedy_reference); other algorithms leave it empty.
 
-    ``partition_backend='ilp'`` (the reference's anytime branch-and-bound
-    solver) is not ported yet and raises ``NotImplementedError``; the
-    default ``'greedy'`` backend is the classic per-``algorithm`` path."""
+    ``partition_backend='ilp'`` routes to the anytime branch-and-bound
+    solver (``partition_ilp``): the classic ``algorithm`` sweep becomes
+    the warm start / incumbent, ``time_budget_s`` caps the solve wall
+    clock, and the result is never costlier than greedy.  The default
+    ``'greedy'`` backend is the classic per-``algorithm`` path."""
     if isinstance(cost_model, str):
         cost_model = make_cost_model(cost_model)
     if builder not in _BUILDERS:
@@ -392,9 +395,11 @@ def partition(ops: Sequence[Op], algorithm: str = "greedy",
     with trace.span("stage.partition", algorithm=algorithm,
                     backend=partition_backend) as sp:
         if partition_backend == "ilp":
-            raise NotImplementedError(
-                "partition_backend='ilp' is not ported yet (ROADMAP A7)")
-        if algorithm == "optimal":
+            from .partition_ilp import ilp_partition
+            state = ilp_partition(state, time_budget_s=time_budget_s,
+                                  node_budget=node_budget, stats=stats,
+                                  merge_log=merge_log)
+        elif algorithm == "optimal":
             state = optimal(state, node_budget=node_budget, stats=stats)
             if stats.get("bb_exhausted_budget"):
                 # budget exhausted: the preconditioned incumbent may lose to

@@ -101,14 +101,18 @@ def block_signature(ops: Sequence[Op]) -> Tuple:
 
 
 def tape_signature(tape: Sequence[Op], algorithm: str, cost_model: str,
-                   backends: Tuple = (),
+                   backends: Tuple = (), cost_token: Tuple = (),
                    partition_backend: str = "greedy") -> Tuple:
     """Canonical merge-cache key.  ``backends`` is the lowering policy's
     candidate list (``LoweringPolicy.key()``): cached entries carry
     per-block backend decisions, which are only valid for the stack that
-    made them."""
-    return (algorithm, cost_model, tuple(backends), block_signature(tape),
-            partition_backend)
+    made them.  ``cost_token`` is the cost model's extra identity beyond its
+    name (``cost.model_cache_token``) — the ``calibrated`` model's prices
+    move with each installed fit, so its calibration epoch keys the cache
+    too.  It sits at ``key[2]``, where the reference's plan store reads it
+    by position; ``partition_backend`` (greedy vs ilp solver) comes last."""
+    return (algorithm, cost_model, tuple(cost_token), tuple(backends),
+            block_signature(tape), partition_backend)
 
 
 def tapes_structurally_equal(a: Sequence[Op], b: Sequence[Op]) -> bool:

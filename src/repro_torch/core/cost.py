@@ -10,7 +10,9 @@ Every model exposes
 
 All models are monotone: ``merge_saving >= 0`` always.  The paper models
 are copies of ``repro.core.cost``; ``gpu`` takes the place of the
-reference's ``tpu`` model with the same structure and H100 constants.
+reference's ``tpu`` model with the same structure and H100 constants, and
+``calibrated`` prices ``gpu``'s structure with the fit that
+``core.tuning`` measures on the card.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 from .blocks import BlockInfo, view_key
-from .ir import Op, View
+from .ir import COMM_OPS, Op, View
 
 # NVIDIA H100 SXM device-memory rate (data sheet).
 HBM_BW = 3.35e12          # bytes/s
@@ -27,6 +29,18 @@ HBM_BW = 3.35e12          # bytes/s
 # as ``chip_smoke.py`` measures it (45.24 us on an H100 80GB HBM3 at its
 # 700 W limit; PERF.md).
 KERNEL_LAUNCH_S = 45.24e-6
+# NVLink 4 rate of one H100 SXM in one direction (data sheet: 900 GB/s
+# both ways).  Only the calibration's default for a fabric slope it cannot
+# identify: no backend of the port moves bytes between cards yet.
+FABRIC_BW = 450e9
+
+# Version of the port's cost-model feature space — the quantities a
+# measured profile records (dispatch counts, ext device-memory bytes,
+# fabric bytes).  Persisted profiles (``tuning.profile``) embed it; bump it
+# whenever a pricing feature changes meaning, and every stale profile on
+# disk is refused instead of silently miscalibrating a fit.  The port's own
+# number: a profile of the JAX package priced other backends.
+COST_REGISTRY_VERSION = 1
 
 
 def gather_table_bytes(b: BlockInfo) -> int:
@@ -289,8 +303,81 @@ class GPUCost(_KernelAlignment, CostModel):
                 + self.launch_s * self._dispatches(b))
 
 
+class CalibratedCost(GPUCost):
+    """``gpu``'s structure with MEASURED prices (the port's copy of the
+    reference's ``calibrated`` model).
+
+    The same monotone decomposition as :class:`GPUCost` — device-memory
+    traffic time plus per-dispatch overhead — with every coefficient from
+    the least-squares fit installed process-wide (``tuning.install_fit`` /
+    ``tuning.calibrate``) instead of data-sheet constants:
+
+    * ``hbm_s_per_byte``    → the byte term,
+    * ``launch_s[backend]`` → per-BACKEND dispatch overhead.  Partitioning
+      prices a block's dispatch term at the *cheapest* fitted backend (the
+      lower stage will route it there); ``dispatch_price`` and
+      ``lowering_price`` price each lowering candidate at its own fitted
+      overhead and byte slope, so a backend that measures slow loses
+      blocks it would win on dispatch counts alone.
+
+    With **zero samples** (no installed fit) every coefficient is the
+    analytic default, i.e. the model prices exactly like ``gpu`` —
+    "calibrated" is always safe to select.
+
+    The reference adds a fabric term for COMM ops; the port has no
+    resharding pass to count their bytes (ROADMAP A10b), so a block that
+    holds a COMM op raises instead of being priced at zero.
+
+    Monotone: identical term structure to ``GPUCost`` with constant
+    per-view/per-dispatch prices, so merging only deduplicates and
+    contracts — every term shrinks.
+    """
+
+    def __init__(self, fit=None, align_codegen: bool = True):
+        if fit is None:
+            from .tuning.calibrate import current_fit
+            fit = current_fit()
+        self.fit = fit
+        launch = (fit.launch_for(None) if fit is not None else None)
+        hbm_bw = (1.0 / fit.hbm_s_per_byte
+                  if fit is not None and fit.hbm_s_per_byte > 0 else HBM_BW)
+        super().__init__(hbm_bw=hbm_bw,
+                         launch_s=launch if launch is not None
+                         else KERNEL_LAUNCH_S,
+                         align_codegen=align_codegen)
+        self.name = "calibrated"
+
+    def block_cost(self, b: BlockInfo) -> float:
+        for o in b.ops:
+            if o.opcode in COMM_OPS:
+                raise NotImplementedError(
+                    f"the calibrated model cannot price a {o.opcode!r} op: "
+                    "its fabric bytes need the resharding pass, which is "
+                    "not ported yet (ROADMAP A10b)")
+        return super().block_cost(b)
+
+    def dispatch_price(self, n_dispatches: int,
+                       backend: Optional[str] = None,
+                       amortize: int = 1) -> float:
+        per = self.fit.launch_for(backend) if self.fit is not None else None
+        return ((per if per is not None else self.launch_s)
+                * float(n_dispatches) / max(1, amortize))
+
+    def lowering_price(self, n_dispatches: int, ext_bytes: float,
+                       backend: Optional[str] = None,
+                       amortize: int = 1) -> float:
+        slope = (self.fit.hbm_slope_for(backend) if self.fit is not None
+                 else None)
+        if slope is None:
+            slope = 1.0 / self.hbm_bw
+        return (self.dispatch_price(n_dispatches, backend=backend,
+                                    amortize=amortize)
+                + slope * float(ext_bytes))
+
+
 _MODELS = {
     "bohrium": BohriumCost,
+    "calibrated": CalibratedCost,
     "gpu": GPUCost,
     "max_contract": MaxContractCost,
     "max_locality": MaxLocalityCost,
@@ -309,6 +396,8 @@ def make_cost_model(name: str, **kw) -> CostModel:
     * ``"robinson"``     — Def. 21, lexicographic combination
     * ``"gpu"``          — device-memory time + launches, Triton-codegen
       aligned
+    * ``"calibrated"``   — ``gpu``'s structure with measured, fitted prices
+      (per-backend dispatch overhead and byte slope; ``core.tuning``)
 
     All models are monotone (``merge_saving >= 0``); models with
     ``sparse_weights=True`` opt into the sparse saving-support weight graph
@@ -317,3 +406,16 @@ def make_cost_model(name: str, **kw) -> CostModel:
         return _MODELS[name](**kw)
     except KeyError:
         raise ValueError(f"unknown cost model {name!r}; have {sorted(_MODELS)}")
+
+
+def model_cache_token(name: str) -> Tuple:
+    """Extra merge-cache identity of a cost model beyond its name.
+
+    The ``calibrated`` model's prices change whenever a new fit is
+    installed, so its token carries the calibration epoch — plans priced
+    under an old fit are never replayed after re-calibration.  Analytic
+    models are fully identified by their name."""
+    if name == "calibrated":
+        from .tuning.calibrate import current_epoch
+        return ("calibrated_epoch", current_epoch())
+    return ()

@@ -33,6 +33,7 @@ here as in ``repro.core.executor``.
 from __future__ import annotations
 
 import threading
+import time
 from collections import Counter
 from collections.abc import Mapping
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
@@ -518,19 +519,26 @@ class BlockExecutor:
     another backend behind the caller's back.  Declining a block is the
     backend's ``claims`` answer at planning time, counted in the stats.
 
-    Dispatch is asynchronous on a CUDA device: nothing in the block loop
-    synchronizes, so results only wait for the card at an explicit SYNC
-    (``Runtime.materialize``)."""
+    Dispatch is asynchronous on a CUDA device: with no profiler attached
+    nothing in the block loop synchronizes, so results only wait for the
+    card at an explicit SYNC (``Runtime.materialize``)."""
 
-    def __init__(self, seed: int = 0, backend="torch", device=None):
+    def __init__(self, seed: int = 0, backend="torch", device=None,
+                 profiler=None):
         """``backend`` resolves to the preference-ordered candidate list of
         the lowering policy (``backends.default_stack``): ``"torch"`` runs
         every block on the floor; ``"triton"`` prefers the fused-block
         Triton kernel with the floor for the blocks it declines; a
         tuple/list names an explicit stack.  ``device`` is the CUDA card
-        unless given."""
+        unless given.  ``profiler`` (a ``tuning.Profiler``) turns on
+        per-block wall-time capture of warm dispatches: each is bracketed
+        by ``torch.cuda.synchronize`` on a CUDA device and timed with
+        ``time.perf_counter`` (the host's wrapper call, the launch and the
+        kernel — what the cost model's ``launch_s`` and byte slope price),
+        so profiling trades the asynchronous pipeline for honest walls."""
         from .backends import default_stack
         self.seed = seed
+        self.profiler = profiler
         self.backend = backend
         self.device = resolve_device(device)
         self.backends: Tuple[str, ...] = default_stack(backend)
@@ -620,7 +628,10 @@ class BlockExecutor:
         return d
 
     def _executable(self, decision, ops: Sequence[Op], plan, ctx):
-        """Look up (or build) the executable for one decided plan."""
+        """Look up (or build) the executable for one decided plan.
+        Returns ``(fn, warm)``: ``warm`` is True on a cache hit (the
+        profiler times only warm dispatches — a cold one includes the
+        kernel's generation)."""
         from .backends import get_backend
         key = (decision.backend, plan.signature)
         with self._lock:
@@ -628,14 +639,20 @@ class BlockExecutor:
         if fn is not None:
             self.stats.inc("exec_cache_hits")
             trace.instant("cache.exec", hit=True, backend=decision.backend)
-            return fn
+            return fn, True
         self.stats.inc("exec_cache_misses")
         trace.instant("cache.exec", hit=False, backend=decision.backend)
         with trace.span("build", backend=decision.backend, n_ops=len(ops)):
             fn = get_backend(decision.backend).build(ops, plan, ctx)
         with self._lock:
             self._cache[key] = fn
-        return fn
+        return fn, False
+
+    def _synchronize(self) -> None:
+        """Wait for the card (the profiler's brackets); the CPU's torch ops
+        have finished when they return."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _account(self, decision) -> None:
         st = self.stats
@@ -674,7 +691,9 @@ class BlockExecutor:
         build) the executable under ``(backend, signature)``, feed the
         external input buffers plus the RNG salts (and, to a backend that
         donates, the input positions it may overwrite), then honor SYNC
-        (snapshot into ``sync_store``) and DEL (free) in Bohrium order."""
+        (snapshot into ``sync_store``) and DEL (free) in Bohrium order.
+        With a profiler attached, each warm dispatch is timed between two
+        synchronizations and recorded."""
         from .backends import get_backend
         tape = schedule.tape
         ctx = self.lowering_context()
@@ -697,7 +716,7 @@ class BlockExecutor:
                     decision = plan.lowering
                     if decision is None:        # a schedule planned without
                         decision = self._decide(ops, plan, ctx)   # a policy
-                    fn = self._executable(decision, ops, plan, ctx)
+                    fn, warm = self._executable(decision, ops, plan, ctx)
                     self._account(decision)
                     in_bufs = []
                     for u in plan.inputs:
@@ -711,9 +730,19 @@ class BlockExecutor:
                     kw = {}
                     if get_backend(decision.backend).donates:
                         kw["reuse"] = self._grant(plan, in_bufs, refs)
+                    timing = warm and self.profiler is not None
                     with trace.span("block", backend=decision.backend,
                                     n_ops=len(plan.op_indices)):
+                        if timing:
+                            # drain queued work: the clock sees one block
+                            self._synchronize()
+                            t0 = time.perf_counter()
                         out_bufs = fn(*in_bufs, salts, **kw)
+                        if timing:
+                            self._synchronize()
+                            self.profiler.record(decision.backend, ops, plan,
+                                                 ctx,
+                                                 time.perf_counter() - t0)
                     pos = {u: k for k, u in enumerate(plan.inputs)}
                     reused = sum(1 for u, b in zip(plan.outputs, out_bufs)
                                  if u in pos and b is in_bufs[pos[u]])

@@ -49,7 +49,8 @@ class Runtime:
         tapes); see ``repro_torch.core.algorithms``.
     cost_model : name registered in ``repro_torch.core.cost.make_cost_model``
         (``"bohrium"`` reproduces the paper; ``"gpu"`` prices device-memory
-        time, launches and Triton kernel expressibility).
+        time, launches and Triton kernel expressibility; ``"calibrated"``
+        the same structure with the fit ``core.tuning`` installed).
     use_cache : reuse block structure across structurally-identical flushes
         (the paper's merge cache, §IV-F).
     node_budget : cap on partitioner search nodes before falling back to
@@ -64,6 +65,11 @@ class Runtime:
     device : ``None`` (default) runs on the CUDA card and raises when there
         is none; ``"cpu"`` (or any torch device) runs there.
     history_limit : cap on ``Runtime.history`` entries.
+    profiler : optional ``repro_torch.core.tuning.Profiler``; when set, warm
+        block dispatches are timed between two synchronizations of the
+        card and recorded for cost-model calibration (``core.tuning``).
+        Loop fusion stays off while one is attached (it needs per-block
+        timings).
     loop_fusion : fuse across the flush boundary (DESIGN.md §16): when
         consecutive flushes re-trace a structurally identical tape with a
         consistent carried-state mapping, steady-state flushes are
@@ -78,9 +84,12 @@ class Runtime:
         at occurrence ``loop_threshold + 1``.
     loop_unroll : most deferred iterations per fused loop (the rows of the
         loop body's key table).
-    partition_backend : ``"greedy"``; the reference's ``"ilp"`` solver is
-        not ported yet and raises ``NotImplementedError`` at the first
-        flush.
+    partition_backend : ``"greedy"`` (the classic per-``algorithm``
+        sweep) or ``"ilp"``: the anytime branch-and-bound solver
+        warm-started from greedy (``core.partition_ilp``), never costlier
+        than greedy.
+    time_budget_s : wall-clock cap for the ilp solver (None: the node
+        budget only).
 
     One ``Runtime`` is single-threaded state: exactly one thread may trace
     and flush it at a time.
@@ -89,14 +98,17 @@ class Runtime:
     def __init__(self, algorithm: str = "greedy", cost_model: str = "bohrium",
                  use_cache: bool = True, node_budget: int = 100_000,
                  seed: int = 0, backend="torch", device=None,
-                 history_limit: int = 1024, loop_fusion: bool = True,
+                 history_limit: int = 1024, profiler=None,
+                 loop_fusion: bool = True,
                  loop_threshold: int = 3, loop_unroll: int = 32,
-                 partition_backend: str = "greedy"):
+                 partition_backend: str = "greedy",
+                 time_budget_s: Optional[float] = None):
         self.algorithm = algorithm
         self.cost_model = cost_model
         self.use_cache = use_cache
         self.node_budget = node_budget
         self.partition_backend = partition_backend
+        self.time_budget_s = time_budget_s
         self.device = resolve_device(device)
         self.tape: List[Op] = []
         self.buffers: Dict[int, torch.Tensor] = {}
@@ -105,7 +117,7 @@ class Runtime:
         self._loop = (LoopFuser(threshold=loop_threshold, unroll=loop_unroll)
                       if loop_fusion else None)
         self.executor = BlockExecutor(seed=seed, backend=backend,
-                                      device=self.device)
+                                      device=self.device, profiler=profiler)
         self._known: set = set()
         self._refcount: Dict[int, int] = {}
         self._bases: Dict[int, BaseArray] = {}
@@ -222,7 +234,8 @@ class Runtime:
                     node_budget=self.node_budget,
                     use_cache=self.use_cache,
                     lowering=self.executor.lowering_policy(),
-                    partition_backend=self.partition_backend)
+                    partition_backend=self.partition_backend,
+                    time_budget_s=self.time_budget_s)
                 if sched.result is not None:
                     self.last_partition = sched.result
                     entry = {"cost": sched.result.cost, "n_ops": len(tape),

@@ -187,13 +187,15 @@ class LoopFuser:
 
     def _session_block_reason(self, rt) -> Optional[str]:
         """Per-flush session conditions — None when deferral is allowed,
-        else a reason slug (recorded on break events).  ``use_cache=False``
-        disables plan reuse entirely.  And the loop state must actually
-        exist: the previous flush's outputs must be live buffers (or queued
-        — then drain seeding happens against ``exec_outs`` which ARE
-        buffers)."""
+        else a reason slug (recorded on break events).  A profiler needs
+        per-block timings; ``use_cache=False`` disables plan reuse
+        entirely.  And the loop state must actually exist: the previous
+        flush's outputs must be live buffers (or queued — then drain
+        seeding happens against ``exec_outs`` which ARE buffers)."""
         if not rt.use_cache:
             return "cache-disabled"
+        if rt.executor.profiler is not None:
+            return "profiler-active"
         outs = self.exec_outs
         if outs is None:
             return "no-executed-state"
@@ -233,7 +235,8 @@ class LoopFuser:
             tape, algorithm=rt.algorithm, cost_model=rt.cost_model,
             node_budget=rt.node_budget, use_cache=True,
             lowering=rt.executor.lowering_policy(),
-            partition_backend=rt.partition_backend)
+            partition_backend=rt.partition_backend,
+            time_budget_s=rt.time_budget_s)
         if sched.key is None:
             return
         self.loop_plan = rt.scheduler.plan_loop(

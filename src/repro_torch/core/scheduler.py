@@ -32,7 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .algorithms import PartitionResult, partition
 from .backends import LoweringDecision, LoweringPolicy, select_lowering
 from .cache import MergeCache, block_signature, tape_signature
-from .cost import make_cost_model
+from .cost import make_cost_model, model_cache_token
 from .executor import block_dead_bases, block_io
 from .ir import Op
 from .obs import trace
@@ -111,6 +111,17 @@ def plan_blocks(tape: Sequence[Op],
     return plans
 
 
+def merge_key(tape: Sequence[Op], algorithm: str, cost_model: str,
+              lowering: Optional[LoweringPolicy],
+              partition_backend: str = "greedy") -> Tuple:
+    """The merge-cache key of a flush, as :meth:`Scheduler.plan` builds it
+    (the explain report probes the cache with the same key)."""
+    return tape_signature(tape, algorithm, cost_model,
+                          backends=lowering.key() if lowering else (),
+                          cost_token=model_cache_token(cost_model),
+                          partition_backend=partition_backend)
+
+
 def lower_plans(tape: Sequence[Op], plans: Sequence[BlockPlan],
                 policy: LoweringPolicy, cost_model=None,
                 amortize: int = 1) -> Tuple[Optional[LoweringDecision], ...]:
@@ -142,7 +153,8 @@ class Scheduler:
              cost_model: str = "bohrium", node_budget: int = 100_000,
              use_cache: bool = True,
              lowering: Optional[LoweringPolicy] = None,
-             partition_backend: str = "greedy") -> Schedule:
+             partition_backend: str = "greedy",
+             time_budget_s: Optional[float] = None) -> Schedule:
         """Stages 2–5: turn a recorded tape into an executable ``Schedule``.
 
         Builds the WSP graph, partitions it under ``cost_model`` with
@@ -153,16 +165,21 @@ class Scheduler:
         decisions made for one backend stack never leak into another.  On
         a merge-cache hit both the partition AND the lowering decisions are
         replayed (``Schedule.result`` is ``None`` on a hit).
-        ``Schedule.stats`` carries per-stage timings."""
+        ``Schedule.stats`` carries per-stage timings.
+
+        ``partition_backend='ilp'`` solves the partition as an anytime
+        integer program warm-started from greedy (``algorithms.partition``;
+        ``time_budget_s`` caps the solver wall clock).  The backend is part
+        of the merge-cache key: a cache populated by greedy is a clean miss
+        for ilp and vice versa."""
         stats: Dict[str, float] = {}
         blocks: Optional[Tuple[Tuple[int, ...], ...]] = None
         decisions: Optional[Tuple] = None
         key: Optional[Tuple] = None
         cached = False
         if use_cache:
-            key = tape_signature(tape, algorithm, cost_model,
-                                 backends=lowering.key() if lowering else (),
-                                 partition_backend=partition_backend)
+            key = merge_key(tape, algorithm, cost_model, lowering,
+                            partition_backend)
             entry = self.cache.get(key)
             trace.instant("cache.merge", hit=entry is not None)
             if entry is not None:
@@ -173,7 +190,8 @@ class Scheduler:
             result = partition(tape, algorithm=algorithm,
                                cost_model=cost_model,
                                node_budget=node_budget,
-                               partition_backend=partition_backend)
+                               partition_backend=partition_backend,
+                               time_budget_s=time_budget_s)
             blocks = tuple(tuple(b) for b in result.op_blocks())
             stats.update(result.stats)
         t0 = time.perf_counter()

@@ -1189,7 +1189,11 @@ def triton_source(plan: _Plan, keyed: bool = False
             n_tbl = o.view.size
             idx, idt = term(node.terms[1], None)
             iv, ok = src.name("i"), src.name("ok")
-            src.loop.append(f"{iv} = ({idx}).to(tl.int32).to(tl.int64)")
+            # an index computed from literals alone is a scalar, and a
+            # load's mask must not be a block over a scalar pointer: the
+            # select against ``m`` gives the index the domain's shape
+            src.loop.append(f"{iv} = tl.where(m, ({idx}).to(tl.int32)"
+                            f".to(tl.int64), 0)")
             src.loop.append(f"{iv} = tl.where({iv} < 0, {iv} + {n_tbl}, {iv})")
             src.loop.append(f"{ok} = ({iv} >= 0) & ({iv} < {n_tbl})")
             fill = (float("nan") if tdt.kind == "f" else True

@@ -247,6 +247,40 @@ def test_gather_fill_mode():
     assert_all_equal(res)
 
 
+def _literal_index_gather(n=64):
+    """A gather whose index is computed from a literal alone (tapegen's
+    ``take`` of ``floor(|a| % n)`` with ``a`` a filled array, as the
+    calibration programs record it): in the kernel the index is a scalar."""
+    F, I, O, T = _base(n), _base(n), _base(n), _base(n)
+    vf, vi, vo, vt = (View.contiguous(b, (n,)) for b in (F, I, O, T))
+    return [
+        Op("copy", vf, (-7.0,), new_bases=frozenset({F})),
+        Op("abs", vi, (vf,), new_bases=frozenset({I})),
+        Op("mod", vi, (vi, float(n))),
+        Op("floor", vi, (vi,)),
+        Op("gather", vo, (vt, vi), axis=0, new_bases=frozenset({O})),
+        Op("del", None, del_bases=frozenset({I})),
+    ]
+
+
+def test_gather_at_a_literal_index():
+    n = 64
+    res = run_both(_literal_index_gather(n), [np.arange(n) * 0.5])
+    assert_all_equal(res)
+    assert any((out == 3.5).all() for out in res[0])    # table[7] throughout
+
+
+def test_gather_index_has_the_domains_shape_in_the_source():
+    """The generated load takes a block-shaped index even when the index
+    is a scalar expression (Triton refuses a block mask over a scalar
+    pointer)."""
+    plan = codegen._analyze(to_port(_literal_index_gather()))
+    source = codegen.triton_source(plan)[0]
+    line = next(ln for ln in source.splitlines()
+                if ".to(tl.int32).to(tl.int64)" in ln)
+    assert "tl.where(m, (" in line
+
+
 # ---------------------------------------------------------------------------
 # promotion, mod, transcendental chains
 # ---------------------------------------------------------------------------

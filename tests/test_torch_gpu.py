@@ -198,6 +198,26 @@ def test_range_random_gather_mod(cuda):
     _assert_same(got, *wants)
 
 
+def test_gather_at_a_literal_index(cuda):
+    """The gather's index is computed from a literal alone, a scalar in
+    the kernel: the load still takes the domain's shape and compiles."""
+    n = 4096
+    F, I, O, T = (_base(n) for _ in range(4))
+    vf, vi, vo, vt = (View.contiguous(b, (n,)) for b in (F, I, O, T))
+    ops = [
+        Op("copy", vf, (-7.0,), new_bases=frozenset({F})),
+        Op("abs", vi, (vf,), new_bases=frozenset({I})),
+        Op("mod", vi, (vi, float(n))),
+        Op("floor", vi, (vi,)),
+        Op("gather", vo, (vt, vi), axis=0, new_bases=frozenset({O})),
+        Op("del", None, del_bases=frozenset({I})),
+    ]
+    table = torch.arange(n, dtype=torch.float64) * 0.5
+    got, *wants = _run_all(ops, [table], cuda)
+    _assert_same(got, *wants)
+    assert any(bool((g == 3.5).all()) for g in got)
+
+
 def test_program_end_to_end_matches_floor(cuda):
     from repro_torch.core.lazy import fresh_runtime
     from repro_torch.testing.programs import BENCHMARKS
@@ -1266,3 +1286,101 @@ def test_loop_warm_up_leaves_the_state_alone(cuda):
                         loop_unroll=4)
     assert (st["loop_captures"], st["loop_replays"]) == (1, 1)
     assert got.tobytes() == ref.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Calibration, the ILP partitioner and explain on the card
+# ---------------------------------------------------------------------------
+
+def test_profiler_on_the_card_records_warm_samples_above_kernel_time(
+        cuda, monkeypatch):
+    """Only warm dispatches are recorded, and each triton sample's wall
+    (a synchronize to a synchronize) is at least its kernel's time by
+    CUDA events recorded around the wrapper call inside it."""
+    from repro_torch.core import lazy as bh
+    from repro_torch.core.tuning import Profiler
+    events, pairs = [], []
+    call = codegen.FusedBlockKernel.__call__
+
+    def timed(kernel, *args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = call(kernel, *args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    class Spy(Profiler):
+        def record(self, backend, ops, plan, ctx, wall_s):
+            super().record(backend, ops, plan, ctx, wall_s)
+            if backend == "triton":
+                a, b = events[-1]
+                pairs.append((wall_s, a.elapsed_time(b) / 1e3))
+
+    monkeypatch.setattr(codegen.FusedBlockKernel, "__call__", timed)
+    p = Spy()
+    with bh.fresh_runtime(backend="triton", profiler=p) as rt:
+        x = bh.asarray(np.linspace(0.0, 1.0, 2 ** 20))
+        for _ in range(4):
+            y = bh.sin(x) * 0.5 + x * 0.25
+            float((y * y).sum().numpy())
+        misses = rt.executor.stats["exec_cache_misses"]
+        dispatched = rt.executor.stats["blocks_run"]
+    assert len(p) == dispatched - misses > 0
+    assert pairs and all(wall >= kernel > 0 for wall, kernel in pairs)
+    assert all(s.backend == "triton" for s in p.profile.samples)
+
+
+def test_calibrate_on_the_card_fits_both_backends(cuda, tmp_path):
+    """A fit for each backend from warm samples on the card, each launch
+    price positive (the fit clamps an intercept that least squares drives
+    to or below zero at ``MIN_LAUNCH_S``, as the reference's does: on the
+    card the large blocks' walls dominate the unweighted fit, PERF.md),
+    and the saved profile refits to the same prices."""
+    from repro_torch.core import tuning
+    from repro_torch.core.tuning.calibrate import MIN_LAUNCH_S
+    try:
+        fit = tuning.calibrate(seeds=range(2), sizes=(2 ** 10, 2 ** 16),
+                               save=str(tmp_path / "p.json"))
+        assert set(fit.launch_s) == {"torch", "triton"}
+        assert all(v >= MIN_LAUNCH_S > 0 for v in fit.launch_s.values()), fit
+        assert fit.n_samples >= fit.n_keys > 0
+        assert all(s.wall_s > 0 for s in
+                   tuning.Profile.load(str(tmp_path / "p.json")).samples)
+        again = tuning.load_and_install(str(tmp_path / "p.json"))
+        assert (again.launch_s, again.hbm_slope_s) == (fit.launch_s,
+                                                       fit.hbm_slope_s)
+    finally:
+        tuning.clear_fit()
+
+
+@pytest.mark.parametrize("seed", (17, 3))
+def test_ilp_planned_exact_program_bitwise_to_greedy(cuda, seed):
+    from repro_torch.testing.tapegen import TapeProgram
+    prog = TapeProgram(seed, n_actions=20, size=4096, exact=True)
+    greedy = prog.run(backend="triton", cost_model="gpu")
+    ilp = prog.run(backend="triton", cost_model="gpu",
+                   partition_backend="ilp", time_budget_s=1.0)
+    assert len(ilp) == len(greedy)
+    for a, b in zip(ilp, greedy):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_explain_cli_json_on_the_card_names_triton_winners(cuda):
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "tools" /
+                                              "explain_torch.py"), "--json"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=root)
+    assert out.returncode == 0, out.stderr
+    doc = json.loads(out.stdout)
+    assert doc["schema"] == "repro_explain_v1"
+    winners = {b["backend"] for b in doc["blocks"] if b["backend"]}
+    assert "triton" in winners
+    assert any(m["action"] == "rejected" and m["saving"] > 0
+               for m in doc["merges"])

@@ -13,7 +13,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "explain_torch.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -40,13 +40,15 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     modules = sorted(
         ".".join(path.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
-        for path in PORT_FILES if path.name != "chip_smoke.py")
+        for path in PORT_FILES if path.is_relative_to(ROOT / "src"))
     assert "repro_torch.models.lazy_transformer" in modules
     for kernel in ("flash_attention", "rmsnorm", "mamba_scan", "rwkv6_scan"):
         for part in ("ref", "kernel", "ops"):
             assert f"repro_torch.kernels.{kernel}.{part}" in modules
     for mod in ("kernels.rwkv6_scan.kernel_chunked", "configs.rwkv6_3b",
-                "launch.serve"):
+                "launch.serve", "core.tuning.calibrate",
+                "core.tuning.profile", "core.partition_ilp",
+                "core.obs.explain"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
@@ -138,15 +140,22 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, name):
 
 
 def test_deferred_options_raise():
-    """The ILP partitioner is not ported yet: asking for it raises at the
-    first flush.  Loop fusion is ported (the default)."""
+    """What waits for the mesh (ROADMAP A10b) raises: its cost models are
+    unknown and sharded programs refuse to record.  Loop fusion (the
+    default) and the ILP partitioner are ported and run."""
     from repro_torch.core import lazy
+    from repro_torch.core.cost import make_cost_model
+    from repro_torch.testing.tapegen import TapeProgram
     assert lazy.Runtime(device="cpu", loop_fusion=True)._loop is not None
-    with lazy.fresh_runtime(device="cpu", partition_backend="ilp"):
+    with lazy.fresh_runtime(device="cpu", partition_backend="ilp") as rt:
         x = lazy.ones(8) * 2.0
-        with pytest.raises(NotImplementedError):
-            x.numpy()
-        x._alive = False
+        assert x.numpy().tolist() == [2.0] * 8
+        assert rt.history[-1]["ilp_status"] == "optimal"
+    for name in ("comm", "tpu_dist"):
+        with pytest.raises(ValueError, match="unknown cost model"):
+            make_cost_model(name)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        TapeProgram(0, sharded=True)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
