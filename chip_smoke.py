@@ -155,9 +155,35 @@ and agreement with them as above. ``EXPLAIN``: ``tools/explain_torch.py
 --json`` on the card, requiring a rejected merge with a priced saving, the
 flush's plan resident in the merge cache and every work block's replayed
 winner to be the backend the executor ran. B1's launches in these phases
-are counted from 0 in each and join the ``kernels`` line. Last it prints a
-``kernels`` JSON line (B1-B7), the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
+are counted from 0 in each and join the ``kernels`` line.
+
+The MODEL phase ends with B3's repeat check (``b3_repeat``, ROADMAP C21):
+its Qwen1.5-4B case and the case's bf16 split-P form ``B3_REPEATS`` times
+each on the same inputs, every output bitwise to the first and within the
+phase's allowance of the plain version.
+
+Then the serving layer (``run_serve``, the ``SERVE`` lines):
+``repro_torch.core.serve.Server`` on the card, 4 tenants x 8 requests
+back to back from one thread each (odd requests of one shared structure,
+even ones with a tenant literal; data ``floor(16 u)`` from a generator
+seeded 8), at 2**24 elements a request array (128 MiB) and at 4096, under
+``backend="torch"`` (the floor, so equal structures batch) and
+``backend="triton"`` (B1: every request solo).  Per (backend, size): a
+serial batching-off server gives the reference values; a concurrent
+warm-up pass, a timed pass (``SERVE_WINDOW_S``, ``SERVE_MAX_BATCH``) and a
+profiled repeat of it must each equal them bitwise; a plan-store warm
+start (a cold server writes, a fresh one over the same directory hits and
+plans no partition); at 2**24 also ``check_serve``'s seeded requests with
+``random`` (a 0.25 s window, a barrier a round).  It requires a batch at
+each size under torch, and under triton no batch and B1 launches in the
+timed pass.  Each line prints QPS and p50/p99 submit latency of the timed
+pass, its batched share and B1 launches, a request's host-to-device and
+device-to-host copy ms, the profiled pass's device busy time and idle
+share, and the warm start's writes, hits and partition spans.  B1's
+launches over the phase join the ``kernels`` line.
+
+Last it prints a ``kernels`` JSON line (B1-B7), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
 Triton kernels are generated and compiled under ``build/`` as the run
 needs them; the CUDA kernels are compiled into ``build/cuda/`` at their
 first launch, one ``nvcc`` per source at once, then linked.
@@ -269,6 +295,13 @@ ROOT = Path(__file__).resolve().parent
 CALIBRATION_PROFILE = ROOT / "build" / "calibration_profile.json"
 #: the ILP phase: the solver's wall-clock cap a flush
 ILP_BUDGET_S = 1.0
+#: the SERVE phase's load (after the reference's serving benchmark): 4
+#: tenants x 8 requests back to back, odd requests of one shared
+#: structure, even ones with a tenant literal; 2**24 elements a request
+#: array (128 MiB, CHIP_SIZES) and the reference's own 4096
+SERVE_TENANTS, SERVE_REQUESTS = 4, 8
+SERVE_SIZES = (2 ** 24, 4096)
+SERVE_WINDOW_S, SERVE_MAX_BATCH = 0.002, 4
 
 
 def cuda_ms(fn, reps: int = 10, burst: int = 5) -> float:
@@ -1028,6 +1061,60 @@ def _hold(got, want, rtol, atol):
     return err, share
 
 
+#: runs of B3's Qwen1.5-4B case and of its bf16 split-P form in the MODEL
+#: phase's repeat check (ROADMAP C21): about 1 ms a run with its check
+B3_REPEATS = 200
+
+
+def b3_repeat(runs: int = B3_REPEATS, small: bool = False) -> dict:
+    """B3's Qwen1.5-4B case (B 4, Hq 20, S 512, D 128, causal, float32)
+    and its bf16 split-P form (the same q, k, v cast to bfloat16), each run
+    ``runs`` times on the same inputs: every output must equal the first
+    bitwise and stay within the MODEL phase's allowance of the plain
+    version.  The inputs are drawn as ``_model_cases`` draws that case's
+    (the first three draws of a card generator seeded 0), and the kernel
+    and the plain version read the same tensors.  ``small`` takes B 1, Hq
+    2, S 128 (for ``compute-sanitizer``).  Raises on any difference."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (1, 2, 128, 128) if small else (4, 20, 512, 128)
+    qkv = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+    t0 = time.perf_counter()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = tuple(x.to(dtype) for x in qkv)
+        plain = reference_attention(*a, causal=True)
+        plain_rerun = torch.equal(plain, reference_attention(*a, causal=True))
+        rtol = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+        atol = MODEL_TOL["flash_attention"]
+        first = fa.attention(*a, True, None, None)
+        differ, outside, worst = [], [], 0.0
+        for i in range(runs):
+            got = first if i == 0 else fa.attention(*a, True, None, None)
+            if i and not torch.equal(got, first):
+                differ.append(i)
+            share = _hold(got, plain, rtol, atol)[1]
+            worst = max(worst, share)
+            if not share <= 1.0:
+                outside.append((i, share))
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {"runs": runs, "differ": differ, "outside": outside,
+                     "worst_share": worst, "plain_rerun_bitwise": plain_rerun}
+        print(f"B3 REPEAT {'x'.join(map(str, shape))} causal {name}: "
+              f"{runs} runs, bitwise-different from the first "
+              f"{len(differ)} {differ[:10]}, outside the allowance "
+              f"{len(outside)} {outside[:10]}, worst allowance share "
+              f"{worst:.4g}, plain rerun bitwise {plain_rerun}", flush=True)
+        if differ or outside:
+            raise AssertionError(f"B3 repeat ({name}): {len(differ)} runs "
+                                 f"differ, {len(outside)} outside the "
+                                 f"allowance")
+    print(f"B3 REPEAT: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def run_model_kernels() -> dict:
     """The standalone model kernels B3-B7 through their public ops at model
     widths (see the module doc).  Returns per-kernel results."""
@@ -1123,6 +1210,7 @@ def run_model_kernels() -> dict:
               + (f" library_ms={library_ms:.4f}" if library_ms else "")
               + (f" two_calls_ms={two_ms:.4f}" if two_ms else ""),
               flush=True)
+    b3_repeat()
     print(f"MODEL phase: {time.perf_counter() - t_start:.1f}s", flush=True)
     return {"launches": launches, "cases": results}
 
@@ -2002,6 +2090,271 @@ def run_a7(launch_s=None) -> int:
     return launches
 
 
+def _shared_request(lazy, data):
+    """The load's coalescable structure: one tape for every tenant."""
+    def fn():
+        a = lazy.asarray(data)
+        b = lazy.floor((a * 2.0 + 3.0) % 1021.0)
+        return lazy.maximum(b, a) + b.sum().broadcast_to(a.shape)
+    return fn
+
+
+def _tenant_request(lazy, data, tenant):
+    """A structure of the tenant's own (its literal is in the tape)."""
+    scale = float(tenant + 2)
+
+    def fn():
+        a = lazy.asarray(data)
+        return lazy.floor((a * scale) % 1021.0) + a
+    return fn
+
+
+def _serve_load(lazy, size):
+    """Each tenant's request functions, its data drawn from one seeded
+    generator in (tenant, request) order."""
+    rng = np.random.default_rng(8)
+    load = []
+    for t in range(SERVE_TENANTS):
+        fns = []
+        for r in range(SERVE_REQUESTS):
+            data = np.floor(rng.random(size) * 16.0)
+            fns.append(_shared_request(lazy, data) if r % 2
+                       else _tenant_request(lazy, data, t))
+        load.append(fns)
+    return load
+
+
+def _drive(srv, load, concurrent: bool, barrier: bool = False):
+    """Every tenant's requests back to back (one thread a tenant when
+    ``concurrent``; a barrier before each round with ``barrier``); returns
+    ``({tenant: [results]}, [submit latency s], wall s)`` with the wall
+    from the first submit to the last result.  A worker's failure, or a
+    thread still running after 600 s, raises."""
+    import threading
+    n = len(load)
+    results = {t: [] for t in range(n)}
+    lats, errors = [], []
+    lock = threading.Lock()
+    gate = threading.Barrier(n) if barrier else None
+
+    def tenant(t):
+        try:
+            for fn in load[t]:
+                if gate is not None:
+                    gate.wait(600)
+                t0 = time.perf_counter()
+                out = srv.submit(t, fn)
+                dt = time.perf_counter() - t0
+                results[t].append(out)
+                with lock:
+                    lats.append(dt)
+        except BaseException as e:     # noqa: BLE001 — raised below
+            errors.append((t, e))
+            if gate is not None:
+                gate.abort()
+
+    t0 = time.perf_counter()
+    if concurrent:
+        threads = [threading.Thread(target=tenant, args=(t,), daemon=True)
+                   for t in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("SERVE: a tenant thread hung")
+    else:
+        for t in range(n):
+            tenant(t)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"SERVE: tenant {errors[0][0]} failed: "
+                             f"{errors[0][1]!r}") from errors[0][1]
+    return results, lats, wall
+
+
+def _same(refs, got, what):
+    for t in refs:
+        for r, (a, b) in enumerate(zip(refs[t], got[t])):
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                    a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)):
+                raise AssertionError(f"SERVE {what}: tenant {t} request {r} "
+                                     f"differs from the serial run")
+
+
+def _copy_ms(data) -> tuple:
+    """A request's host-to-device copy (as ``Runtime.adopt`` makes it) and
+    its result's device-to-host copy (as the server reads it), each to a
+    synchronize, median of 5, in ms."""
+    h2d, d2h = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = torch.from_numpy(data.reshape(-1).copy()).to("cuda")
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dev.to("cpu", copy=True).numpy()
+        d2h.append(time.perf_counter() - t0)
+    return statistics.median(h2d) * 1e3, statistics.median(d2h) * 1e3
+
+
+def _warm_start(lazy, backend, load) -> dict:
+    """A cold batching-off server over a fresh store directory drives the
+    load's first two requests of each tenant (every structure of the load)
+    serially; a fresh server over the same directory drives them again
+    under the tracer.  Returns the cold writes, the warm hits, and the
+    warm run's partition spans (0 when every plan came from the store)."""
+    import tempfile
+    from repro_torch.core.obs import trace
+    from repro_torch.core.serve import Server
+    load = [fns[:2] for fns in load]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        cold = Server(store=d, batching=False, backend=backend)
+        _drive(cold, load, concurrent=False)
+        warm = Server(store=d, batching=False, backend=backend)
+        tr = trace.enable()
+        try:
+            _drive(warm, load, concurrent=False)
+        finally:
+            trace.disable()
+        return {"writes": cold.metrics.counter(
+                    "cache.plan_store.write").get(),
+                "hits": warm.metrics.counter("cache.plan_store.hit").get(),
+                "partitions": sum(1 for e in tr.events
+                                  if e["name"] == "stage.partition")}
+
+
+def run_serve(lazy, codegen) -> int:
+    """The SERVE phase: the multi-tenant server (``repro_torch.core.serve``)
+    on the card under the load above, at each size of ``SERVE_SIZES`` and
+    under ``backend="torch"`` (the floor, so structurally equal requests
+    batch) and ``backend="triton"`` (B1 on every request: a plan with a
+    block off the floor runs solo).  Each pass: a serial batching-off
+    server for the reference values, a concurrent warm-up pass, a timed
+    concurrent pass (``SERVE_WINDOW_S``, ``SERVE_MAX_BATCH``) and a
+    profiled repeat of it for the device's idle share, each result bitwise
+    to the serial one; a plan-store warm start; at 2**24 a ``check_serve``
+    pass with ``random`` (a 0.25 s window and a barrier a round).  Returns
+    B1's launches over the phase (counted from 0 at its start)."""
+    from repro_torch.core.serve import Server
+    from repro_torch.testing import tapegen
+    t_start = time.perf_counter()
+    codegen.LAUNCHES["fused_block"] = 0
+    tapegen.check_serve(0, device="cuda")     # both phases, small, floor
+    n = SERVE_TENANTS * SERVE_REQUESTS
+    for size in SERVE_SIZES:
+        load = _serve_load(lazy, size)
+        h2d_ms, d2h_ms = _copy_ms(np.floor(
+            np.random.default_rng(8).random(size) * 16.0))
+        for backend in ("torch", "triton"):
+            t0 = time.perf_counter()
+            ref_srv = Server(batching=False, backend=backend)
+            refs, _, _ = _drive(ref_srv, load, concurrent=False)
+            srv = Server(window_s=SERVE_WINDOW_S, max_batch=SERVE_MAX_BATCH,
+                         backend=backend)
+            m = srv.metrics
+            warm, _, _ = _drive(srv, load, concurrent=True)
+            _same(refs, warm, f"{backend} {size} warm-up pass")
+            del warm
+            b0 = m.counter("serve.batched_requests").get()
+            n0 = m.counter("serve.batches").get()
+            l0 = codegen.LAUNCHES["fused_block"]
+            out, lats, wall = _drive(srv, load, concurrent=True)
+            launches = codegen.LAUNCHES["fused_block"] - l0
+            share = (m.counter("serve.batched_requests").get() - b0) / n
+            timed_batches = m.counter("serve.batches").get() - n0
+            _same(refs, out, f"{backend} {size} timed pass")
+            del out
+            from torch.profiler import ProfilerActivity, profile as tp
+            with tp(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+                prof_out, _, prof_wall = _drive(srv, load, concurrent=True)
+                torch.cuda.synchronize()
+            events = _device_kernels(prof)
+            busy = _busy_ms(events)
+            copy_ms = _busy_ms([e for e in events
+                                if "memcpy" in e.name.lower()])
+            kernel_ms = _busy_ms([e for e in events
+                                  if "memcpy" not in e.name.lower()])
+            top = _top_device_ops(events)
+            _same(refs, prof_out, f"{backend} {size} profiled pass")
+            del prof_out, refs
+            ws = _warm_start(lazy, backend, load)
+            if ws["writes"] < 1 or ws["hits"] < 1 or ws["partitions"]:
+                raise AssertionError(f"SERVE {backend} {size}: warm start "
+                                     f"{ws}")
+            rand = (_serve_random(lazy, backend, size)
+                    if size == max(SERVE_SIZES) else None)
+            total = m.counter("serve.batches").get() + (
+                rand["batches"] if rand else 0)
+            if backend == "triton" and (total or launches == 0):
+                raise AssertionError(f"SERVE triton {size}: batches {total}, "
+                                     f"B1 launches {launches}")
+            if backend == "torch" and not total:
+                raise AssertionError(f"SERVE torch {size}: no batch")
+            lat_ms = np.asarray(lats) * 1e3
+            p50, p99 = (float(np.percentile(lat_ms, q)) for q in (50, 99))
+            print(f"SERVE backend={backend} size={size} tenants="
+                  f"{SERVE_TENANTS} requests={n} window_s={SERVE_WINDOW_S} "
+                  f"max_batch={SERVE_MAX_BATCH}: qps={n / wall:.2f} "
+                  f"p50_ms={p50:.3f} p99_ms={p99:.3f} p99/p50="
+                  f"{p99 / p50:.2f} batched_share={share:.3f} "
+                  f"batches={timed_batches} (phase total {total}) "
+                  f"B1_launches={launches} h2d_ms_per_request={h2d_ms:.3f} "
+                  f"d2h_ms_per_request={d2h_ms:.3f} profiled pass: wall "
+                  f"{prof_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+                  f"(copies {copy_ms:.3f}, kernels {kernel_ms:.3f}), idle "
+                  f"{1 - busy / (prof_wall * 1e3):.3f}, top device ops "
+                  f"[{top}]; warm start "
+                  f"writes={ws['writes']} hits={ws['hits']} "
+                  f"partitions={ws['partitions']}; bitwise=True"
+                  + (f"; random pass ({SERVE_TENANTS} x 2 requests) "
+                     f"bitwise, batches={rand['batches']} batched="
+                     f"{rand['batched']}" if rand else "")
+                  + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+            torch.cuda.empty_cache()
+        del load
+    launches = codegen.LAUNCHES["fused_block"]
+    print(f"SERVE phase: B1 launches {launches}, "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    return launches
+
+
+def _top_device_ops(events, n=3) -> str:
+    """The ``n`` device operations of a profile with the most time, summed
+    by name: ``name xcount ms`` each."""
+    by = {}
+    for e in events:
+        ms, k = by.get(e.name, (0.0, 0))
+        by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                      k + 1)
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return "; ".join(f"{name[:60]} x{k} {ms:.3f} ms"
+                     for name, (ms, k) in rows)
+
+
+def _serve_random(lazy, backend, size) -> dict:
+    """``check_serve``'s second phase at ``size`` under ``backend``: its
+    seeded requests (``random`` among them) through a batching server,
+    concurrently with a barrier a round, bitwise to a batching-off server
+    driven serially.  Returns the server's batches and batched requests."""
+    from repro_torch.core.serve import Server
+    from repro_torch.testing import tapegen
+    _, datas, rseeds = tapegen.serve_recipe(0, tenants=SERVE_TENANTS,
+                                            requests=2, size=size)
+    load = [[tapegen.serve_request(lazy, rs, datas[t], 8) for rs in rseeds]
+            for t in range(SERVE_TENANTS)]
+    refs, _, _ = _drive(Server(batching=False, backend=backend), load,
+                        concurrent=False)
+    srv = Server(window_s=0.25, max_batch=SERVE_TENANTS, backend=backend)
+    got, _, _ = _drive(srv, load, concurrent=True, barrier=True)
+    _same(refs, got, f"{backend} {size} random pass")
+    return {"batches": srv.metrics.counter("serve.batches").get(),
+            "batched": srv.metrics.counter("serve.batched_requests").get()}
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -2107,13 +2460,15 @@ def main() -> int:
     print(f"LAUNCH_COST fused_block wrapper call at n=1024: "
           f"{launch_s * 1e6:.2f} us", flush=True)
     a7_launches = run_a7(launch_s)
+    torch.cuda.empty_cache()
+    serve_launches = run_serve(lazy, codegen)
     kernels = {"kernels": [{
         "name": "fused_block",
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
-                     + loop["launches"] + a7_launches),
+                     + loop["launches"] + a7_launches + serve_launches),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

@@ -8,7 +8,8 @@ from .fusion import (WSPGraph, build_graph,                      # noqa: F401
 from .blocks import BlockInfo                                    # noqa: F401
 from .cost import (BohriumCost, CalibratedCost, CostModel,       # noqa: F401
                    GPUCost, MaxContractCost, MaxLocalityCost,
-                   RobinsonCost, make_cost_model, model_cache_token)
+                   RobinsonCost, closed_form_saving, make_cost_model,
+                   model_cache_token)
 from .partition import PartitionState                            # noqa: F401
 from .algorithms import PartitionResult, partition               # noqa: F401
 from .cache import MergeCache, tape_signature                    # noqa: F401

@@ -132,6 +132,26 @@ class BohriumCost(CostModel):
         return float(b.ext_size(self.unit))
 
 
+def closed_form_saving(b1: BlockInfo, b2: BlockInfo,
+                       unit: str = "elements") -> float:
+    """Prop. 1 closed form — ``||ext∩ext|| + ||new[B1]∩in[B2]|| +
+    ||out[B1]∩del[B2]||`` (b1 must precede b2).  Used only to *verify* the
+    generic difference computation in tests."""
+
+    def sz(v: View) -> int:
+        return v.size if unit == "elements" else v.nbytes
+
+    r1, w1 = b1.ext_views()
+    r2, w2 = b2.ext_views()
+    k1r = {view_key(v) for v in r1}
+    k1w = {view_key(v) for v in w1}
+    s = sum(sz(v) for v in r2 if view_key(v) in k1r)
+    s += sum(sz(v) for v in w2 if view_key(v) in k1w)
+    s += sum(sz(v) for v in b2.in_map.values() if v.base.uid in b1.new_bases)
+    s += sum(sz(v) for v in b1.out_map.values() if v.base.uid in b2.del_bases)
+    return float(s)
+
+
 class MaxContractCost(CostModel):
     """Def. 19: arrays NOT contracted each cost 1."""
 

@@ -333,15 +333,17 @@ def _window(plan) -> Tuple[slice, ...]:
     return tuple(slice(a, a + n) for a, n in zip(starts, sizes))
 
 
-def _read(buf: torch.Tensor, v: View) -> torch.Tensor:
+def _read(buf: torch.Tensor, v: View, batched: bool = False) -> torch.Tensor:
     """The elements of ``v`` as a tensor of ``v.shape`` (a view of ``buf``
-    where possible; callers never write through it)."""
+    where possible; callers never write through it).  ``batched`` (under
+    ``torch.func.vmap``) reads a pattern no slice expresses by index gather,
+    never through ``as_strided`` on a tensor that carries a batch axis."""
     if _is_whole(v):
         return buf.reshape(v.shape)
     plan = _slice_plan(v)
     if plan is not None:
         return buf.reshape(plan[0])[_window(plan)].reshape(v.shape)
-    if all(st >= 0 for st in v.strides):
+    if not batched and all(st >= 0 for st in v.strides):
         # stride-0 broadcasts and other non-negative patterns: one strided
         # view selects the same elements as the index gather below
         buf = buf.contiguous()
@@ -350,15 +352,21 @@ def _read(buf: torch.Tensor, v: View) -> torch.Tensor:
     return buf[_view_index(v, buf.device)].reshape(v.shape)
 
 
-def _write(buf: torch.Tensor, v: View, val) -> torch.Tensor:
+def _write(buf: torch.Tensor, v: View, val,
+           batched: bool = False) -> torch.Tensor:
     """``buf`` with ``v`` set to ``val`` (cast to the base dtype), as a new
-    flat tensor; ``buf`` itself is never modified."""
+    flat tensor; ``buf`` itself is never modified.  ``batched`` (under
+    ``torch.func.vmap``) writes a window by one out-of-place ``index_put``:
+    vmap refuses the clone-and-assign below when ``val`` carries the batch
+    axis and ``buf`` does not (a base the block allocates)."""
     if not isinstance(val, torch.Tensor):
         val = torch.tensor(val)
     val = torch.broadcast_to(val.to(device=buf.device, dtype=buf.dtype),
                              v.shape)
     if _is_whole(v):
         return val.reshape(-1).contiguous()
+    if batched:
+        return buf.index_put((_view_index(v, buf.device),), val.reshape(-1))
     out = buf.clone()
     plan = _slice_plan(v)
     if plan is not None:
@@ -424,14 +432,21 @@ def _base_meta(ops: Sequence[Op]) -> Dict[int, Tuple[int, np.dtype]]:
     return meta
 
 
-def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
+def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None,
+                  batched: bool = False):
     """Build the floor function for one block: one PyTorch call per op.
 
     Returns ``(fn, input_uids, output_uids)`` where ``fn(*input_bufs,
     salts) -> output_bufs`` takes flat tensors on ``device`` (the CUDA card
     unless given) and a sequence of per-``random``-op integer salts, or a
     ``prng.KeyTable`` (a fused loop body) whose key words the draws read
-    on the device."""
+    on the device, or an int64 tensor ``(n_rand, 2)`` of the draws' key
+    words (``prng.key_words``; one row of a batched dispatch's).
+
+    ``batched=True`` builds the form ``torch.func.vmap`` maps over a
+    leading request axis (``backends/batch_body.py``): window writes and
+    gathered reads take their vmap-safe forms (:func:`_write`,
+    :func:`_read`), with the same values."""
     device = resolve_device(device)
     work = [op for op in ops if not op.is_system()]
     inputs, outputs, _contracted = block_io(ops)  # DEL/SYNC drive contraction
@@ -446,8 +461,8 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
                 env[u] = torch.zeros(size, dtype=torch_dtype(dtype),
                                      device=device)
         for op in work:
-            ins = [(_read(env[v.base.uid], v) if isinstance(v, View) else v)
-                   for v in op.inputs]
+            ins = [(_read(env[v.base.uid], v, batched)
+                    if isinstance(v, View) else v) for v in op.inputs]
             oc = op.opcode
             if oc in COMM_OPS:
                 # single-device semantics of a placement cast: identity
@@ -465,6 +480,10 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
                     val = prng.uniform_from(*salts.words(n_rand),
                                             op.out.shape, op.out.dtype,
                                             device)
+                elif isinstance(salts, torch.Tensor):
+                    val = prng.uniform_from(salts[n_rand, 0],
+                                            salts[n_rand, 1], op.out.shape,
+                                            op.out.dtype, device)
                 else:
                     val = prng.uniform(seed, salts[n_rand], op.out.shape,
                                        op.out.dtype, device)
@@ -479,7 +498,7 @@ def make_block_fn(ops: Sequence[Op], seed: int = 0, device=None):
             else:
                 raise NotImplementedError(f"opcode {oc!r}")
             ov = op.out
-            env[ov.base.uid] = _write(env[ov.base.uid], ov, val)
+            env[ov.base.uid] = _write(env[ov.base.uid], ov, val, batched)
         return tuple(env[u] for u in outputs)
 
     return fn, inputs, outputs
@@ -521,7 +540,15 @@ class BlockExecutor:
 
     Dispatch is asynchronous on a CUDA device: with no profiler attached
     nothing in the block loop synchronizes, so results only wait for the
-    card at an explicit SYNC (``Runtime.materialize``)."""
+    card at an explicit SYNC (``Runtime.materialize``).
+
+    Thread-safe (DESIGN.md §18): the sessions of one runtime
+    (``Runtime.session``) flush through one executor from many threads.
+    One lock guards the executable cache (two threads that build the same
+    block at once keep the first build) and the SYNC snapshot store; each
+    dispatch's cache hit or miss and its ``blocks_run`` move together
+    under the metrics registry's lock, so a snapshot never sees one
+    without the other."""
 
     def __init__(self, seed: int = 0, backend="torch", device=None,
                  profiler=None):
@@ -604,6 +631,11 @@ class BlockExecutor:
         return LoweringPolicy(backends=self.backends,
                               ctx=self.lowering_context())
 
+    def topology_key(self) -> Tuple:
+        """The device/mesh identity a plan is valid for: ``()`` on one
+        device, until the mesh is ported (ROADMAP A10b)."""
+        return ()
+
     def run(self, tape: Sequence[Op], op_blocks: Sequence[Sequence[int]],
             buffers: Dict[int, torch.Tensor]) -> None:
         """Legacy front door: plan the blocks, then execute the schedule."""
@@ -637,15 +669,13 @@ class BlockExecutor:
         with self._lock:
             fn = self._cache.get(key)
         if fn is not None:
-            self.stats.inc("exec_cache_hits")
             trace.instant("cache.exec", hit=True, backend=decision.backend)
             return fn, True
-        self.stats.inc("exec_cache_misses")
         trace.instant("cache.exec", hit=False, backend=decision.backend)
         with trace.span("build", backend=decision.backend, n_ops=len(ops)):
             fn = get_backend(decision.backend).build(ops, plan, ctx)
-        with self._lock:
-            self._cache[key] = fn
+        with self._lock:   # a concurrent build of the same block: keep one
+            fn = self._cache.setdefault(key, fn)
         return fn, False
 
     def _synchronize(self) -> None:
@@ -654,19 +684,24 @@ class BlockExecutor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _account(self, decision) -> None:
+    def _account(self, decision, warm: bool) -> None:
+        """Count one dispatch: its executable-cache hit (``warm``) or miss
+        with ``blocks_run`` and its backend, as one update of the
+        registry."""
         st = self.stats
-        st.inc("blocks_run")
-        st.inc("backend_blocks", labels=(decision.backend,))
-        for name, reason in decision.declined:
-            st.inc("backend_fallbacks", labels=(name, reason))
-        if decision.backend == "triton":
-            st.inc("triton_blocks")
-        else:
-            reason = decision.reason_for("triton")
-            if reason is not None:
-                st.inc("triton_fallback_blocks")
-                st.inc("triton_fallbacks", labels=(reason,))
+        with self.metrics.lock:
+            st.inc("exec_cache_hits" if warm else "exec_cache_misses")
+            st.inc("blocks_run")
+            st.inc("backend_blocks", labels=(decision.backend,))
+            for name, reason in decision.declined:
+                st.inc("backend_fallbacks", labels=(name, reason))
+            if decision.backend == "triton":
+                st.inc("triton_blocks")
+            else:
+                reason = decision.reason_for("triton")
+                if reason is not None:
+                    st.inc("triton_fallback_blocks")
+                    st.inc("triton_fallbacks", labels=(reason,))
 
     @staticmethod
     def _grant(plan, in_bufs: Sequence[torch.Tensor],
@@ -697,17 +732,22 @@ class BlockExecutor:
         from .backends import get_backend
         tape = schedule.tape
         ctx = self.lowering_context()
-        # holders of each storage: buffers and SYNC snapshots
-        refs = Counter(_storage(b) for b in (*buffers.values(),
-                                             *self.sync_store.values()))
+        # holders of each storage: buffers and SYNC snapshots (other
+        # sessions' snapshots share no storage with this store's buffers
+        # but rows of one batched dispatch, which they can only make
+        # conservative)
+        with self._lock:
+            snapshots = list(self.sync_store.values())
+        refs = Counter(_storage(b) for b in (*buffers.values(), *snapshots))
 
         def hold(store: Dict[int, torch.Tensor], u: int, buf) -> None:
-            old = store.pop(u, None)
-            if old is not None:
-                refs[_storage(old)] -= 1
-            if buf is not None:
-                store[u] = buf
-                refs[_storage(buf)] += 1
+            with self._lock:      # the SYNC store is every session's
+                old = store.pop(u, None)
+                if old is not None:
+                    refs[_storage(old)] -= 1
+                if buf is not None:
+                    store[u] = buf
+                    refs[_storage(buf)] += 1
 
         with trace.span("stage.execute", n_blocks=len(schedule.blocks)):
             for plan in schedule.blocks:
@@ -717,7 +757,7 @@ class BlockExecutor:
                     if decision is None:        # a schedule planned without
                         decision = self._decide(ops, plan, ctx)   # a policy
                     fn, warm = self._executable(decision, ops, plan, ctx)
-                    self._account(decision)
+                    self._account(decision, warm)
                     in_bufs = []
                     for u in plan.inputs:
                         if u not in buffers:
@@ -813,12 +853,13 @@ class BlockExecutor:
             keep = set(state_uids)
             slots = {_storage(b) for b in body.slots}
             moved = 0
-            for store in (buffers, self.sync_store):
-                for u, b in list(store.items()):
-                    if _storage(b) in slots and not (store is buffers
-                                                     and u in keep):
-                        store[u] = b.clone()
-                        moved += 1
+            with self._lock:      # the SYNC store is every session's
+                for store in (buffers, self.sync_store):
+                    for u, b in list(store.items()):
+                        if _storage(b) in slots and not (store is buffers
+                                                         and u in keep):
+                            store[u] = b.clone()
+                            moved += 1
             moved += body.bind(state, invariants)
             for u, b in zip(inv_uids, body.inv):
                 buffers[u] = b
@@ -832,6 +873,61 @@ class BlockExecutor:
             st.inc("donated_buffers", sum(
                 1 for b, s in zip(state, body.slots) if b is s))
         return tuple(body.slots)
+
+    def run_batch(self, schedule, tape_inputs: Sequence[int],
+                  tape_outputs: Sequence[int],
+                  in_cols: Sequence[Sequence[torch.Tensor]],
+                  salt_rows: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+        """Dispatch B structurally identical flushes as ONE batched call
+        (cross-request micro-batching, DESIGN.md §18).
+
+        ``schedule`` is the lead request's planned flush (every work block
+        on the ``torch`` floor), ``tape_inputs``/``tape_outputs`` its
+        tape-level io in canonical ``cache.tape_io`` order, ``in_cols`` one
+        column per input position (each a length-B list of flat buffers,
+        request order) and ``salt_rows`` one row per request of that
+        request's ``random``-op salts (schedule work-block order).  Returns
+        one ``(B, size)`` stacked buffer per output position; the caller
+        hands row ``r`` to request ``r``'s buffer store.  Those rows are
+        views of one tensor, each its own elements: safe because the floor
+        never writes a buffer in place, and a later block that does (B1
+        under a donation grant) writes only the elements of its own row.
+
+        The salts are host ints, so each request's key words are computed
+        here (``prng.key_words``) and go to the batch as one ``(B, n_rand,
+        2)`` int64 tensor: a request draws exactly what its solo flush
+        draws.  The executable (``backends.batch_body.build_batch_fn``) is
+        cached under ``("serve_batch", plan key, B)``, built once per key
+        (two threads that build it at once keep the first build)."""
+        from .backends.batch_body import build_batch_fn
+        B = len(salt_rows)
+        plan_key = (schedule.key if schedule.key is not None
+                    else tuple(p.signature for p in schedule.blocks))
+        key = ("serve_batch", plan_key, B)
+        with trace.span("serve.batch", n_requests=B):
+            with self._lock:
+                cached = self._cache.get(key)
+            hit = cached is not None
+            trace.instant("cache.exec", hit=hit, batch=True)
+            if not hit:
+                with trace.span("build", batch=True,
+                                n_ops=len(schedule.tape)):
+                    built = build_batch_fn(schedule.tape, schedule.blocks,
+                                           tuple(tape_inputs),
+                                           tuple(tape_outputs),
+                                           self.lowering_context())
+                with self._lock:
+                    cached = self._cache.setdefault(key, built)
+            fn, n_rand = cached
+            self.stats.inc("exec_cache_hits" if hit else "exec_cache_misses")
+            self.metrics.counter("serve.batch.dispatches").inc()
+            self.metrics.counter("serve.batch.requests").inc(B)
+            stacked = tuple(torch.stack(list(col)) for col in in_cols)
+            words = torch.tensor(
+                [[prng.key_words(self.seed, s) for s in row]
+                 for row in salt_rows], dtype=torch.int64,
+                device=self.device).reshape(B, n_rand, 2)
+            return list(fn(stacked, words))
 
 
 def _storage(t: torch.Tensor) -> int:

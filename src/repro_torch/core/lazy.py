@@ -90,9 +90,21 @@ class Runtime:
         than greedy.
     time_budget_s : wall-clock cap for the ilp solver (None: the node
         budget only).
+    plan_store : optional persistent plan cache (DESIGN.md §18): a
+        ``repro_torch.core.serve.PlanStore`` or a directory path.  The
+        scheduler probes it on a merge-cache miss and persists fresh plans,
+        so a warm process start replays block plans and lowering decisions
+        from disk without re-running graph, partition and lower.
 
-    One ``Runtime`` is single-threaded state: exactly one thread may trace
-    and flush it at a time.
+    **Concurrency contract** (DESIGN.md §18).  One ``Runtime`` is
+    single-threaded state: its tape, buffer store and refcounts have no
+    locking, so exactly one thread may trace and flush it at a time.
+    Concurrency goes through *sessions*: :meth:`session` returns a
+    per-tenant ``Runtime`` with its own tape and buffers that SHARES this
+    runtime's scheduler (merge cache, plan store) and executor (executable
+    cache, SYNC store, metrics), which are thread-safe, so N threads may
+    flush N sessions at once.  An array belongs to the session that
+    recorded it.
     """
 
     def __init__(self, algorithm: str = "greedy", cost_model: str = "bohrium",
@@ -102,7 +114,9 @@ class Runtime:
                  loop_fusion: bool = True,
                  loop_threshold: int = 3, loop_unroll: int = 32,
                  partition_backend: str = "greedy",
-                 time_budget_s: Optional[float] = None):
+                 time_budget_s: Optional[float] = None, plan_store=None,
+                 _scheduler: Optional[Scheduler] = None,
+                 _executor: Optional[BlockExecutor] = None):
         self.algorithm = algorithm
         self.cost_model = cost_model
         self.use_cache = use_cache
@@ -112,12 +126,27 @@ class Runtime:
         self.device = resolve_device(device)
         self.tape: List[Op] = []
         self.buffers: Dict[int, torch.Tensor] = {}
-        self.scheduler = Scheduler(MergeCache())
+        # sessions share their parent's planning and execution state (the
+        # `_scheduler`/`_executor` private parameters); a root runtime
+        # builds its own
+        self.scheduler = (_scheduler if _scheduler is not None
+                          else Scheduler(MergeCache()))
         self.cache = self.scheduler.cache
         self._loop = (LoopFuser(threshold=loop_threshold, unroll=loop_unroll)
                       if loop_fusion else None)
-        self.executor = BlockExecutor(seed=seed, backend=backend,
-                                      device=self.device, profiler=profiler)
+        self.executor = (_executor if _executor is not None
+                         else BlockExecutor(seed=seed, backend=backend,
+                                            device=self.device,
+                                            profiler=profiler))
+        if self.executor.device != self.device:
+            raise ValueError(f"a runtime on {self.device} over an executor "
+                             f"on {self.executor.device}")
+        if plan_store is not None:
+            from .serve.store import PlanStore
+            if not isinstance(plan_store, PlanStore):
+                plan_store = PlanStore(plan_store)
+            plan_store.bind_metrics(self.executor.metrics)
+            self.scheduler.plan_store = plan_store
         self._known: set = set()
         self._refcount: Dict[int, int] = {}
         self._bases: Dict[int, BaseArray] = {}
@@ -289,11 +318,33 @@ class Runtime:
             arr.reshape(-1).copy()).to(self.device)
         return LazyArray(self, View.contiguous(base, arr.shape))
 
+    # -- sessions (concurrent serving, DESIGN.md §18) ------------------
+    def session(self, *, loop_fusion: bool = False, **kw) -> "Runtime":
+        """A per-tenant runtime sharing this runtime's scheduler (merge
+        cache + plan store) and executor (executable cache, metrics) but
+        with private tape, buffers and refcounts.  Each session is
+        single-threaded; N sessions may trace and flush concurrently from
+        N threads.  It inherits the planning policy and this runtime's
+        device and backend (the executor's).  Loop fusion defaults OFF in
+        sessions — a serving request is usually one flush, and the fuser's
+        deferral window would hold results hostage across requests."""
+        kw.setdefault("algorithm", self.algorithm)
+        kw.setdefault("cost_model", self.cost_model)
+        kw.setdefault("use_cache", self.use_cache)
+        kw.setdefault("node_budget", self.node_budget)
+        kw.setdefault("partition_backend", self.partition_backend)
+        kw.setdefault("time_budget_s", self.time_budget_s)
+        kw.setdefault("device", self.device)
+        return Runtime(loop_fusion=loop_fusion, backend=self.executor.backend,
+                       _scheduler=self.scheduler, _executor=self.executor,
+                       **kw)
+
     @contextlib.contextmanager
     def activate(self):
         """Make this runtime the calling thread's active runtime: the
         module-level constructors (``zeros``/``random``/…) and ``flush()``
-        route here for the duration."""
+        route here for the duration.  Thread-local — other threads'
+        active runtimes are untouched."""
         prev = getattr(_active, "rt", None)
         _active.rt = self
         try:

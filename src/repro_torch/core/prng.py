@@ -74,11 +74,11 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, int(data) & MASK)
 
 
-# float dtype -> (integer view dtype, mantissa bits, exponent-zero bits)
+# float dtype -> (torch dtype, mantissa bits)
 _LAYOUT = {
-    np.dtype(np.float64): (torch.int64, 52, 0x3FF0000000000000),
-    np.dtype(np.float32): (torch.int32, 23, 0x3F800000),
-    np.dtype(np.float16): (torch.int16, 10, 0x3C00),
+    np.dtype(np.float64): (torch.float64, 52),
+    np.dtype(np.float32): (torch.float32, 23),
+    np.dtype(np.float16): (torch.float16, 10),
 }
 
 
@@ -113,11 +113,15 @@ def uniform_bits(k1: Word, k2: Word, index: torch.Tensor,
     0-dim int64 tensors holding 32-bit values (:meth:`KeyTable.words`):
     the counter pair ``(i >> 32, i & MASK)``, threefry2x32 under the key
     words, then the top mantissa bits of the output words as a float in
-    ``[1, 2)`` minus one."""
+    ``[1, 2)`` minus one.  That float minus one is ``frac * 2**-nmant``
+    exactly (``frac`` < 2**nmant converts exactly and the scale is a power
+    of two), which is how it is computed here: a dtype view of the bits
+    would have no batching rule under ``torch.func.vmap`` (PyTorch 2.11),
+    and a batched serving dispatch draws through this function."""
     dt = np.dtype(dtype)
     if dt not in _LAYOUT:
         raise TypeError(f"uniform draws float16/32/64, not {dt}")
-    view, nmant, one = _LAYOUT[dt]
+    torch_dt, nmant = _LAYOUT[dt]
     b1, b2 = threefry2x32(k1, k2, index >> 32, index & MASK)
     if dt.itemsize == 8:
         # the 64-bit word is b1:b2; keep its top 52 bits without forming it
@@ -125,10 +129,7 @@ def uniform_bits(k1: Word, k2: Word, index: torch.Tensor,
     else:
         frac = (b1 ^ b2) >> (32 - nmant) if dt.itemsize == 4 \
             else ((b1 ^ b2) & 0xFFFF) >> (16 - nmant)
-    floats = (frac | one).to(view).view(torch.float64 if dt.itemsize == 8
-                                        else torch.float32 if dt.itemsize == 4
-                                        else torch.float16)
-    return floats - 1.0
+    return frac.to(torch_dt) * 2.0 ** -nmant
 
 
 def uniform(seed: int, salt: int, shape, dtype,

@@ -148,6 +148,11 @@ class Scheduler:
 
     def __init__(self, cache: Optional[MergeCache] = None):
         self.cache = cache if cache is not None else MergeCache()
+        #: optional persistent plan cache (``repro_torch.core.serve.
+        #: PlanStore``, DESIGN.md §18) — probed after an in-memory
+        #: merge-cache miss and written through on fresh plans, so a warm
+        #: process start replays block structure + lowering decisions
+        self.plan_store = None
 
     def plan(self, tape: Sequence[Op], *, algorithm: str = "greedy",
              cost_model: str = "bohrium", node_budget: int = 100_000,
@@ -170,8 +175,10 @@ class Scheduler:
         ``partition_backend='ilp'`` solves the partition as an anytime
         integer program warm-started from greedy (``algorithms.partition``;
         ``time_budget_s`` caps the solver wall clock).  The backend is part
-        of the merge-cache key: a cache populated by greedy is a clean miss
-        for ilp and vice versa."""
+        of the merge-cache key: a cache (or plan store) populated by greedy
+        is a clean miss for ilp and vice versa.  With a ``plan_store``, a
+        merge-cache miss probes the store, a hit there is promoted into the
+        cache, and a fresh plan is written through to it."""
         stats: Dict[str, float] = {}
         blocks: Optional[Tuple[Tuple[int, ...], ...]] = None
         decisions: Optional[Tuple] = None
@@ -182,6 +189,11 @@ class Scheduler:
                             partition_backend)
             entry = self.cache.get(key)
             trace.instant("cache.merge", hit=entry is not None)
+            if entry is None and self.plan_store is not None:
+                entry = self.plan_store.load(key)
+                if entry is not None:
+                    # promote the disk hit so later flushes stay in memory
+                    self.cache.put(key, entry)
             if entry is not None:
                 blocks, decisions = entry
                 cached = True
@@ -210,6 +222,8 @@ class Scheduler:
             stats["t_lower_s"] = time.perf_counter() - t0
         if use_cache and not cached:
             self.cache.put(key, (blocks, decisions))
+            if self.plan_store is not None:
+                self.plan_store.store(key, blocks, decisions)
         return Schedule(tape=list(tape), blocks=plans, result=result,
                         stats=stats, key=key)
 

@@ -102,6 +102,7 @@ import hashlib
 import importlib.util
 import math
 import os
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
@@ -135,6 +136,10 @@ BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
 #: tensor, whether or not its combine pass runs); reset it to 0 to count
 #: the launches of one run
 LAUNCHES = {"fused_block": 0}
+_COUNT_LOCK = threading.Lock()
+#: serializes generating, importing and first compiling a kernel: threads
+#: that build the same block at once get one module and one compile
+_BUILD_LOCK = threading.RLock()
 
 #: fallback reason slugs (DESIGN.md §13 documents the semantics of each;
 #: kept letter for letter from the reference)
@@ -1266,9 +1271,14 @@ def _load_module(source: str):
     reads a kernel's source with ``inspect``, so it must live in a file),
     with Triton's compile cache under ``build/triton_cache``."""
     digest = hashlib.sha1(source.encode()).hexdigest()[:16]
-    mod = _MODULES.get(digest)
-    if mod is not None:
-        return mod
+    with _BUILD_LOCK:
+        mod = _MODULES.get(digest)
+        if mod is None:
+            mod = _MODULES[digest] = _import_source(source, digest)
+    return mod
+
+
+def _import_source(source: str, digest: str):
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton_cache"))
     path = BUILD_DIR / "triton_blocks" / f"blk_{digest}.py"
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -1279,7 +1289,6 @@ def _load_module(source: str):
     spec = importlib.util.spec_from_file_location(f"_fused_blk_{digest}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    _MODULES[digest] = mod
     return mod
 
 
@@ -1302,6 +1311,8 @@ class FusedBlockKernel:
         self.device = torch.device(device)
         #: keyed (loop form) -> (module, consts, combines) once built
         self._gen: Dict[bool, Tuple] = {}
+        #: the forms launched once (compiled by Triton)
+        self._launched: Set[bool] = set()
 
     def _device_of(self, bufs) -> torch.device:
         devs = {b.device for b in bufs}
@@ -1338,8 +1349,15 @@ class FusedBlockKernel:
         """Run the generated kernel (and its combine passes) on CUDA
         tensors; returns the output buffers."""
         run, outs = self.prepare(store, salts, device, reuse)
-        run()
-        LAUNCHES["fused_block"] += 1
+        keyed = isinstance(salts, prng.KeyTable) and bool(self.plan.rand_shapes)
+        if keyed in self._launched:
+            run()
+        else:
+            with _BUILD_LOCK:        # Triton compiles at the first launch
+                run()
+                self._launched.add(keyed)
+        with _COUNT_LOCK:
+            LAUNCHES["fused_block"] += 1
         return tuple(outs)
 
     def prepare(self, store: Dict[int, torch.Tensor], salts,
@@ -1350,14 +1368,19 @@ class FusedBlockKernel:
         (nothing else) and fills ``outs``."""
         p = self.plan
         keyed = isinstance(salts, prng.KeyTable) and bool(p.rand_shapes)
-        if keyed not in self._gen:
-            source, kf, ki, combines = triton_source(p, keyed)
-            consts = (torch.tensor(kf or [0.0], dtype=torch.float64,
-                                   device=device),
-                      torch.tensor(ki or [0], dtype=torch.int64,
-                                   device=device))
-            self._gen[keyed] = (_load_module(source), consts, combines)
-        mod, consts, combines = self._gen[keyed]
+        gen = self._gen.get(keyed)
+        if gen is None:
+            with _BUILD_LOCK:
+                gen = self._gen.get(keyed)
+                if gen is None:
+                    source, kf, ki, combines = triton_source(p, keyed)
+                    consts = (torch.tensor(kf or [0.0], dtype=torch.float64,
+                                           device=device),
+                              torch.tensor(ki or [0], dtype=torch.int64,
+                                           device=device))
+                    gen = self._gen[keyed] = (_load_module(source), consts,
+                                              combines)
+        mod, consts, combines = gen
         args = [store[o.base_uid].contiguous()[o.view.offset:]
                 for o in p.operands if o.source == "buffer"]
         outs = output_buffers(p, store, reuse, device)

@@ -28,7 +28,9 @@ Checks (each returns normally or raises ``AssertionError``):
 * ``check_loop``  — loop-fused runs of an :class:`IterativeProgram` are
   bitwise identical to per-flush runs, on both stacks;
 * ``check_lm``    — the ``lm`` stack against the torch floor under the
-  same partition (below).
+  same partition (below);
+* ``check_serve`` — concurrent sessions and a micro-batching server
+  against serial runs, bitwise (below).
 
 The cross-package check (``xref``: the same seed through the JAX package
 and through the port, bitwise) imports the JAX package, so it lives in the
@@ -559,8 +561,150 @@ def check_lm(seed: int, *, size: int = 64, device="cpu") -> None:
             f"{claimant!r} claimant (backend_blocks={blocks})")
 
 
+def serve_recipe(seed: int, *, tenants: int = 4, requests: int = 2,
+                 size: int = 64) -> Tuple[List[int], List[np.ndarray],
+                                          List[int]]:
+    """The seeded draws of ``check_serve`` (the reference's, in its order):
+    one :class:`TapeProgram` seed per tenant (phase 1), one data array per
+    tenant and one request seed per round (phase 2)."""
+    rnd = random.Random(seed ^ 0x5EABE17)
+    prog_seeds = [rnd.randrange(1_000_000) for _ in range(tenants)]
+    rnd.shuffle(prog_seeds)
+    npr = np.random.default_rng(seed)
+    datas = [np.floor(npr.random(size) * 16.0) for _ in range(tenants)]
+    rseeds = [rnd.randrange(1_000_000) for _ in range(requests)]
+    return prog_seeds, datas, rseeds
+
+
+def serve_request(bh, rseed: int, data: np.ndarray, n_actions: int):
+    """``check_serve``'s request function for lazy module ``bh`` (the
+    port's, or the JAX package's for the cross-package check): a seeded
+    chain over the tenant's data that returns its lazy result."""
+    def fn():
+        r = random.Random(rseed)
+        a = bh.asarray(data)
+        x = a
+        for _ in range(n_actions):
+            act = r.randrange(5)
+            if act == 0:
+                x = bh.floor((x * r.choice((0.5, 2.0, 3.0))) % _MOD)
+            elif act == 1:
+                x = x + float(r.randrange(-4, 5))
+            elif act == 2:
+                x = bh.maximum(x, a)
+            elif act == 3:
+                x = x + bh.floor(bh.random(x.shape) * 8.0)
+            else:
+                x = bh.where(x > a, x, a)
+        return x
+    return fn
+
+
+#: seconds a check_serve thread may take before the check fails
+JOIN_TIMEOUT_S = 120.0
+
+
+def _run_threads(n: int, target, label: str) -> None:
+    """Run ``target(i)`` on ``n`` threads and join each with a timeout: a
+    worker's exception or a join that times out fails the check."""
+    import threading
+    errors: List = []
+
+    def wrap(i: int) -> None:
+        try:
+            target(i)
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=wrap, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(JOIN_TIMEOUT_S)
+    hung = [i for i, t in enumerate(threads) if t.is_alive()]
+    if hung:
+        raise AssertionError(f"{label}: threads {hung} still running after "
+                             f"{JOIN_TIMEOUT_S}s")
+    if errors:
+        raise AssertionError(f"{label} failed: {errors[0]!r}") \
+            from errors[0][1]
+
+
+def check_serve(seed: int, *, tenants: int = 4, requests: int = 2,
+                n_actions: int = 8, size: int = 64, device="cpu") -> dict:
+    """Concurrent serving == serial execution, bitwise (DESIGN.md §18).
+
+    Phase 1 — **concurrent sessions**: a seeded shuffle assigns ``tenants``
+    distinct :class:`TapeProgram`\\ s to per-tenant sessions of ONE shared
+    runtime; all tenants run at once from their own threads (barrier
+    start, interleaved flushes against the shared merge and executable
+    caches) and every tenant's outputs must match its own serial
+    fresh-runtime run bit for bit.
+
+    Phase 2 — **micro-batching**: every tenant submits the same seeded
+    request recipe (same structure, private data, per-session RNG salts)
+    through a batching :class:`~repro_torch.core.serve.Server`
+    concurrently; the reference is a batching-off server driven serially.
+    The batched dispatch must be bitwise identical to the per-session
+    flush path — ``random`` draws included, which read each request's key
+    words.  Runs on ``device``; returns both phases' outputs
+    (``"sessions"``: per tenant, ``"served"``: per (tenant, round))."""
+    import threading
+
+    from ..core import lazy as bh
+    from ..core.lazy import Runtime
+    from ..core.serve import Server
+
+    prog_seeds, datas, rseeds = serve_recipe(seed, tenants=tenants,
+                                             requests=requests, size=size)
+
+    # -- phase 1: N threads x N structurally-distinct programs ----------
+    progs = [TapeProgram(s, n_actions=n_actions, size=size, exact=True)
+             for s in prog_seeds]
+    refs = [p.run(device=device) for p in progs]
+    rt = Runtime(loop_fusion=False, device=device)
+    sessions = [rt.session() for _ in range(tenants)]
+    results: List = [None] * tenants
+    barrier = threading.Barrier(tenants)
+
+    def worker(i: int) -> None:
+        barrier.wait()
+        with sessions[i].activate():
+            results[i] = progs[i].run_current()
+
+    _run_threads(tenants, worker, f"seed {seed}: concurrent session")
+    for i in range(tenants):
+        _assert_bitwise(refs[i], results[i],
+                        f"seed {seed} [tenant {i} concurrent vs serial]")
+
+    # -- phase 2: batched server vs serial batching-off server ----------
+    ref_srv = Server(batching=False, device=device)
+    refs2 = {(i, r): ref_srv.submit(i, serve_request(bh, rs, datas[i],
+                                                     n_actions))
+             for r, rs in enumerate(rseeds) for i in range(tenants)}
+    srv = Server(window_s=0.25, max_batch=tenants, device=device)
+    out2: dict = {}
+    barrier2 = threading.Barrier(tenants)
+
+    def serve_worker(i: int) -> None:
+        for r, rs in enumerate(rseeds):
+            barrier2.wait()
+            out2[(i, r)] = srv.submit(i, serve_request(bh, rs, datas[i],
+                                                       n_actions))
+
+    _run_threads(tenants, serve_worker, f"seed {seed}: batched serve")
+    for k in refs2:
+        _assert_bitwise([refs2[k]], [out2[k]],
+                        f"seed {seed} [tenant/request {k} batched vs serial]")
+    batched = srv.metrics.counter("serve.batched_requests").get()
+    assert batched > 0, \
+        f"seed {seed}: no request ever coalesced (window too small?)"
+    return {"sessions": results, "served": out2}
+
+
 CHECKS = {"graph": check_graph, "exec": check_exec, "loop": check_loop,
-          "lm": check_lm}
+          "lm": check_lm, "serve": check_serve}
 
 
 def check_seed(seed: int, checks: Sequence[str] = ("graph", "exec"),
@@ -580,6 +724,10 @@ def check_seed(seed: int, checks: Sequence[str] = ("graph", "exec"),
         elif name == "lm":
             check_lm(seed, size=kw.get("size", 64),
                      device="cuda" if device is None else device)
+        elif name == "serve":
+            check_serve(seed, n_actions=max(4, kw.get("n_actions", 20) // 2),
+                        size=kw.get("size", 64),
+                        device="cuda" if device is None else device)
         else:
             raise ValueError(f"unknown check {name!r}; have {sorted(CHECKS)}")
 

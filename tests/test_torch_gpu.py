@@ -1384,3 +1384,114 @@ def test_explain_cli_json_on_the_card_names_triton_winners(cuda):
     assert "triton" in winners
     assert any(m["action"] == "rejected" and m["saving"] > 0
                for m in doc["merges"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_repeats_are_bitwise(card, dtype):
+    """ROADMAP C21's standing check: B3's Qwen1.5-4B case (B 4, Hq 20, S
+    512, D 128, causal) and, in bfloat16, its split-P form, 50 runs on the
+    same inputs: every output equals the first bit for bit and stays
+    within the plain version's tolerance."""
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    rng = np.random.default_rng(21)
+    q, k, v = (_randn(rng, (4, 20, 512, 128), dtype, card) for _ in range(3))
+    want = reference_attention(q, k, v, causal=True)
+    first = attention(q, k, v, True)
+    _hold(first, want, "attention")
+    for _ in range(49):
+        assert torch.equal(attention(q, k, v, True), first)
+
+
+def _serve_requests(size, n_tenants=4, rounds=2):
+    rng = np.random.default_rng(20)
+    datas = [np.floor(rng.random(size) * 16.0) for _ in range(n_tenants)]
+
+    def request(data, with_random):
+        def fn():
+            from repro_torch.core import lazy as bh
+            a = bh.asarray(data)
+            b = bh.floor((a * 2.0 + 3.0) % 1021.0)
+            c = bh.maximum(b, a) + b.sum().broadcast_to(a.shape)
+            if with_random:
+                c = c + bh.floor(bh.random(a.shape) * 8.0)
+            return c
+        return fn
+
+    return [[request(datas[t], r % 2 == 1) for r in range(rounds)]
+            for t in range(n_tenants)]
+
+
+def _serve_concurrently(srv, load):
+    import threading
+    n = len(load)
+    out, errors = {}, []
+    barrier = threading.Barrier(n)
+
+    def tenant(t):
+        try:
+            for r, fn in enumerate(load[t]):
+                barrier.wait(120)
+                out[(t, r)] = srv.submit(t, fn)
+        except BaseException as e:      # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=tenant, args=(t,), daemon=True)
+               for t in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    return out
+
+
+@pytest.mark.parametrize("backend", ["torch", "triton"])
+def test_server_on_the_card_is_bitwise_serial(cuda, backend):
+    """The multi-tenant server on the card at 2**20 elements a request, 4
+    tenants x 2 rounds with a barrier each (``random`` in the second):
+    bitwise to a batching-off server driven serially.  On the floor the
+    rounds batch; under ``backend="triton"`` B1 claims the blocks, so
+    every request runs solo and launches it."""
+    from repro_torch.core.serve import Server
+    load = _serve_requests(2 ** 20)
+    ref = Server(batching=False, backend=backend)
+    refs = {(t, r): ref.submit(t, load[t][r]) for r in range(2)
+            for t in range(len(load))}
+    srv = Server(window_s=0.5, max_batch=4, backend=backend)
+    before = codegen.LAUNCHES["fused_block"]
+    got = _serve_concurrently(srv, load)
+    launched = codegen.LAUNCHES["fused_block"] - before
+    for key in refs:
+        assert refs[key].tobytes() == got[key].tobytes(), key
+    batches = srv.metrics.counter("serve.batches").get()
+    if backend == "torch":
+        assert batches == 2 and launched == 0
+        assert srv.metrics.counter("serve.batched_requests").get() == 8
+    else:
+        assert batches == 0 and launched >= 8
+        assert srv.metrics.counter("serve.singles").get() == 8
+
+
+def test_plan_store_warm_start_on_the_card(cuda, tmp_path):
+    """A cold server over an empty store writes its plans; a fresh one
+    over the same directory hits, plans no partition, and gives the same
+    bits."""
+    from repro_torch.core.obs import trace
+    from repro_torch.core.serve import Server
+    load = _serve_requests(2 ** 16, n_tenants=2)
+    cold = Server(store=str(tmp_path), batching=False, backend="triton")
+    want = [cold.submit(t, fn) for t, fns in enumerate(load) for fn in fns]
+    assert cold.metrics.counter("cache.plan_store.write").get() >= 1
+    warm = Server(store=str(tmp_path), batching=False, backend="triton")
+    tr = trace.enable()
+    try:
+        got = [warm.submit(t, fn) for t, fns in enumerate(load)
+               for fn in fns]
+    finally:
+        trace.disable()
+    assert warm.metrics.counter("cache.plan_store.hit").get() >= 1
+    assert not any(e["name"] == "stage.partition" for e in tr.events)
+    for a, b in zip(want, got):
+        assert a.tobytes() == b.tobytes()

@@ -48,7 +48,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     for mod in ("kernels.rwkv6_scan.kernel_chunked", "configs.rwkv6_3b",
                 "launch.serve", "core.tuning.calibrate",
                 "core.tuning.profile", "core.partition_ilp",
-                "core.obs.explain"):
+                "core.obs.explain", "core.serve", "core.serve.server",
+                "core.serve.store", "core.serve.admission",
+                "core.backends.batch_body"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
@@ -91,6 +93,8 @@ def _entry_points():
     """Every public entry point that takes a device, called without one
     (``call()``) and with the CPU asked for (``call("cpu")``)."""
     from repro_torch.core.backends import LoweringContext
+    from repro_torch.core.lazy import Runtime
+    from repro_torch.core.serve import Server
     from repro_torch.core.executor import BlockExecutor, make_block_fn
     from repro_torch.kernels.fused_block import codegen, rowblock
     from repro_torch.kernels.fused_block.kernel import build_fused_kernel
@@ -116,6 +120,8 @@ def _entry_points():
         "init_params": lambda **kw: init_params(
             cfg.scaled(dtype="float32"), torch.Generator(), **kw),
         "reference_block": lambda **kw: reference_block(ops, **kw),
+        "Server": lambda **kw: Server(**kw),
+        "Runtime.session": lambda **kw: Runtime(**kw).session(),
         "serve": lambda **kw: serve.main(
             ["--requests", "1", "--new-tokens", "2"]
             + [f"--{k}={v}" for k, v in kw.items()]),
@@ -125,7 +131,7 @@ def _entry_points():
 ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
                 "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
                 "LoweringContext", "init_cache", "init_params",
-                "reference_block", "serve"]
+                "reference_block", "Server", "Runtime.session", "serve"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

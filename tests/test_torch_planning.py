@@ -194,3 +194,58 @@ def test_gpu_model_is_monotone_on_real_merges():
     for a, b in zip(infos, infos[1:]):
         assert model.merge_saving(a, b) >= -1e-18
     assert np.isfinite(model.partition_cost(infos))
+
+
+def _random_merges(state, rng, n):
+    """Up to ``n`` seeded legal merges of a partition state; returns the
+    (u, v) pairs merged, in order."""
+    done = []
+    for _ in range(n):
+        ids = sorted(state.blocks)
+        legal = [(u, v) for i, u in enumerate(ids) for v in ids[i + 1:]
+                 if state.legal_merge(u, v)]
+        if not legal:
+            break
+        u, v = legal[rng.integers(len(legal))]
+        state.merge(u, v)
+        done.append((u, v))
+    return done
+
+
+@pytest.mark.parametrize("name", sorted(TAPES))
+def test_closed_form_saving_matches_the_reference(name):
+    """Prop. 1's closed form (``cost.closed_form_saving``) on random
+    partitions of each tape: equal to the reference's for every legal
+    block pair, in elements and in bytes; on the singleton partition,
+    where a pair's first block precedes its second as Prop. 1 requires,
+    also equal to the Bohrium model's generic merge saving, as
+    ``tests/test_wsp_properties.py`` checks it in the reference."""
+    from repro.core import BohriumCost as RefBohrium
+    from repro.core import closed_form_saving as ref_closed
+    from repro.core.partition import PartitionState as RefState
+    from repro_torch.core import BohriumCost, closed_form_saving
+    from repro_torch.core.partition import PartitionState
+    tape = TAPES[name]
+    model = BohriumCost()
+    for seed in range(3):
+        st = PartitionState(build_graph(to_port(tape)), model)
+        ref = RefState(ref_build_graph(list(tape)), RefBohrium())
+        merged = _random_merges(st, np.random.default_rng(seed), 2 * seed)
+        for u, v in merged:
+            ref.merge(u, v)
+        assert sorted(st.blocks) == sorted(ref.blocks)
+        ids = sorted(st.blocks)
+        pairs = 0
+        for u in ids:
+            for v in ids:
+                if u < v and st.legal_merge(u, v):
+                    pairs += 1
+                    b1, b2 = st.blocks[u], st.blocks[v]
+                    for unit in ("elements", "bytes"):
+                        assert closed_form_saving(b1, b2, unit) == \
+                            ref_closed(ref.blocks[u], ref.blocks[v], unit)
+                    if not merged:   # singletons: u's op precedes v's
+                        generic = model.merge_saving(b1, b2)
+                        assert abs(generic - closed_form_saving(b1, b2)) \
+                            < 1e-9
+        assert pairs or len(ids) == 1
