@@ -115,6 +115,42 @@ eager), one layer against its B7 call, and B7's and B6's calls (32
 launches in a graph, as a prefill or a step makes them) against their
 bounds.
 
+Then the attention model families (``run_families``, the ``FAMILY``
+lines).  Its main path: ``configs/gemma2_9b.py`` at all 42 layers and its
+published widths (d_model 3584, 16 query heads and 8 kv heads of 256,
+d_ff 14336, vocab 256000 tied, sliding window 4096 on the even layers,
+softcaps 50 and 30, GeGLU, bf16 compute), random weights from a seeded
+``torch.Generator`` on the card, cast once for serving and the float32
+tree dropped.  It serves 2 requests of 4097-8192 tokens left-padded to
+8192 and 16 greedy tokens through ``serve_requests`` — the prefill one
+CUDA graph, the decode steps replays of another — with B3's count at 0
+just before.  It requires 42 B3 launches a prefill pass (21 local layers
+with window and softcap, 21 global with softcap; 84 at the wrapper, the
+warm-up and the capture) and none in the decode graph, the tokens of
+eager serving, a prefill replay and ``FAMILY_EXTEND`` decode replays
+bitwise to eager ones, the first and last local and global layers'
+recorded B3 calls within ``MODEL_TOL`` / ``BF16_RTOL`` of the plain
+version, and prefill(8192) then ``FAMILY_EXTEND`` decode tokens within
+``FAMILY_RTOL`` of prefill(8196)'s last logits, all finite: at 42 layers
+in bf16 and at 2 (one local, one global) in float32, where the ring's
+roll and slot arithmetic meet B3's float32.  It times the warm prefill
+(eager and replayed, in turns), the decode step, and one local and one
+global B3 call against their bounds (``_attention_work`` counts the
+window's pairs only) and beside the one PyTorch call that computes the
+same function (``_b3_library``: ``torch.compile(flex_attention)`` with a
+tanh ``score_mod`` and a causal / window ``block_mask`` where there is a
+softcap, else ``F.scaled_dot_product_attention(..., enable_gqa=True)``;
+timed only, never on the path).  Then ``FAMILY_OTHERS`` — Qwen3-4B (qk-norm, GQA
+4), StarCoder2-3B (GQA 12, gelu), LLaVA-NeXT-Mistral-7B (2880 patch
+embeddings before the prompt), Whisper-tiny (4 + 4 layers, 1500 frames,
+cross-attention with ``sq != sk`` also in every decode step) and
+Qwen1.5-4B (QKV bias, bf16) as published, at 2 layers (Whisper whole):
+2 requests of 512 and 412 tokens, 4 decode steps, each B3 call of the
+first prefill pass held against the plain version, the B3 count, graph
+replays bitwise to eager, prefill and decode times, and each distinct B3
+shape's call timed as Gemma's are.  B3's launches join
+the ``kernels`` line.
+
 Then cross-flush loop fusion (``run_loop``, the ``LOOP`` lines):
 heat_equation, sor, game_of_life and shallow_water at 4096² and
 lattice_boltzmann at 256³ (``CHIP_SIZES`` widths), ``LOOP_ITERS``
@@ -182,7 +218,9 @@ device-to-host copy ms, the profiled pass's device busy time and idle
 share, and the warm start's writes, hits and partition spans.  B1's
 launches over the phase join the ``kernels`` line.
 
-Last it prints a ``kernels`` JSON line (B1-B7), the card's name and power
+Last it prints a ``kernels`` JSON line (B1-B7; B3's entry is its
+largest-bound case, since this phase a served Gemma2-9B layer), the
+card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
 Triton kernels are generated and compiled under ``build/`` as the run
 needs them; the CUDA kernels are compiled into ``build/cuda/`` at their
@@ -192,6 +230,7 @@ first launch, one ``nvcc`` per source at once, then linked.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -278,6 +317,26 @@ RWKV_EXTEND = 4
 #: away and hold B6's state, carried token by token, against B7's chunks
 #: 130x tighter
 RWKV_RTOL = {"bfloat16": 0.7, "float32": 5e-3}
+#: the FAMILY phase: Gemma2-9B at all 42 layers and its published widths,
+#: 2 requests of 4097-8192 tokens left-padded to 8192 (past the 4096
+#: window: every local layer's ring is rolled and its window mask bites),
+#: 16 greedy tokens
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW_TOKENS = 2, 8192, 16
+#: decode tokens after prefill(P), held against prefill(P + those tokens)
+FAMILY_EXTEND = 4
+#: ... within these fractions of the largest logit magnitude: the RWKV
+#: phase's bounds (``RWKV_RTOL``), for the same reasons.  In bfloat16 at
+#: 42 layers the two runs round bf16 products of other shapes at other
+#: places; in float32 (2 layers at the same widths, one local and one
+#: global) B3's 3xTF32 prefill meets the decode's float32 einsum over the
+#: ring
+FAMILY_RTOL = {"bfloat16": 0.7, "float32": 5e-3}
+#: the other attention configs as published, at 2 layers (Whisper-tiny
+#: whole, 4 + 4): 2 requests of 512 and 412 tokens (LLaVA's 2880 patches
+#: before them, Whisper's 1500 frames beside them), 4 decode steps
+FAMILY_OTHERS = ("qwen3-4b", "starcoder2-3b", "llava-next-mistral-7b",
+                 "whisper-tiny", "qwen1.5-4b")
+FAMILY_OTHER_BATCH, FAMILY_OTHER_PROMPT, FAMILY_OTHER_STEPS = 2, 512, 4
 #: the LOOP phase: the iterative programs at their CHIP_SIZES widths, each
 #: run for 3 x the default unroll of 32 iterations, so with the default
 #: threshold of 3 a loop-fused run has its per-flush warm-up, two full
@@ -1216,7 +1275,8 @@ def run_model_kernels() -> dict:
 
 
 class OpRecorder:
-    """While active, wraps ``module.name``: counts its calls and keeps
+    """While active, wraps ``module.name``: counts its calls, keeps each
+    call's positional arguments that are not tensors (``scalars``) and
     clones of the arguments and the result of the calls numbered in
     ``keep`` (a CUDA graph's static buffers, which a call may read or
     return, are overwritten by later replays)."""
@@ -1226,10 +1286,13 @@ class OpRecorder:
         self.orig = getattr(module, name)
         self.n = 0
         self.calls = {}
+        self.scalars = []
 
     def __enter__(self):
         def spy(*args, **kw):
             out = self.orig(*args, **kw)
+            self.scalars.append(tuple(a for a in args
+                                      if not isinstance(a, torch.Tensor)))
             if self.n in self.keep:
                 self.calls[self.n] = (_clone(args), _clone(kw), _clone(out))
             self.n += 1
@@ -1430,7 +1493,7 @@ def run_rwkv() -> dict:
     del again
 
     # -- prefill(P) + decode tokens against prefill(P + tokens) ------------
-    toks = _left_pad(prompts)
+    toks = _pad_batch(prompts, RWKV_PROMPT)
     longer_toks = np.concatenate([toks, gen_tokens[:, :RWKV_EXTEND]], 1)
     max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
     sp = T.serving_params(params, cfg)     # as serve_requests serves
@@ -1533,7 +1596,7 @@ def _graph_vs_eager(cfg, params, prompts) -> bool:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     sp = T.serving_params(params, cfg)
-    toks = _left_pad(prompts)
+    toks = _pad_batch(prompts, RWKV_PROMPT)
     logits, gc = T.serve_prefill(sp, toks, cfg, RWKV_PROMPT + RWKV_EXTEND)
     ec = gc
     gt = et = serve._greedy(logits)
@@ -1549,15 +1612,6 @@ def _graph_vs_eager(cfg, params, prompts) -> bool:
     return bool(same)
 
 
-def _left_pad(prompts):
-    """A batch of prompts left-padded to ``RWKV_PROMPT``, as
-    ``serve_requests`` pads it."""
-    toks = np.zeros((RWKV_BATCH, RWKV_PROMPT), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, RWKV_PROMPT - len(p):] = p
-    return toks
-
-
 def _prefill_graph_vs_eager(cfg, params, prompts) -> dict:
     """Two batches through one :class:`PrefillStep` capture (the first
     again after the second), each replay's logits, token and caches held
@@ -1569,9 +1623,9 @@ def _prefill_graph_vs_eager(cfg, params, prompts) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     sp = T.serving_params(params, cfg)
-    a = _left_pad(prompts)
-    b = _left_pad(serve.draw_prompts(1, RWKV_BATCH, RWKV_PROMPT,
-                                     cfg.vocab_size))
+    a = _pad_batch(prompts, RWKV_PROMPT)
+    b = _pad_batch(serve.draw_prompts(1, RWKV_BATCH, RWKV_PROMPT,
+                                      cfg.vocab_size), RWKV_PROMPT)
     max_seq = RWKV_PROMPT + RWKV_NEW_TOKENS
     step = serve.PrefillStep(sp, cfg)
     torch.cuda.synchronize()
@@ -1603,6 +1657,509 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _draw_gains(tree, gen, plus_one: bool) -> None:
+    """The reference's zero-initialised leaves drawn in place: norm gains
+    ``g`` around 1 for a plain-``g`` config (its zeros would zero every
+    activation; ``1 + g`` configs keep them), QKV biases and qk-norm gains
+    (always ``1 + g``) around 0."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            _draw_gains(v, gen, plus_one)
+        elif key in ("bq", "bk", "bv", "q_norm", "k_norm") or (
+                key == "g" and not plus_one):
+            base = 1.0 if key == "g" else 0.0
+            v.copy_(base + 0.1 * torch.randn(v.shape, generator=gen,
+                                             device=v.device))
+
+
+def _family_weights(cfg, seed: int):
+    """Random weights for ``cfg`` drawn on the card from a generator seeded
+    ``seed`` (``_draw_gains``), cast once for serving: the float32 copies
+    of the cast leaves are dropped (Gemma2-9B's 9.24 B parameters are 37
+    GB in float32, 18.5 GB in bf16)."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, "cuda")
+    _draw_gains(params, gen, cfg.norm_plus_one)
+    n_params = sum(z.numel() for z in _leaves(params))
+    sp = T.serving_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return sp, n_params
+
+
+def _family_inputs(cfg, batch: int, seed: int) -> dict:
+    """Seeded frames (an encoder-decoder) or patch embeddings (a VLM), one
+    entry a request, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen, device="cuda")
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                         generator=gen, device="cuda")
+    return kw
+
+
+def _b3_hold(args, out):
+    """A recorded B3 call (``flash_attention.ops.attention``'s positional
+    ``q, k, v, causal, window, softcap, scale``) against its plain version
+    on the same inputs, a batch row at a time: ``(err, share)``."""
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    q, k, v, causal, window, softcap, scale = args
+    rtol = BF16_RTOL if q.dtype == torch.bfloat16 else 0.0
+    err = share = 0.0
+    for i in range(q.shape[0]):
+        plain = reference_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+        e, s = _hold(out[i:i + 1], plain, rtol, MODEL_TOL["flash_attention"])
+        err, share = max(err, e), max(share, s)
+        del plain
+    return err, share
+
+
+def _b3_label(args) -> str:
+    q, k, _, causal, window, softcap, _ = args
+    return (f"B{q.shape[0]} Hq{q.shape[1]} Hkv{k.shape[1]} Sq{q.shape[2]} "
+            f"Sk{k.shape[2]} D{q.shape[3]} causal={causal} window={window} "
+            f"softcap={softcap} {str(q.dtype).removeprefix('torch.')}")
+
+
+def _b3_library(args, out):
+    """The one PyTorch call that computes a recorded B3 call's function,
+    timed as a yardstick only (it never runs on the path):
+    ``F.scaled_dot_product_attention(..., enable_gqa=True)`` where there is
+    no softcap and no window, else ``torch.compile(flex_attention)`` with a
+    tanh ``score_mod`` and a causal / window ``block_mask``.  Returns
+    ``(call, ms, max abs difference from B3's output ``out``)``, or
+    ``(call, None, why it did not run)``; ``ms`` is a CUDA graph of the call
+    under :func:`cuda_ms` (SDPA) or events around 5 calls (flex, whose
+    calls take milliseconds here)."""
+    import torch.nn.functional as F
+    q, k, v, causal, window, softcap, scale = args
+    gqa = q.shape[1] != k.shape[1]
+    if softcap is None and window is None and (not causal
+                                               or q.shape[2] == k.shape[2]):
+        name = (f"F.scaled_dot_product_attention(is_causal={causal}, "
+                f"enable_gqa={gqa})")
+
+        def call():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale, enable_gqa=gqa)
+        timer = graph_ms
+    else:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        name = (f"torch.compile(flex_attention)(score_mod=tanh softcap "
+                f"{softcap}, block_mask causal={causal} window={window}, "
+                f"enable_gqa={gqa})")
+
+        def mask_mod(b, h, qi, ki):
+            keep = ki <= qi if causal else ki >= 0
+            return keep & (ki > qi - window) if window is not None else keep
+
+        def score_mod(score, b, h, qi, ki):
+            return softcap * torch.tanh(score / softcap)
+
+        # inductor's cache under build/, its kernels compiled in this
+        # process (no worker pool left behind)
+        os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                              str(ROOT / "build" / "inductor_cache"))
+        import torch._inductor.config as inductor_config
+        inductor_config.compile_threads = 1
+        flex = torch.compile(flex_attention, dynamic=False)
+        mask = []
+
+        def call():
+            if not mask:
+                mask.append(create_block_mask(mask_mod, None, None,
+                                              q.shape[2], k.shape[2],
+                                              device=q.device))
+            return flex(q, k, v, block_mask=mask[0], scale=scale,
+                        enable_gqa=gqa, score_mod=None if softcap is None
+                        else score_mod)
+        timer = cuda_ms
+    try:
+        got = call()
+    except Exception as e:      # a yardstick only: say why it did not run
+        return name, None, f"{type(e).__name__}: " + (
+            str(e).strip().splitlines() or [""])[0][:200]
+    diff = float((got.double() - out.double()).abs().max())
+    del got
+    return name, timer(call), diff
+
+
+def _b3_timing(label, args, out, err) -> dict:
+    """One recorded B3 call (``out`` its output) timed: the kernel as a CUDA
+    graph, its plain version a batch row at a time, the bound
+    (:func:`_attention_work`) and the library call (:func:`_b3_library`).
+    A ``kernels`` line row."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    q, k, v, causal, window, softcap, scale = args
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    nbytes, ops = _attention_work(q, k, causal, window, softcap)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    ms = graph_ms(lambda: fa_k.flash_attention(q, k, v, **kw))
+    plain_ms = cuda_ms(lambda: [reference_attention(
+        q[j:j + 1], k[j:j + 1], v[j:j + 1], **kw)
+        for j in range(q.shape[0])], reps=3, burst=1)
+    library, library_ms, library_diff = _b3_library(args, out)
+    return {"label": f"{label} {_b3_label(args)}", "shape": _b3_label(args),
+            "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library": library,
+            "library_ms": library_ms, "library_diff": library_diff}
+
+
+def _print_b3_timing(what, row) -> None:
+    lib = (f"library_ms={row['library_ms']:.4f} (max abs diff from B3 "
+           f"{row['library_diff']:.3g})" if row["library_ms"] is not None
+           else f"library_ms=null (did not run: {row['library_diff']})")
+    print(f"{what} [{row['shape']}]: kernel_ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} (a batch row at a time) bytes="
+          f"{row['bytes']} ops={row['ops']} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}) kernel/bound={row['ms'] / row['bound_ms']:.2f}"
+          f" library={row['library']} {lib}", flush=True)
+
+
+def _serve_main_path(cfg, sp, prompts, max_prompt, new_tokens, kw, keep):
+    """``serve_requests`` in one batch with B3's count at 0 just before and
+    read just after; B3's op calls recorded (clones of those in ``keep``).
+    Returns ``(tokens, times, B3 launches counted, recorder)``."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import serve_requests
+    with OpRecorder(fa_ops, "attention", keep) as rec:
+        fa_k.LAUNCHES["flash_attention"] = 0
+        tokens, times = serve_requests(cfg, sp, prompts, batch=len(prompts),
+                                       max_prompt=max_prompt,
+                                       new_tokens=new_tokens, **kw)
+        torch.cuda.synchronize()
+        counted = fa_k.LAUNCHES["flash_attention"]
+    return tokens, times, counted, rec
+
+
+def _family_graph_vs_eager(cfg, sp, toks, max_seq, steps, pre, step, kw):
+    """The served steps against eager ones on the same batch: a replay of
+    the served :class:`PrefillStep` bitwise to ``serve_prefill`` (logits,
+    token, caches), then ``steps`` decode steps through the served graph
+    :class:`DecodeStep` and an eager one from the eager prefill's caches,
+    logits, tokens and caches bitwise at every step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    enc_out = None if "frames" not in kw else T.encode(sp, kw["frames"], cfg)
+    pe = kw.get("patch_embeds")
+    logits, tok, caches = pre(toks, max_seq, enc_out=enc_out,
+                              patch_embeds=pe)
+    want_l, want_c = T.serve_prefill(sp, toks, cfg, max_seq,
+                                     enc_out=enc_out, patch_embeds=pe)
+    same = torch.equal(logits, want_l) and torch.equal(
+        tok, serve._greedy(want_l)) and all(
+        torch.equal(a, b) for a, b in zip(serve._leaves(caches),
+                                          serve._leaves(want_c)))
+    del logits, caches
+    eager = serve.DecodeStep(sp, cfg, graph=False)
+    gt = et = serve._greedy(want_l)
+    gc = ec = want_c
+    for _ in range(steps):
+        gl, gt, gc = step(gc, gt, enc_out=enc_out)
+        el, et, ec = eager(ec, et, enc_out=enc_out)
+        same &= torch.equal(gl, el) and torch.equal(gt, et) and all(
+            torch.equal(a, b) for a, b in zip(serve._leaves(gc),
+                                              serve._leaves(ec)))
+    return bool(same)
+
+
+def _extend_err(cfg, sp, toks, extra, max_seq) -> tuple:
+    """prefill(P) then the ``extra`` tokens decoded one by one, against
+    prefill(P + extra): the last-position logits' ``_rel_err``, the
+    largest logit magnitude, and whether every logit was finite."""
+    from repro_torch.models import transformer as T
+    logits, cache = T.serve_prefill(sp, toks, cfg, max_seq)
+    finite = bool(torch.isfinite(logits).all())
+    for i in range(extra.shape[1]):
+        logits, cache = T.serve_decode(sp, cache, extra[:, i:i + 1], cfg)
+        finite &= bool(torch.isfinite(logits).all())
+    del cache
+    longer, _ = T.serve_prefill(sp, np.concatenate([toks, extra], 1), cfg,
+                                max_seq)
+    finite &= bool(torch.isfinite(longer).all())
+    return _rel_err(logits, longer), float(longer.abs().max()), finite
+
+
+def _check_served(name, cfg, pre, step, counted, want, new_tokens,
+                  gen_tokens):
+    steps = new_tokens - 1
+    if not (pre.graph and pre.captures == 1 and pre.replays == 1
+            and step.graph and step.captures == 1
+            and step.replays == steps and counted == want):
+        raise AssertionError(f"FAMILY {name}: want one prefill capture "
+                             f"replayed once, one decode capture replayed "
+                             f"{steps} times and {want} B3 launches at the "
+                             f"wrapper, got {pre.captures}/{pre.replays}, "
+                             f"{step.captures}/{step.replays} and {counted}")
+    if gen_tokens.shape[1] != new_tokens or not (
+            (gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"FAMILY {name}: generated {gen_tokens}")
+
+
+def _run_gemma(held: list, rows: list) -> int:
+    """Gemma2-9B at all 42 layers (the phase's main path, see the module
+    doc).  Appends its held B3 calls and timed cases; returns B3's
+    launches on the main path."""
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = gemma2_9b.CONFIG
+    L, w = cfg.n_layers, cfg.sliding_window
+    sp, n_params = _family_weights(cfg, 0)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(w + 1, FAMILY_PROMPT + 1, FAMILY_BATCH)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    print(f"FAMILY config {cfg.name} layers={L} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} window={w} softcaps="
+          f"{cfg.attn_softcap}/{cfg.final_softcap} act={cfg.act} "
+          f"tied={cfg.tie_embeddings} dtype={cfg.dtype} params={n_params} "
+          f"requests={FAMILY_BATCH} prompt_lengths={lengths.tolist()} "
+          f"max_prompt={FAMILY_PROMPT} new_tokens={FAMILY_NEW_TOKENS} "
+          f"(weights {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)",
+          flush=True)
+
+    # -- the main path: serve_requests, B3's count at 0 just before -------
+    tokens, times, counted, rec = _serve_main_path(
+        cfg, sp, prompts, FAMILY_PROMPT, FAMILY_NEW_TOKENS, {},
+        keep={0, 1, L - 2, L - 1})
+    pre, step = times[0]["prefill"], times[0]["step"]
+    gen_tokens = np.stack(tokens)
+    _check_served(cfg.name, cfg, pre, step, counted, 2 * L,
+                  FAMILY_NEW_TOKENS, gen_tokens)
+    # one prefill pass's calls: local layers (even) windowed, all capped
+    calls = rec.scalars[:L]
+    kinds = [(c[1], c[2]) for c in calls]
+    want_kinds = [(w if i % 2 == 0 else None, cfg.attn_softcap)
+                  for i in range(L)]
+    if kinds != want_kinds or any(rec.scalars[i:i + L] != calls
+                                  for i in range(L, len(rec.scalars), L)):
+        raise AssertionError(f"FAMILY gemma2-9b: B3 calls (window, softcap) "
+                             f"{kinds} (want {want_kinds})")
+    launches = counted // 2 * (1 + pre.replays)
+    print(f"FAMILY gemma2-9b main path (serve_requests): prefill graph "
+          f"captures={pre.captures} replays={pre.replays}, decode graph "
+          f"captures={step.captures} replays={step.replays}; B3 counted at "
+          f"the wrapper {counted} (the warm-up run and the capture: "
+          f"{counted // 2} a prefill pass, {sum(k[0] is not None for k in kinds)}"
+          f" local with window {w} and softcap {cfg.attn_softcap}, "
+          f"{sum(k[0] is None for k in kinds)} global with softcap; the "
+          f"decode graph launches none); B3 launches on the card "
+          f"{launches}", flush=True)
+
+    # -- graph vs eager ----------------------------------------------------
+    eager_tokens, eager_times = serve_requests(
+        cfg, sp, prompts, batch=FAMILY_BATCH, max_prompt=FAMILY_PROMPT,
+        new_tokens=FAMILY_NEW_TOKENS, graph=False)
+    same_tokens = np.array_equal(np.stack(eager_tokens), gen_tokens)
+    toks = _pad_batch(prompts, FAMILY_PROMPT)
+    max_seq = FAMILY_PROMPT + FAMILY_NEW_TOKENS
+    same = _family_graph_vs_eager(cfg, sp, toks, max_seq, FAMILY_EXTEND,
+                                  pre, step, {})
+    print(f"FAMILY gemma2-9b graph vs eager: serve_requests tokens equal="
+          f"{same_tokens}; a prefill replay and {FAMILY_EXTEND} decode "
+          f"replays bitwise to eager (logits, tokens, caches)={same}",
+          flush=True)
+    if not (same_tokens and same):
+        raise AssertionError("FAMILY gemma2-9b: graph replays differ from "
+                             "eager serving")
+
+    # -- the recorded B3 calls against the plain version --------------------
+    errs = {}
+    for i in sorted(rec.calls):
+        args, _, out = rec.calls[i]
+        err, share = errs[i] = _b3_hold(args, out)
+        what = f"FAMILY gemma2-9b layer {i} B3 [{_b3_label(args)}]"
+        print(f"{what}: max_abs_err={err:.3g} allowance_share={share:.3g} "
+              f"(|err| <= {BF16_RTOL:.3g}|plain| + "
+              f"{MODEL_TOL['flash_attention']})", flush=True)
+        if not share <= 1.0:
+            raise AssertionError(f"{what}: {share:.3g}x its allowance")
+        held.append(err)
+
+    # -- prefill(P) + decode tokens vs prefill(P + tokens) -----------------
+    extra = gen_tokens[:, :FAMILY_EXTEND]
+    ext = {"bfloat16": _extend_err(cfg, sp, toks, extra,
+                                   FAMILY_PROMPT + FAMILY_EXTEND)}
+
+    # -- times ---------------------------------------------------------------
+    warm = {"eager": [], "replay": []}
+    for kind in ("eager", "replay", "replay", "eager", "eager", "replay"):
+        run = (lambda: pre(toks, max_seq)) if kind == "replay" else \
+            (lambda: T.serve_prefill(sp, toks, cfg, max_seq))
+        warm[kind].append(_timed(run)[1] * 1e3)
+    decode_ms = statistics.mean(times[0]["decode_s"][1:]) * 1e3
+    eager_decode_ms = statistics.mean(eager_times[0]["decode_s"][1:]) * 1e3
+    cold_ms = times[0]["prefill_s"] * 1e3
+    for i in (0, 1):
+        args, _, out = rec.calls[i]
+        layer = "local" if args[4] is not None else "global"
+        rows.append(_b3_timing(f"Gemma2-9B served {layer} layer", args, out,
+                               errs[i][0]))
+        _print_b3_timing(f"FAMILY gemma2-9b B3 {layer} layer call", rows[-1])
+    del pre, step, times, eager_times, rec, sp
+    torch.cuda.empty_cache()
+
+    # the same widths in float32 at 2 layers (one local, one global): the
+    # ring's roll and slot arithmetic without bf16's noise
+    c32 = cfg.scaled(n_layers=2, dtype="float32")
+    sp32, _ = _family_weights(c32, 1)
+    ext["float32"] = _extend_err(c32, sp32, toks, extra,
+                                 FAMILY_PROMPT + FAMILY_EXTEND)
+    del sp32
+    torch.cuda.empty_cache()
+    for dtype, (err, top, finite) in ext.items():
+        depth = L if dtype == "bfloat16" else 2
+        print(f"FAMILY gemma2-9b {dtype} {depth} layers: prefill("
+              f"{FAMILY_PROMPT}) + {FAMILY_EXTEND} decode tokens vs prefill("
+              f"{FAMILY_PROMPT + FAMILY_EXTEND}): last-position logits max "
+              f"abs err / max magnitude = {err:.4g} (bound "
+              f"{FAMILY_RTOL[dtype]}); max |logit| {top:.4g}; every logit "
+              f"finite={finite}", flush=True)
+        if not (finite and err <= FAMILY_RTOL[dtype]):
+            raise AssertionError(f"FAMILY gemma2-9b {dtype}: decode after "
+                                 f"prefill off by {err}, finite {finite}")
+    print(f"FAMILY gemma2-9b timing: prefill_ms cold (warm-up, capture, "
+          f"replay)={cold_ms:.1f} warm eager="
+          f"{[round(x, 2) for x in warm['eager']]} (median "
+          f"{statistics.median(warm['eager']):.2f}) warm replay="
+          f"{[round(x, 2) for x in warm['replay']]} (median "
+          f"{statistics.median(warm['replay']):.2f}) decode_ms_per_step "
+          f"(steps 2-{FAMILY_NEW_TOKENS - 1}, graph replays)={decode_ms:.3f} "
+          f"eager_decode_ms_per_step={eager_decode_ms:.3f} "
+          f"({time.perf_counter() - t0:.1f}s for Gemma2-9B)", flush=True)
+    return launches
+
+
+def _run_other_family(name: str, held: list, rows: list) -> dict:
+    """One of the other attention configs as published, at 2 layers
+    (Whisper-tiny whole): ``FAMILY_OTHER_BATCH`` requests of
+    ``FAMILY_OTHER_PROMPT`` tokens (LLaVA's 2880 patches before them),
+    ``FAMILY_OTHER_STEPS`` decode steps; B3's launches, every recorded call
+    held against the plain version, graph vs eager.  Returns B3's
+    launches on the card and the prefill and decode times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = get_config(name)
+    if cfg.n_encoder_layers == 0:
+        cfg = cfg.scaled(n_layers=2)
+    sp, n_params = _family_weights(cfg, 2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (FAMILY_OTHER_PROMPT, FAMILY_OTHER_PROMPT - 100)]
+    kw = _family_inputs(cfg, FAMILY_OTHER_BATCH, 3)
+    new_tokens = FAMILY_OTHER_STEPS + 1
+    L, enc = cfg.n_layers, cfg.n_encoder_layers
+    cross = L if enc else 0
+    # the encoder's calls (eager, once a batch), then one prefill pass's
+    # and the decode step's cross-attention, each run twice at the wrapper
+    # (the warm-up and the capture)
+    want = enc + 2 * (L + cross) + 2 * cross
+    keep = list(range(enc + L + cross))
+    if cross:                  # and the first decode step's first one
+        keep.append(enc + 2 * (L + cross))
+    tokens, times, counted, rec = _serve_main_path(
+        cfg, sp, prompts, FAMILY_OTHER_PROMPT, new_tokens, kw, keep)
+    pre, step = times[0]["prefill"], times[0]["step"]
+    gen_tokens = np.stack(tokens)
+    _check_served(name, cfg, pre, step, counted, want, new_tokens,
+                  gen_tokens)
+    launches = enc + (L + cross) * (1 + pre.replays) \
+        + cross * (1 + step.replays)
+    toks = _pad_batch(prompts, FAMILY_OTHER_PROMPT)
+    max_seq = FAMILY_OTHER_PROMPT + new_tokens + (
+        cfg.n_patches if cfg.family == "vlm" else 0)
+    same = _family_graph_vs_eager(cfg, sp, toks, max_seq, FAMILY_OTHER_STEPS,
+                                  pre, step, kw)
+    if not same:
+        raise AssertionError(f"FAMILY {name}: graph replays differ from "
+                             f"eager serving")
+    shapes, errs, worst = {}, {}, (0.0, 0.0)
+    for i in sorted(rec.calls):
+        args, _, out = rec.calls[i]
+        err, share = errs[i] = _b3_hold(args, out)
+        if not share <= 1.0:
+            raise AssertionError(f"FAMILY {name} B3 call {i} "
+                                 f"[{_b3_label(args)}]: {share:.3g}x its "
+                                 f"allowance")
+        shapes.setdefault(_b3_label(args), i)
+        worst = max(worst, (err, share), key=lambda t: t[1])
+        held.append(err)
+    cold_ms = times[0]["prefill_s"] * 1e3
+    enc_out = None if "frames" not in kw else T.encode(sp, kw["frames"], cfg)
+    prefill_ms = statistics.median(_timed(lambda: pre(
+        toks, max_seq, enc_out=enc_out, patch_embeds=kw.get("patch_embeds"))
+    )[1] * 1e3 for _ in range(3))
+    decode_ms = statistics.mean(times[0]["decode_s"][1:]) * 1e3
+    print(f"FAMILY {name} layers={L}{f'+{enc} encoder' if enc else ''} "
+          f"d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
+          f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} act={cfg.act} "
+          f"qkv_bias={cfg.qkv_bias} qk_norm={cfg.qk_norm} dtype={cfg.dtype} "
+          f"params={n_params} batch={FAMILY_OTHER_BATCH}x"
+          f"{FAMILY_OTHER_PROMPT}{f' + {cfg.n_patches} patches' if cfg.n_patches else ''}"
+          f"{f' + {cfg.encoder_seq} frames' if enc else ''}: B3 counted "
+          f"{counted} at the wrapper (want {want}), {launches} launches on "
+          f"the card; prefill and {FAMILY_OTHER_STEPS} decode graph "
+          f"replays bitwise to eager={same}; {len(rec.calls)} B3 calls held "
+          f"against plain, worst max_abs_err={worst[0]:.3g} "
+          f"allowance_share={worst[1]:.3g}, shapes {list(shapes)}; "
+          f"prefill_ms cold (warm-up, capture, replay)={cold_ms:.1f} warm "
+          f"replay (median of 3; the encoder outside)={prefill_ms:.3f} "
+          f"decode_ms_per_step (steps 2-{FAMILY_OTHER_STEPS}, graph "
+          f"replays)={decode_ms:.3f} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    # each distinct B3 shape's first call timed beside its library call
+    for i in shapes.values():
+        args, _, out = rec.calls[i]
+        rows.append(_b3_timing(f"{name} served", args, out, errs[i][0]))
+        _print_b3_timing(f"FAMILY {name} B3 call", rows[-1])
+    return {"launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms}
+
+
+def _pad_batch(prompts, width: int):
+    """Prompts left-padded to ``width``, as ``serve_requests`` pads them."""
+    toks = np.zeros((len(prompts), width), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, width - len(p):] = p
+    return toks
+
+
+def run_families() -> dict:
+    """The attention model families (see the module doc): Gemma2-9B served
+    at all 42 layers, then the other attention configs at 2 layers.
+    Returns B3's launches and the held calls' and timed cases' rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    held, rows = [], []
+    launches = _run_gemma(held, rows)
+    torch.cuda.empty_cache()
+    others = {}
+    for name in FAMILY_OTHERS:
+        others[name] = _run_other_family(name, held, rows)
+        launches += others[name]["launches"]
+        torch.cuda.empty_cache()
+    print(f"FAMILY phase: B3 launches {launches}, {len(held)} calls held, "
+          f"max_abs_err {max(held):.3g}, {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return {"launches": launches, "max_abs_err": max(held), "rows": rows,
+            "others": others}
 
 
 def _device_kernels(prof):
@@ -2454,6 +3011,12 @@ def main() -> int:
     for (name, _), (err_o, _, err_s, _) in rwkv["held"].items():
         for row in model["cases"][name]:
             row["max_abs_err"] = max(row["max_abs_err"], err_o, err_s)
+    families = run_families()
+    torch.cuda.empty_cache()
+    model["launches"]["flash_attention"] += families["launches"]
+    model["cases"]["flash_attention"].extend(families["rows"])
+    for row in model["cases"]["flash_attention"]:
+        row["max_abs_err"] = max(row["max_abs_err"], families["max_abs_err"])
     loop = run_loop(lazy, codegen)
     torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)

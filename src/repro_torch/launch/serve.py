@@ -13,11 +13,15 @@ port's counterparts of the reference's ``jax.jit(prefill)`` and
 ``jax.jit(decode)``, which on the card replay the direct model's
 ``serve_prefill`` / ``serve_decode`` and the greedy pick as one CUDA graph
 per shape and on the CPU run them eagerly.  The weights are cast once to
-the compute dtype (``serving_params``).  As in
-the reference, ``--smoke`` cannot be turned off,
-so ``main`` serves the reduced config with random weights; a full-size run
-calls :func:`serve_requests` with its own config and weights.  An arch
-whose config the direct model refuses raises, naming what it lacks.
+the compute dtype (``serving_params``).  An encoder-decoder model's frames
+are encoded once a batch and every decode step cross-attends to them (the
+reference launcher decodes without them: ROADMAP C23); a VLM's patch
+embeddings prefix each prompt.  Both default to zeros, as the reference
+launcher feeds them.  As in the reference, ``--smoke`` cannot be turned
+off, so ``main`` serves the reduced config with random weights; a
+full-size run calls :func:`serve_requests` with its own config and
+weights.  An arch whose config the direct model refuses (MoE, Mamba)
+raises, naming what it lacks.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from ..configs import ARCHS, get_config
 from ..core.cuda_graph import capture
 from ..core.device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import (init_params, serve_decode, serve_prefill,
-                                  serving_params, validate_config)
+from ..models.transformer import (encode, init_params, serve_decode,
+                                  serve_prefill, serving_params,
+                                  validate_config)
 
 
 def draw_prompts(seed: int, requests: int, max_prompt: int,
@@ -65,15 +70,16 @@ def _leaves(tree):
 class _GraphStep:
     """What :class:`PrefillStep` and :class:`DecodeStep` share: with
     ``graph`` (the default on a CUDA device) a step is captured once per
-    input shape into a ``torch.cuda.CUDAGraph`` over a static token buffer
-    (``core.cuda_graph.capture``: one eager warm-up on a side stream,
-    then the capture), and every call copies its tokens into the buffer and
-    replays; without ``graph`` (the CPU, or a caller that asks) a step runs
-    eagerly.  ``graph=True`` off a CUDA device raises.  A capture that
-    fails raises: there is no eager fallback.  ``captures`` counts captures
-    and ``replays`` replays: a replay launches the captured kernels again
-    without running their Python wrappers, so their launch counters see the
-    warm-up and the capture only."""
+    input shape into a ``torch.cuda.CUDAGraph`` over static input buffers
+    (the tokens, and an encoder output or patch embeddings where the model
+    takes them; ``core.cuda_graph.capture``: one eager warm-up on a side
+    stream, then the capture), and every call copies its inputs into the
+    buffers and replays; without ``graph`` (the CPU, or a caller that
+    asks) a step runs eagerly.  ``graph=True`` off a CUDA device raises.
+    A capture that fails raises: there is no eager fallback.  ``captures``
+    counts captures and ``replays`` replays: a replay launches the
+    captured kernels again without running their Python wrappers, so their
+    launch counters see the warm-up and the capture only."""
 
     def __init__(self, params, cfg: ModelConfig, *, graph=None):
         self.params, self.cfg = params, cfg
@@ -85,20 +91,33 @@ class _GraphStep:
         self._static = {}
         self.replays = self.captures = 0
 
-    def _replay(self, key, token, make, load=None):
+    def _on_device(self, x, dtype):
+        if x is None:
+            return None
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        return x.to(device=self.device, dtype=dtype)
+
+    def _replay(self, key, inputs, make, load=None):
         """Replay the graph of ``key``, capturing it at its first call:
-        ``make(static token)`` returns ``(warm_up, body, state)`` for
-        ``capture`` and the static buffers ``load(state)`` refills
-        before each replay.  Returns ``(state, what body returned)``."""
+        ``make(*static inputs)`` returns ``(warm_up, body, state)`` for
+        ``capture`` and the static buffers ``load(state)`` refills before
+        each replay; ``inputs`` (tensors, or None for an input the model
+        does not take) are copied into their static buffers.  Returns
+        ``(state, what body returned)``."""
+        key = (key,) + tuple(None if x is None else tuple(x.shape)
+                             for x in inputs)
         entry = self._static.get(key)
         if entry is None:
-            s_tok = token.clone()
-            warm_up, body, state = make(s_tok)
+            statics = tuple(None if x is None else x.clone() for x in inputs)
+            warm_up, body, state = make(*statics)
             graph, out = capture(self.device, warm_up, body)
             self.captures += 1
-            entry = self._static[key] = (graph, s_tok, state, out)
-        graph, s_tok, state, out = entry
-        s_tok.copy_(token)
+            entry = self._static[key] = (graph, statics, state, out)
+        graph, statics, state, out = entry
+        for dst, src in zip(statics, inputs):
+            if dst is not None:
+                dst.copy_(src)
         if load is not None:
             load(state)
         graph.replay()
@@ -108,73 +127,81 @@ class _GraphStep:
 
 class PrefillStep(_GraphStep):
     """The prompt's prefill and the greedy pick of the first token, for a
-    ``(B, S)`` batch of prompt tokens: ``step(tokens, max_seq) -> (last
-    position logits, next token, caches)``, the caches stacked and ``max_seq``
-    deep.
+    ``(B, S)`` batch of prompt tokens: ``step(tokens, max_seq, *,
+    enc_out=None, patch_embeds=None) -> (last position logits, next token,
+    caches)``, the caches stacked and ``max_seq`` deep.  ``enc_out`` is
+    the encoder's output of the batch's frames (an encoder-decoder model),
+    ``patch_embeds`` the batch's ``(B, n_patches, d)`` patch embeddings (a
+    VLM).
 
     As a graph (:class:`_GraphStep`) it is captured once per (batch, prompt
-    length, ``max_seq``) over a static ``(B, S)`` int32 token buffer, the
-    caches allocated from the graph's pool; the tokens' copy to the card
-    stays outside the graph.  The returned logits and caches are the
-    static buffers, overwritten by the next call of that shape: a
+    length, ``max_seq``, input shapes) over a static ``(B, S)`` int32
+    token buffer and static copies of the other inputs, the caches
+    allocated from the graph's pool; the inputs' copies to the card stay
+    outside the graph.  The returned logits and caches are the static
+    buffers, overwritten by the next call of that shape: a
     :class:`DecodeStep` copies them into its own caches at its first step;
     the token is a copy.  Eager, logits and caches are bitwise those of a
     replay."""
 
-    def _eager(self, tokens, max_seq):
+    def _eager(self, tokens, max_seq, enc_out=None, patch_embeds=None):
         logits, caches = serve_prefill(self.params, tokens, self.cfg,
-                                       max_seq)
+                                       max_seq, enc_out=enc_out,
+                                       patch_embeds=patch_embeds)
         return logits, _greedy(logits), caches
 
-    def __call__(self, tokens, max_seq: int):
+    def __call__(self, tokens, max_seq: int, *, enc_out=None,
+                 patch_embeds=None):
         if not self.graph:
-            return self._eager(tokens, max_seq)
-        if not isinstance(tokens, torch.Tensor):
-            tokens = np.asarray(tokens)
-        tokens = torch.as_tensor(tokens, dtype=torch.int32,
-                                 device=self.device)
+            return self._eager(tokens, max_seq, enc_out, patch_embeds)
+        cd = self.cfg.compute_dtype
+        inputs = (self._on_device(tokens, torch.int32),
+                  self._on_device(enc_out, cd),
+                  self._on_device(patch_embeds, cd))
 
-        def make(s_tok):
+        def make(*statics):
             def run():
-                return self._eager(s_tok, max_seq)
+                return self._eager(statics[0], max_seq, *statics[1:])
             return run, run, None
 
-        _, (logits, nxt, caches) = self._replay(
-            (tuple(tokens.shape), max_seq), tokens, make)
+        _, (logits, nxt, caches) = self._replay(max_seq, inputs, make)
         return logits, nxt.clone(), caches
 
 
 class DecodeStep(_GraphStep):
     """One greedy decode step, ``serve_decode`` and the argmax, for a batch
-    of ``(B, 1)`` tokens: ``step(caches, token) -> (logits, next token,
-    caches)``.
+    of ``(B, 1)`` tokens: ``step(caches, token, *, enc_out=None) ->
+    (logits, next token, caches)``, cross-attending to ``enc_out`` (an
+    encoder-decoder model's encoder output).
 
-    As a graph (:class:`_GraphStep`) it is captured once per batch and
-    cache shape over a static ``(B, 1)`` token and static stacked caches,
-    with the caches updated in place (``serve_decode(..., in_place=True)``:
-    B6 writes each RWKV layer's state straight into the static cache).
-    Every call copies its caches into the static ones, unless they are the
-    static ones the last call returned, and replays.  The returned logits
-    and caches are the static buffers, overwritten by the next call; the
-    token is a copy."""
+    As a graph (:class:`_GraphStep`) it is captured once per batch, cache
+    and ``enc_out`` shape over a static ``(B, 1)`` token, a static
+    ``enc_out`` and static stacked caches, with the caches updated in place
+    (``serve_decode(..., in_place=True)``: B6 writes each RWKV layer's
+    state straight into the static cache).  Every call copies its token
+    and ``enc_out`` into the static ones, and its caches too unless they
+    are the static ones the last call returned, and replays.  The returned
+    logits and caches are the static buffers, overwritten by the next
+    call; the token is a copy."""
 
-    def _eager(self, caches, token, in_place=False):
+    def _eager(self, caches, token, enc_out=None, in_place=False):
         logits, caches = serve_decode(self.params, caches, token, self.cfg,
-                                      in_place=in_place)
+                                      enc_out=enc_out, in_place=in_place)
         return logits, _greedy(logits), caches
 
-    def __call__(self, caches, token):
+    def __call__(self, caches, token, *, enc_out=None):
         if not self.graph:
-            return self._eager(caches, token)
-        token = torch.as_tensor(token, dtype=torch.int32, device=self.device)
+            return self._eager(caches, token, enc_out)
+        inputs = (self._on_device(token, torch.int32),
+                  self._on_device(enc_out, self.cfg.compute_dtype))
         leaves = list(_leaves(caches))
-        key = (tuple(token.shape),
-               tuple((tuple(z.shape), z.dtype) for z in leaves))
+        key = tuple((tuple(z.shape), z.dtype) for z in leaves)
 
-        def make(s_tok):
+        def make(s_tok, s_enc):
             s_caches = _clone(caches)
-            return (lambda: self._eager(s_caches, s_tok),
-                    lambda: self._eager(s_caches, s_tok, in_place=True),
+            return (lambda: self._eager(s_caches, s_tok, s_enc),
+                    lambda: self._eager(s_caches, s_tok, s_enc,
+                                        in_place=True),
                     s_caches)
 
         def load(s_caches):
@@ -182,7 +209,7 @@ class DecodeStep(_GraphStep):
                 for dst, src in zip(_leaves(s_caches), leaves):
                     dst.copy_(src)
 
-        s_caches, (logits, nxt, _) = self._replay(key, token, make, load)
+        s_caches, (logits, nxt, _) = self._replay(key, inputs, make, load)
         return logits, nxt.clone(), s_caches
 
 
@@ -192,40 +219,71 @@ def _clone(tree):
     return tree.clone()
 
 
+def _batch_rows(x, start: int, batch: int, shape, dtype, device):
+    """Rows ``start:start + batch`` of the per-request array ``x`` as a
+    ``(batch,) + shape`` tensor on ``device``, zero past its end; all zeros
+    when ``x`` is None (the reference launcher's stand-in input)."""
+    out = torch.zeros((batch,) + tuple(shape), dtype=dtype, device=device)
+    if x is not None:
+        rows = x[start:start + batch]
+        if not isinstance(rows, torch.Tensor):
+            rows = torch.as_tensor(np.asarray(rows))
+        out[:rows.shape[0]] = rows.to(device=device, dtype=dtype)
+    return out
+
+
 def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
-                   max_prompt: int, new_tokens: int, graph=None):
+                   max_prompt: int, new_tokens: int, graph=None,
+                   frames=None, patch_embeds=None):
     """Serve ``prompts`` (1-D int arrays, each at most ``max_prompt`` long)
     in batches of ``batch`` on the device ``params`` lie on: left-pad each
     batch to ``max_prompt``, prefill, then ``new_tokens - 1`` greedy decode
-    steps.  Returns ``(tokens, times)``: each request's ``new_tokens``
-    generated tokens (an int32 array), and per batch its size, the prefill
-    seconds, each decode step's seconds (host clock to a synchronize), the
-    :class:`PrefillStep` that prefilled it and the :class:`DecodeStep`
-    that decoded it (their ``captures`` and ``replays``).  ``graph`` is
-    both steps': None runs each as a CUDA graph on the card and eagerly on
-    the CPU.  The weights are cast once (:func:`serving_params`), which
-    leaves every logit bitwise."""
+    steps.  An encoder-decoder model takes ``frames``, one ``(encoder_seq,
+    d_model)`` entry per request: each batch's are encoded once and every
+    decode step cross-attends to them.  A VLM takes ``patch_embeds``, one
+    ``(n_patches, d_model)`` entry per request, prefixed to the prompt
+    (``max_seq`` counts them).  Either defaults to zeros, as in the
+    reference launcher.  Returns ``(tokens, times)``: each request's
+    ``new_tokens`` generated tokens (an int32 array), and per batch its
+    size, the prefill seconds (the encoder's run included), each decode
+    step's seconds (host clock to a synchronize), the :class:`PrefillStep`
+    that prefilled it and the :class:`DecodeStep` that decoded it (their
+    ``captures`` and ``replays``).  ``graph`` is both steps': None runs
+    each as a CUDA graph on the card and eagerly on the CPU.  The weights
+    are cast once (:func:`serving_params`), which leaves every logit
+    bitwise."""
     validate_config(cfg)
     params = serving_params(params, cfg)
     device = params["embed"].device
+    cd = cfg.compute_dtype
     prefill = PrefillStep(params, cfg, graph=graph)
     step = DecodeStep(params, cfg, graph=graph)
-    max_seq = max_prompt + new_tokens
+    vlm = cfg.family == "vlm"
+    max_seq = max_prompt + new_tokens + (cfg.n_patches if vlm else 0)
     tokens, times = [], []
     for start in range(0, len(prompts), batch):
         group = prompts[start:start + batch]
         toks = np.zeros((batch, max_prompt), np.int32)
         for i, p in enumerate(group):
             toks[i, max_prompt - len(p):] = p           # left-pad
+        fr = pe = None
+        if cfg.family == "encdec":
+            fr = _batch_rows(frames, start, batch,
+                             (cfg.encoder_seq, cfg.d_model), cd, device)
+        if vlm:
+            pe = _batch_rows(patch_embeds, start, batch,
+                             (cfg.n_patches, cfg.d_model), cd, device)
         _sync(device)
         t0 = time.perf_counter()
-        _, tok, cache = prefill(toks, max_seq)
+        enc_out = None if fr is None else encode(params, fr, cfg)
+        _, tok, cache = prefill(toks, max_seq, enc_out=enc_out,
+                                patch_embeds=pe)
         _sync(device)
         prefill_s = time.perf_counter() - t0
         outs, steps = [tok], []
         for _ in range(new_tokens - 1):
             t0 = time.perf_counter()
-            _, tok, cache = step(cache, tok)
+            _, tok, cache = step(cache, tok, enc_out=enc_out)
             _sync(device)
             steps.append(time.perf_counter() - t0)
             outs.append(tok)

@@ -1,14 +1,26 @@
-"""Model building blocks — the subset of ``repro/models/layers.py`` that
-the port's models run: RMSNorm, RoPE, causal multi-head attention with a KV
-cache for prefill and decode, the SwiGLU MLP, and the RWKV6 mixer (token
-shift, data-dependent decay, the recurrence through kernels B6/B7, per-head
-group norm and gate) with its carried state.  Pure functions over
-dictionaries of tensors, in the reference's layouts (``x`` is ``(B, S,
-D)``, q/k/v ``(B, S, H, hd)``, caches ``(B, T, H, hd)``, RWKV states ``(B,
-H, N, N)``), so the tests compare like with like.
+"""Model building blocks: the port of ``repro/models/layers.py`` for the
+layers the port's models run: RMSNorm, RoPE, attention (GQA, RoPE,
+qk-norm, QKV bias, logit softcap, sliding window with a ring-buffer KV
+cache, cross-attention onto an encoder output) for prefill and decode,
+the SwiGLU / GeGLU MLP, and the RWKV6 mixer (token shift, data-dependent
+decay, the recurrence through kernels B6/B7, per-head group norm and gate)
+with its carried state.  Pure functions over dictionaries of tensors, in
+the reference's layouts (``x`` is ``(B, S, D)``, q/k/v ``(B, S, H, hd)``,
+caches ``(B, T, Hkv, hd)``, RWKV states ``(B, H, N, N)``), so the tests
+compare like with like.
 
-No sliding window, ring buffer, softcap, qk-norm, bias, GQA, cross-attention,
-MoE or Mamba: those configurations are refused before they get here.
+On the card every multi-token attention and every cross-attention runs
+kernel B3; on the CPU the reference's own ``_dense_attn`` /
+``_chunked_attn``.  No MoE or Mamba: configurations with those layers are
+refused before they get here (``transformer.validate_config``).
+
+On the CPU ``tests/test_torch_family_attention.py`` holds ``attention``
+feature by feature (ring caches included) and the MLP against the JAX
+package, and ``tests/test_torch_families.py`` each attention config's
+model; on a card ``python3 -c "import chip_smoke as c;
+c.run_families()"`` (``PYTHONPATH=src``) serves Gemma2-9B at its 42
+layers and the other attention configs, every B3 call held against its
+plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
 from .config import ModelConfig
 
@@ -25,8 +38,12 @@ Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
 
 
-def _init(gen: torch.Generator, shape, dtype: torch.dtype, device,
+def _init(gen: Optional[torch.Generator], shape, dtype: torch.dtype, device,
           scale: Optional[float] = None) -> torch.Tensor:
+    """A normal draw at the reference's scale; with no generator (the
+    ``meta`` device: shapes only) an empty tensor."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -79,15 +96,29 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention
 # ---------------------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_attention(gen: Optional[torch.Generator], cfg: ModelConfig,
+                   device) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pd = getattr(torch, cfg.param_dtype)
-    return {
+    p = {
         "wq": _init(gen, (d, h * hd), pd, device),
         "wk": _init(gen, (d, kv * hd), pd, device),
         "wv": _init(gen, (d, kv * hd), pd, device),
         "wo": _init(gen, (h * hd, d), pd, device),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=pd, device=device)
+        p["bk"] = torch.zeros((kv * hd,), dtype=pd, device=device)
+        p["bv"] = torch.zeros((kv * hd,), dtype=pd, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=pd, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=pd, device=device)
+    return p
+
+
+#: above this many queries the reference chunks the query axis
+#: (:func:`_chunked_attn`); on the card kernel B3 takes every length
+DENSE_ATTN_MAX_SEQ = 8192
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -97,74 +128,180 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
-def _dense_attn(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
-    """Plain masked attention over (B, S, H, hd) q and (B, T, H, hd) k/v."""
-    s, t = q.shape[1], k.shape[1]
+def _mask(qpos, kpos, causal: bool, window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _dense_attn(q, k, v, *, causal: bool, window: Optional[int],
+                softcap: Optional[float], scale: float) -> torch.Tensor:
+    """Plain masked attention over (B, S, H, hd) q and (B, T, Hkv, hd) k/v,
+    k/v repeated per group (query head ``h`` reads kv head ``h //
+    group``)."""
+    s, h = q.shape[1], q.shape[2]
+    t, kvh = k.shape[1], k.shape[2]
+    if kvh != h:
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
     sc = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
                       k.to(torch.float32)) * scale
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        pos = torch.arange(max(s, t), device=q.device)
-        mask &= pos[None, :t] <= pos[:s, None]
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    mask = _mask(torch.arange(s, device=q.device)[:, None],
+                 torch.arange(t, device=q.device)[None, :], causal, window)
     sc = torch.where(mask[None, None], sc, NEG_INF)
     o = torch.einsum("bhst,bthd->bshd", _softmax(sc), v.to(torch.float32))
     return o.to(q.dtype)
 
 
+def _chunked_attn(q, k, v, *, causal: bool, window: Optional[int],
+                  softcap: Optional[float], scale: float,
+                  chunk: int = 2048) -> torch.Tensor:
+    """The reference's online-softmax attention over query chunks of
+    ``chunk`` rows (no ``(S, S)`` score matrix live): q ``(B, S, H, D)``
+    grouped-query, k/v ``(B, T, Hkv, D)``."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    kg = k.transpose(1, 2).to(torch.float32)           # (B, Hkv, T, D)
+    vg = v.transpose(1, 2).to(torch.float32)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    outs = []
+    for start in range(0, s, chunk):
+        qi = q[:, start:start + chunk]
+        n = qi.shape[1]
+        qg = qi.transpose(1, 2).reshape(b, kvh, group, n, d)
+        sc = torch.einsum("bkgqd,bktd->bkgqt", qg.to(torch.float32),
+                          kg) * scale
+        if softcap is not None:
+            sc = softcap * torch.tanh(sc / softcap)
+        qpos = start + torch.arange(n, device=q.device)[:, None]
+        sc = torch.where(_mask(qpos, kpos, causal, window)[None, None, None],
+                         sc, NEG_INF)
+        p = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
+        o = torch.einsum("bkgqt,bktd->bkgqd", p, vg)
+        o = o / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+        outs.append(o.reshape(b, h, n, d).transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _attend(q, k, v, *, causal: bool, window: Optional[int],
+            softcap: Optional[float], scale: float) -> torch.Tensor:
+    """Attention of ``(B, S, H, hd)`` queries over ``(B, T, Hkv, hd)``
+    keys and values: on the card kernel B3 (``flash_attention.ops``) over
+    ``(B, H, S, hd)`` contiguous copies, at any length; on the CPU the
+    reference's own arithmetic, :func:`_dense_attn` up to
+    :data:`DENSE_ATTN_MAX_SEQ` queries and :func:`_chunked_attn` above."""
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if q.device.type == "cpu":
+        fn = _dense_attn if q.shape[1] <= DENSE_ATTN_MAX_SEQ \
+            else _chunked_attn
+        return fn(q, k, v, **opts)
+    o = fa_ops.attention(*(z.transpose(1, 2).contiguous() for z in (q, k, v)),
+                         causal, window, softcap, scale)
+    return o.transpose(1, 2)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: Optional[torch.Tensor] = None,
-              cache: Optional[Dict] = None, causal: bool = True):
-    """Returns ``(out, new_cache)``.  ``cache = {"k", "v", "idx"}`` writes
-    the fresh k/v at ``idx``: a prompt (``s > 1``, ``idx == 0``) attends over
-    its own k/v, one token attends over the whole cache, masked by
-    position."""
+              local: bool = False, positions: Optional[torch.Tensor] = None,
+              cache: Optional[Dict] = None,
+              kv_src: Optional[torch.Tensor] = None, causal: bool = True):
+    """Returns ``(out, new_cache)``.  ``cache = {"k", "v", "idx"}``: a
+    prompt (``s > 1``, ``idx == 0``) writes its k/v and attends over its
+    own; one token writes at ``idx`` and attends over the whole cache,
+    masked by position.  A ``local`` layer whose cache is ``window`` deep
+    keeps a ring: a prompt of ``s >= window`` tokens stores its last
+    ``window`` at slot ``position % window``, a token writes at ``idx %
+    window`` and only empty slots are masked.  The write slot stays on the
+    device (no host read), so a decode step can be captured in a CUDA
+    graph.  ``kv_src`` (an encoder output) makes it cross-attention: k/v
+    from it, no RoPE, no cache."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window = cfg.sliding_window if local else None
+    softcap = cfg.attn_softcap or None
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    k = torch.einsum("bsd,dh->bsh", x, p["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
-    v = torch.einsum("bsd,dh->bsh", x, p["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(b, s, h, hd)
+    src = x if kv_src is None else kv_src.to(x.dtype)
+    k = torch.einsum("bsd,dh->bsh", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dh->bsh", src, p["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    k = k.reshape(b, src.shape[1], kvh, hd)
+    v = v.reshape(b, src.shape[1], kvh, hd)
+    if cfg.qk_norm:
+        q = rmsnorm({"g": p["q_norm"]}, q, plus_one=True)
+        k = rmsnorm({"g": p["k_norm"]}, k, plus_one=True)
+    if kv_src is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
-        # the write index stays on the device (no host read), so a decode
-        # step can be captured in a CUDA graph
-        idx = cache["idx"]
-        at = (idx + torch.arange(s, device=x.device)).long()
-        ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
-        cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
-        new_cache = {"k": ck, "v": cv, "idx": cache["idx"] + s}
-    if cache is None or s > 1:
-        o = _dense_attn(q, k, v, causal=causal, scale=1.0 / math.sqrt(hd))
+    if cache is None or kv_src is not None:
+        o = _attend(q, k, v, causal=causal and kv_src is None, window=window,
+                    softcap=softcap, scale=1.0 / math.sqrt(hd))
     else:
-        t = ck.shape[1]
-        valid = (torch.arange(t, device=x.device)[None, :]
-                 <= idx + torch.arange(s, device=x.device)[:, None])
-        qg = q.transpose(1, 2).reshape(b, kvh, h // kvh, s, hd)
-        # a correctly rounded divide, as jnp's (a CUDA divide by a host
-        # scalar multiplies by its reciprocal), by a tensor filled on the
-        # device (no host copy, so the step can be captured in a CUDA graph)
-        sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32,
-                             device=x.device)
-        sc = torch.einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
-                          ck.to(torch.float32)) / sqrt_hd
-        sc = torch.where(valid[None, None, None], sc, NEG_INF)
-        o = torch.einsum("bkgqt,btkd->bkgqd", _softmax(sc),
-                         cv.to(torch.float32))
-        o = o.reshape(b, h, s, hd).transpose(1, 2).to(x.dtype)
+        idx = cache["idx"]
+        t = cache["k"].shape[1]
+        ring = window is not None and t == window
+        if ring and s >= t:
+            # the prompt's last `window` tokens at slot position % window
+            # (a roll of the tail slice)
+            ck = torch.roll(k[:, s - t:].to(cache["k"].dtype), s % t, dims=1)
+            cv = torch.roll(v[:, s - t:].to(cache["v"].dtype), s % t, dims=1)
+        else:
+            slot = torch.remainder(idx, t) if ring else idx
+            at = (slot + torch.arange(s, device=x.device)).long()
+            ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
+            cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
+        new_cache = {"k": ck, "v": cv, "idx": idx + s}
+        if s > 1:
+            # a prompt (idx == 0) attends over its own k/v
+            o = _attend(q, k, v, causal=causal, window=window,
+                        softcap=softcap, scale=1.0 / math.sqrt(hd))
+        else:
+            kpos = torch.arange(t, device=x.device)[None, :]
+            if ring:
+                # the filled slots hold exactly the last `window` positions
+                valid = kpos < torch.clamp(idx + s, max=t)
+            else:
+                qpos = idx + torch.arange(s, device=x.device)[:, None]
+                valid = _mask(qpos, kpos, True, window)
+            qg = q.transpose(1, 2).reshape(b, kvh, h // kvh, s, hd)
+            # a correctly rounded divide, as jnp's (a CUDA divide by a host
+            # scalar multiplies by its reciprocal), by a tensor filled on
+            # the device (no host copy, so the step can be captured)
+            sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32,
+                                 device=x.device)
+            sc = torch.einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
+                              ck.to(torch.float32)) / sqrt_hd
+            if softcap is not None:
+                sc = softcap * torch.tanh(sc / softcap)
+            sc = torch.where(valid[None, None, None], sc, NEG_INF)
+            o = torch.einsum("bkgqt,btkd->bkgqd", _softmax(sc),
+                             cv.to(torch.float32))
+            o = o.reshape(b, h, s, hd).transpose(1, 2).to(x.dtype)
     out = torch.einsum("bsh,hd->bsd", o.reshape(b, s, h * hd),
                        p["wo"].to(x.dtype))
     return out, new_cache
 
 
 # ---------------------------------------------------------------------------
-# Dense MLP (SwiGLU)
+# Dense MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
+             device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     pd = getattr(torch, cfg.param_dtype)
     return {"w_gate": _init(gen, (d, f), pd, device),
@@ -173,17 +310,21 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``act(x w_gate) · (x w_up)`` then ``w_down``: silu, or ``gelu`` as
+    ``jax.nn.gelu`` computes it by default, the tanh approximation."""
     t = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
     u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", t * torch.sigmoid(t) * u,
-                        p["w_down"].to(x.dtype))
+    g = t * torch.sigmoid(t) if cfg.act == "silu" else \
+        torch.nn.functional.gelu(t, approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", g * u, p["w_down"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
 # RWKV6 mixer (Finch: data-dependent per-channel decay)
 # ---------------------------------------------------------------------------
 
-def init_rwkv(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_rwkv(gen: Optional[torch.Generator], cfg: ModelConfig,
+              device) -> Params:
     d = cfg.d_model
     n = cfg.rwkv.head_dim
     heads = d // n

@@ -1,26 +1,30 @@
-"""The direct (eager) decoder-only LM of ``repro/models/transformer.py``
-in PyTorch, for the layer kinds the port has: dense attention + MLP layers
-(the subset the lazy LM lane admits) and RWKV6 + MLP layers at any compute
-dtype the config names (:func:`validate_config` says which configurations
-it runs and names what it lacks for the others).
+"""The direct (eager) LM of ``repro/models/transformer.py`` in PyTorch:
+decoder-only, encoder-decoder and VLM models of attention (full and
+sliding-window, with the ring-buffer caches of local layers) + MLP
+layers, and RWKV6 + MLP layers, at any compute dtype the config names.
+:func:`validate_config` refuses MoE and Mamba layers, naming them.
 
 It is the port's end-to-end oracle for the lazy lane: the tests hold it
 against the JAX package's jitted model on the same weights
 (:func:`params_from_numpy`), and on the card, where there is no JAX, the
-lazy transformer is held against it.  It never runs on the lazy path.  For
-RWKV6 it is also the serving path itself (``launch/serve.py``): its RWKV
+lazy transformer is held against it.  It never runs on the lazy path.  It
+is also the serving path itself (``launch/serve.py``): on the card every
+multi-token attention and every cross-attention runs kernel B3, RWKV
 layers run the recurrence through kernels B7 (a prompt, in chunks) and B6
 (a decode token, carrying the state).
 
 The parameter tree has the reference's structure: ``groups/l{i}/...``
 stacked on a leading layer axis (one entry per repeat of the layer
-pattern's unit), plus ``embed``, ``final_norm`` and ``lm_head``.  Layers run
-in a Python loop over that axis (the reference's ``lax.scan``).
+pattern's unit), plus ``embed``, ``final_norm``, ``lm_head`` (not with
+tied embeddings) and, for an encoder, ``encoder`` (stacked over its
+layers) and ``enc_norm``.  Layers run in a Python loop over that axis
+(the reference's ``lax.scan``).
 
 Entry points: :func:`forward` (logits for a whole sequence),
 :func:`serve_prefill` (prompt → last-position logits and a filled cache:
-KV caches for attention, the token shift and wkv state for RWKV) and
-:func:`serve_decode` (one token against the cache).
+KV caches for attention, the token shift and wkv state for RWKV),
+:func:`serve_decode` (one token against the cache), :func:`encode` (the
+encoder over frame embeddings) and :func:`lm_loss`.
 """
 
 from __future__ import annotations
@@ -35,17 +39,21 @@ from ..core.device import resolve_device
 from .config import ModelConfig
 from .layers import (attention, init_attention, init_mlp, init_rmsnorm,
                      init_rwkv, mlp, rmsnorm, rwkv_mixer)
-from .lazy_transformer import validate_config as validate_lazy_config
 
 Params = Dict[str, Any]
 
 
 def _stack(trees: List[Params]) -> Params:
-    """Stack a list of identically-shaped trees along a new leading axis."""
+    """Stack a list of identically-shaped trees along a new leading axis.
+    It empties the trees as it goes, so each leaf's pieces are freed once
+    their stack is made: a model's float32 weights are never held twice
+    (Gemma2-9B's layers are 33 GB)."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
+    out = torch.stack(trees)
+    trees.clear()
+    return out
 
 
 def _index(tree: Params, g: int) -> Params:
@@ -56,28 +64,16 @@ def _index(tree: Params, g: int) -> Params:
 
 def validate_config(cfg: ModelConfig) -> None:
     """Raise ``ValueError``, naming what the direct model lacks, unless
-    ``cfg`` is dense attn+mlp as the lazy lane admits it or rwkv+mlp (any
-    compute dtype)."""
-    unit, _ = cfg.scan_groups()
-    mixers = {m for m, _ in unit}
-    if mixers != {"rwkv"}:
-        try:
-            validate_lazy_config(cfg)
-        except ValueError as e:
-            raise ValueError(f"the direct model runs dense layers as the lazy "
-                             f"lane admits them: {e}") from e
-        return
+    every layer of ``cfg`` is attention (full or local) or RWKV6 with a
+    dense MLP: MoE and Mamba layers are refused."""
+    pattern = cfg.layer_pattern()
     checks = [
-        (all(f == "mlp" for _, f in unit), f"ffn kinds {unit}"),
-        (cfg.act == "silu", f"act={cfg.act!r}"),
-        (not cfg.final_softcap, "final_softcap"),
-        (not cfg.tie_embeddings, "tie_embeddings"),
-        (cfg.n_encoder_layers == 0, "encoder layers"),
-        (cfg.n_patches == 0, "patch embeddings"),
-        (cfg.moe is None, "moe"),
-        (cfg.d_model % cfg.rwkv.head_dim == 0,
+        (cfg.mamba is None and all(m != "mamba" for m, _ in pattern),
+         "mamba"),
+        (cfg.moe is None and all(f != "moe" for _, f in pattern), "moe"),
+        (cfg.rwkv is None or cfg.d_model % cfg.rwkv.head_dim == 0,
          f"d_model {cfg.d_model} not a multiple of the RWKV head size "
-         f"{cfg.rwkv.head_dim}"),
+         f"{cfg.rwkv and cfg.rwkv.head_dim}"),
     ]
     for ok, what in checks:
         if not ok:
@@ -87,6 +83,50 @@ def validate_config(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+
+def _init_layer(gen, cfg: ModelConfig, mixer: str, device,
+                cross: bool = False) -> Params:
+    pd = getattr(torch, cfg.param_dtype)
+    init_mixer = init_rwkv if mixer == "rwkv" else init_attention
+    p = {"norm1": init_rmsnorm(cfg.d_model, pd, device),
+         "mixer": init_mixer(gen, cfg, device)}
+    if cross:
+        p["cross"] = init_attention(gen, cfg, device)
+        p["norm_cross"] = init_rmsnorm(cfg.d_model, pd, device)
+    p["norm2"] = init_rmsnorm(cfg.d_model, pd, device)
+    p["ffn"] = init_mlp(gen, cfg, device)
+    return p
+
+
+def _build(cfg: ModelConfig, gen, device) -> Params:
+    """The parameter tree: drawn from ``gen``, or (``gen`` None, on the
+    ``meta`` device) shapes and dtypes only."""
+    unit, n_groups = cfg.scan_groups()
+    pd = getattr(torch, cfg.param_dtype)
+
+    def normal(shape, scale):
+        if gen is None:
+            return torch.empty(shape, dtype=pd, device=device)
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(pd)
+
+    cross = cfg.n_encoder_layers > 0
+    params: Params = {"groups": _stack([
+        {f"l{i}": _init_layer(gen, cfg, mixer, device, cross=cross)
+         for i, (mixer, _) in enumerate(unit)}
+        for _ in range(n_groups)])}
+    params["embed"] = normal((cfg.vocab_size, cfg.d_model), 0.02)
+    params["final_norm"] = init_rmsnorm(cfg.d_model, pd, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((cfg.d_model, cfg.vocab_size),
+                                   1 / math.sqrt(cfg.d_model))
+    if cfg.n_encoder_layers:
+        params["encoder"] = _stack([
+            _init_layer(gen, cfg, "attn", device)
+            for _ in range(cfg.n_encoder_layers)])
+        params["enc_norm"] = init_rmsnorm(cfg.d_model, pd, device)
+    return params
+
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
@@ -100,27 +140,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if torch.device(generator.device).type != device.type:
         raise ValueError(f"init_params: a generator on {generator.device} "
                          f"cannot draw weights on {device}")
-    unit, n_groups = cfg.scan_groups()
-    pd = getattr(torch, cfg.param_dtype)
+    return _build(cfg, generator, device)
 
-    def layer(mixer: str):
-        init_mixer = init_rwkv if mixer == "rwkv" else init_attention
-        return {"norm1": init_rmsnorm(cfg.d_model, pd, device),
-                "mixer": init_mixer(generator, cfg, device),
-                "norm2": init_rmsnorm(cfg.d_model, pd, device),
-                "ffn": init_mlp(generator, cfg, device)}
 
-    params: Params = {"groups": _stack([
-        {f"l{i}": layer(mixer) for i, (mixer, _) in enumerate(unit)}
-        for _ in range(n_groups)])}
-    params["embed"] = (torch.randn((cfg.vocab_size, cfg.d_model),
-                                   generator=generator, device=device)
-                       * 0.02).to(pd)
-    params["final_norm"] = init_rmsnorm(cfg.d_model, pd, device)
-    params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
-                                     generator=generator, device=device)
-                         * (1 / math.sqrt(cfg.d_model))).to(pd)
-    return params
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The :func:`init_params` tree as ``meta`` tensors: shapes and dtypes,
+    no memory and no generator (the reference's ``abstract_params``
+    without its sharding axes)."""
+    validate_config(cfg)
+    return _build(cfg, None, torch.device("meta"))
 
 
 def params_from_numpy(tree, device=None) -> Params:
@@ -133,11 +161,13 @@ def params_from_numpy(tree, device=None) -> Params:
 
 
 #: the leaves the forward pass casts to ``cfg.compute_dtype`` before use
-#: (the projection matrices of attention, RWKV6 and the MLP, the embedding
-#: and the unembedding); every other leaf (RWKV6's ``mix``, ``w0``,
-#: ``w_a``, ``w_b``, ``u``, ``ln_g``, the norm gains) is read in float32
-COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "wr", "wg", "w_gate",
-                            "w_up", "w_down", "embed", "lm_head"})
+#: (the projection matrices of attention, RWKV6 and the MLP, the QKV
+#: biases, the embedding and the unembedding); every other leaf (RWKV6's
+#: ``mix``, ``w0``, ``w_a``, ``w_b``, ``u``, ``ln_g``, the norm gains and
+#: the qk-norm gains) is read in float32
+COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wr",
+                            "wg", "w_gate", "w_up", "w_down", "embed",
+                            "lm_head"})
 
 
 def serving_params(params, cfg: ModelConfig) -> Params:
@@ -162,21 +192,28 @@ def serving_params(params, cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, *, positions,
-                 cache=None, in_place: bool = False):
+                 cache=None, enc_out=None, causal: bool = True,
+                 in_place: bool = False):
     h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
     if mixer == "rwkv":
         a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
                                   in_place=in_place)
     else:
-        a, new_cache = attention(lp["mixer"], h, cfg, positions=positions,
-                                 cache=cache)
+        a, new_cache = attention(lp["mixer"], h, cfg,
+                                 local=mixer == "attn_local",
+                                 positions=positions, cache=cache,
+                                 causal=causal)
     x = x + a
+    if enc_out is not None and "cross" in lp:
+        h = rmsnorm(lp["norm_cross"], x, plus_one=cfg.norm_plus_one)
+        c, _ = attention(lp["cross"], h, cfg, kv_src=enc_out, causal=False)
+        x = x + c
     h = rmsnorm(lp["norm2"], x, plus_one=cfg.norm_plus_one)
     return x + mlp(lp["ffn"], h, cfg), new_cache
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
-                in_place: bool = False):
+                enc_out=None, in_place: bool = False):
     """The layers in order over the stacked groups.  ``caches`` is stacked
     over the group axis (or None).  Returns ``(x, new_caches)``; with
     ``in_place`` the new caches are written into ``caches`` (each layer's
@@ -190,7 +227,7 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
             c = None if caches is None else _index(caches[f"l{i}"], g)
             x, nc = _apply_layer(_index(gp[f"l{i}"], g), x, cfg, mixer,
                                  positions=positions, cache=c,
-                                 in_place=in_place)
+                                 enc_out=enc_out, in_place=in_place)
             if nc is None:
                 continue
             if not in_place:
@@ -216,82 +253,130 @@ def _tokens(params, tokens) -> torch.Tensor:
                            device=device)
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig):
+def _input(params, x, cfg: ModelConfig):
+    """Frames or patch embeddings (a tensor or anything ``np.asarray``
+    takes) on the weights' device, in the compute dtype."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=params["embed"].device, dtype=cfg.compute_dtype)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig, patch_embeds=None):
     x = params["embed"].to(cfg.compute_dtype)[tokens]
     if cfg.norm_plus_one:           # gemma convention
         # the scale rounded to the compute dtype, as a host scalar: no copy
         # to the device, so a decode step can be captured in a CUDA graph
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
+    if patch_embeds is not None:
+        x = torch.cat([_input(params, patch_embeds, cfg), x], dim=1)
     return x
 
 
 def _unembed(params, x, cfg: ModelConfig):
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
-    return logits.to(torch.float32)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).to(torch.float32)
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
-def forward(params, tokens, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
-    """Training/eval logits ``(B, S, vocab)`` and the auxiliary loss (zero:
-    the layers the port has hold no router)."""
+def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings ``(B, enc_seq, d)``
+    (the reference's conv front end is a stub too): full attention, RoPE
+    on its self-attention as in the reference, then ``enc_norm``."""
     validate_config(cfg)
-    tokens = _tokens(params, tokens)
-    x = _embed(params, tokens, cfg)
+    x = _input(params, frames, cfg)
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    for li in range(cfg.n_encoder_layers):
+        x, _ = _apply_layer(_index(params["encoder"], li), x, cfg, "attn",
+                            positions=pos, causal=False)
+    return rmsnorm(params["enc_norm"], x, plus_one=cfg.norm_plus_one)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, frames=None,
+            patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/eval logits ``(B, S, vocab)`` and the auxiliary loss (zero:
+    the layers the port has hold no router).  ``frames``: the encoder's
+    input; ``patch_embeds``: ``(B, n_patches, d)`` prefixed to the tokens
+    and dropped from the logits."""
+    validate_config(cfg)
+    enc_out = None if frames is None else encode(params, frames, cfg)
+    x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _ = _run_groups(params, x, cfg, positions=positions)
+    x, _ = _run_groups(params, x, cfg, positions=positions, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
+    if patch_embeds is not None:
+        x = x[:, patch_embeds.shape[1]:]
     return _unembed(params, x, cfg), torch.zeros((), device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None) -> Params:
     """Zero caches stacked over the groups, per position of the pattern's
-    unit, on ``device`` (the CUDA card unless given): an attention layer's
-    ``{"k", "v": (groups, B, max_seq, kv_heads, hd), "idx": (groups,)
-    int32}``, an RWKV layer's ``{"last": (groups, B, d) in dtype, "wkv":
-    (groups, B, H, N, N) float32}``."""
+    unit, on ``device`` (the CUDA card unless given; ``meta`` gives shapes
+    only): an attention layer's ``{"k", "v": (groups, B, T, kv_heads, hd),
+    "idx": (groups,) int32}`` with ``T = max_seq``, or for a sliding-window
+    layer a ring of ``T = min(max_seq, window)``; an RWKV layer's
+    ``{"last": (groups, B, d) in dtype, "wkv": (groups, B, H, N, N)
+    float32}``; a Mamba layer's ``{"conv": (groups, B, d_conv - 1,
+    d_inner) in dtype, "ssm": (groups, B, d_inner, d_state) float32}``."""
     device = resolve_device(device)
     unit, n_groups = cfg.scan_groups()
     kvh, hd = cfg.n_kv_heads, cfg.hd
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros((n_groups, batch) + shape, dtype=dtype,
+                           device=device)
+
     cache: Params = {}
     for i, (mixer, _) in enumerate(unit):
-        if mixer == "rwkv":
-            n = cfg.rwkv.head_dim
-            heads = cfg.d_model // n
+        if mixer in ("attn", "attn_local"):
+            seq = max_seq
+            if mixer == "attn_local" and cfg.sliding_window:
+                seq = min(max_seq, cfg.sliding_window)
             cache[f"l{i}"] = {
-                "last": torch.zeros((n_groups, batch, cfg.d_model),
-                                    dtype=dtype, device=device),
-                "wkv": torch.zeros((n_groups, batch, heads, n, n),
-                                   dtype=torch.float32, device=device),
-            }
-            continue
-        shape = (n_groups, batch, max_seq, kvh, hd)
-        cache[f"l{i}"] = {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "idx": torch.zeros((n_groups,), dtype=torch.int32, device=device),
-        }
+                "k": zeros(seq, kvh, hd), "v": zeros(seq, kvh, hd),
+                "idx": torch.zeros((n_groups,), dtype=torch.int32,
+                                   device=device)}
+        elif mixer == "mamba":
+            m = cfg.mamba
+            d_in = m.expand * cfg.d_model
+            cache[f"l{i}"] = {
+                "conv": zeros(m.d_conv - 1, d_in),
+                "ssm": zeros(d_in, m.d_state, dtype=torch.float32)}
+        elif mixer == "rwkv":
+            n = cfg.rwkv.head_dim
+            cache[f"l{i}"] = {
+                "last": zeros(cfg.d_model),
+                "wkv": zeros(cfg.d_model // n, n, n, dtype=torch.float32)}
     return cache
 
 
-def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int):
-    """Run the prompt, returning ``(last-position logits, filled cache)``."""
+def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
+                  frames=None, patch_embeds=None, enc_out=None):
+    """Run the prompt, returning ``(last-position logits, filled cache)``.
+    ``frames`` go through the encoder first, unless the caller passes its
+    output as ``enc_out`` (the launcher encodes once a batch and hands the
+    result to every decode step too); ``patch_embeds`` prefix the tokens
+    (``max_seq`` counts them)."""
     validate_config(cfg)
-    tokens = _tokens(params, tokens)
-    x = _embed(params, tokens, cfg)
-    b, s = tokens.shape
+    if enc_out is None and frames is not None:
+        enc_out = encode(params, frames, cfg)
+    x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
+    b, s = x.shape[0], x.shape[1]
     caches = init_cache(cfg, b, max_seq, dtype=cfg.compute_dtype,
                         device=x.device)
     positions = torch.arange(s, device=x.device)[None]
     x, new_caches = _run_groups(params, x, cfg, positions=positions,
-                                caches=caches)
+                                caches=caches, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     return _unembed(params, x[:, -1:], cfg), new_caches
 
 
-def serve_decode(params, caches, token, cfg: ModelConfig, *,
+def serve_decode(params, caches, token, cfg: ModelConfig, *, enc_out=None,
                  in_place: bool = False):
-    """One decode step for ``(B, 1)`` tokens.  Returns ``(logits,
+    """One decode step for ``(B, 1)`` tokens, cross-attending to
+    ``enc_out`` where the model has an encoder.  Returns ``(logits,
     caches)``: new caches, or with ``in_place`` the given ones, updated
     (the decode graph's static caches)."""
     validate_config(cfg)
@@ -300,7 +385,8 @@ def serve_decode(params, caches, token, cfg: ModelConfig, *,
     idx = _first_idx(caches, x.device)
     positions = (idx + torch.arange(1, device=x.device))[None]
     x, new_caches = _run_groups(params, x, cfg, positions=positions,
-                                caches=caches, in_place=in_place)
+                                caches=caches, enc_out=enc_out,
+                                in_place=in_place)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     return _unembed(params, x, cfg), new_caches
 
@@ -313,3 +399,25 @@ def _first_idx(caches, device) -> torch.Tensor:
         if "idx" in v:
             return v["idx"][0]
     return torch.zeros((), dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, batch, cfg: ModelConfig, *, z_coef: float = 1e-4):
+    """Next-token cross entropy plus the logit z-loss (and the router's
+    auxiliary loss, zero: no MoE layers).  ``batch`` holds ``tokens``,
+    ``labels`` (negative labels are masked out) and optionally ``frames``
+    and ``patch_embeds``.  Returns ``(loss, {"nll", "aux"})``."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          frames=batch.get("frames"),
+                          patch_embeds=batch.get("patch_embeds"))
+    labels = _tokens(params, batch["labels"])
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    count = torch.clamp_min(mask.sum(), 1.0)
+    nll = torch.sum((logz - ll) * mask) / count
+    zloss = z_coef * torch.sum(logz ** 2 * mask) / count
+    return nll + zloss + aux, {"nll": nll, "aux": aux}

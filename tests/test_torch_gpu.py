@@ -6,7 +6,11 @@ RWKV6 model path that runs B6 and B7 — skipped without a CUDA device
 (and, for the Triton kernels, Triton).
 
 Also cross-flush loop fusion on the card: a drain replays one captured
-CUDA graph of an iteration, bitwise the per-flush run.
+CUDA graph of an iteration, bitwise the per-flush run; and the attention
+families, whose every multi-token and cross attention runs B3: each
+feature's B3 call against its plain version, Gemma2's ring decode past
+the window as graph replays bitwise to eager steps, Whisper's
+cross-attention, and serving against eager and the CPU.
 
 Run on a GPU with ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_gpu.py``.  Each case builds one block in the port's IR,
@@ -482,12 +486,14 @@ def test_check_lm_on_card(cuda, seed):
 def test_lazy_transformer_on_card(cuda):
     """The tiny LM through the lm stack, the torch floor and the direct
     model on the card: logits and caches within 1e-5 (order-1 logits;
-    float32 sums over 32-64 terms in other orders), full-float32 matmuls."""
+    float32 sums over 64-128 terms in other orders), full-float32 matmuls.
+    Two heads of 32: the direct model's prefill attention is kernel B3,
+    built for head dims 32-256."""
     from repro_torch.models import transformer as T
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.lazy_transformer import LazyTransformer
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ModelConfig(name="lm_tiny", family="dense", n_layers=2, d_model=32,
+    cfg = ModelConfig(name="lm_tiny", family="dense", n_layers=2, d_model=64,
                       n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=97,
                       dtype="float32", param_dtype="float32",
                       norm_plus_one=True, tie_embeddings=False)
@@ -1010,7 +1016,8 @@ def _with_gains(tree, gen):
 
 def _serve_graph_model(card, arch):
     """The ``rwkv6-3b`` SMOKE config, or a dense one the direct model runs
-    (float32 attention + MLP, ``norm_plus_one``), with random weights."""
+    (float32 attention + MLP, ``norm_plus_one``, two heads of 32: its
+    prefill attention is kernel B3), with random weights."""
     from repro_torch.configs import rwkv6_3b
     from repro_torch.models import transformer as T
     from repro_torch.models.config import ModelConfig
@@ -1018,7 +1025,7 @@ def _serve_graph_model(card, arch):
         cfg = rwkv6_3b.SMOKE
     else:
         cfg = ModelConfig(name="dense_tiny", family="dense", n_layers=2,
-                          d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                          d_model=64, n_heads=2, n_kv_heads=2, d_ff=64,
                           vocab_size=97, dtype="float32",
                           param_dtype="float32", norm_plus_one=True,
                           tie_embeddings=False)
@@ -1495,3 +1502,231 @@ def test_plan_store_warm_start_on_the_card(cuda, tmp_path):
     assert not any(e["name"] == "stage.partition" for e in tr.events)
     for a, b in zip(want, got):
         assert a.tobytes() == b.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the attention families on the card: every multi-token attention and every
+# cross-attention through B3
+# ---------------------------------------------------------------------------
+
+def _family_cfg(arch, **kw):
+    """``arch``'s SMOKE config in float32 with head dims B3 is built for."""
+    from repro_torch.configs import get_config
+    return get_config(arch, smoke=True).scaled(dtype="float32", **kw)
+
+
+def _family_params(cfg, card, seed=0):
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=card).manual_seed(seed)
+    params = T.init_params(cfg, gen, card)
+    for key, v in _named_leaves(params):
+        if key in ("bq", "bk", "bv", "q_norm", "k_norm") or (
+                key == "g" and not cfg.norm_plus_one):
+            base = 1.0 if key == "g" else 0.0
+            v.copy_(base + 0.1 * torch.randn(v.shape, generator=gen,
+                                             device=card))
+    return params
+
+
+def _named_leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v)
+        else:
+            yield k, v
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+#: the card's model (B3 in 3xTF32) against the same weights on the CPU
+#: (the reference's dense attention in float32): 1e-4 of the largest
+#: logit, as the CPU tests hold the port to the JAX package
+FAMILY_F32 = 1e-4
+
+
+def _rel_close(got, want, tol=FAMILY_F32):
+    got, want = got.double().cpu(), want.double().cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = float((got - want).abs().max()) / max(1e-6,
+                                                float(want.abs().max()))
+    assert err <= tol, (err, tol)
+
+
+def test_gemma2_ring_decode_past_the_window_on_the_card(card):
+    """Gemma2 at 2 layers (one local, window 8; one global), 4 heads of
+    256: a 20-token prompt (its ring rolled) and 12 decode steps past the
+    window, as graph replays bitwise to eager steps, each step's logits and
+    the final caches within ``FAMILY_F32`` of the same model on the CPU;
+    B3 once a layer for the prompt and never for a decode step."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = _family_cfg("gemma2-9b", head_dim=256)
+    sp = T.serving_params(_family_params(cfg, card), cfg)
+    cpu = _to_cpu(sp)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))
+    before = fa.LAUNCHES["flash_attention"]
+    logits, gc = T.serve_prefill(sp, toks, cfg, 40)
+    assert fa.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    assert gc["l0"]["k"].shape[2] == cfg.sliding_window      # the ring
+    want_l, cc = T.serve_prefill(cpu, toks, cfg, 40)
+    _rel_close(logits, want_l)
+    graph, eager = serve.DecodeStep(sp, cfg), serve.DecodeStep(
+        sp, cfg, graph=False)
+    ec = gc
+    gt = et = ct = serve._greedy(logits)
+    before = fa.LAUNCHES["flash_attention"]
+    for _ in range(12):
+        gl, gt, gc = graph(gc, gt)
+        el, et, ec = eager(ec, et)
+        assert torch.equal(gl, el) and torch.equal(gt, et)
+        for a, b in zip(serve._leaves(gc), serve._leaves(ec)):
+            assert torch.equal(a, b)
+        cl, cc = T.serve_decode(cpu, cc, ct.cpu(), cfg)
+        ct = gt.cpu()
+        _rel_close(gl, cl)
+    assert fa.LAUNCHES["flash_attention"] == before
+    for a, b in zip(serve._leaves(gc), serve._leaves(cc)):
+        if a.dtype == torch.int32:
+            assert torch.equal(a.cpu(), b)
+        else:
+            _rel_close(a, b)
+
+
+def test_whisper_cross_attention_runs_b3(card):
+    """Whisper's decoder cross-attends to 24 encoder frames through B3
+    (non-causal, ``sq != sk``): the recorded call against B3's plain
+    version, and the layer against the same layer on the CPU."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.models import layers as L
+    cfg = _family_cfg("whisper-tiny", encoder_seq=24)      # 2 heads of 32
+    p = {k: v[0] for k, v in _family_params(cfg, card)["groups"]["l0"][
+        "cross"].items()}
+    rng = np.random.default_rng(1)
+    x = _randn(rng, (2, 9, cfg.d_model), torch.float32, card)
+    enc = _randn(rng, (2, 24, cfg.d_model), torch.float32, card)
+    seen = []
+    real = ops.attention
+
+    def spy(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    ops.attention = spy
+    try:
+        before = fa.LAUNCHES["flash_attention"]
+        got, cache = L.attention(p, x, cfg, kv_src=enc, causal=False)
+        assert fa.LAUNCHES["flash_attention"] == before + 1 and cache is None
+    finally:
+        ops.attention = real
+    (q, k, v, causal, window, softcap, scale), out = seen[0]
+    assert not causal and window is None and softcap is None
+    assert q.shape == (2, 2, 9, 32) and k.shape == v.shape == (2, 2, 24, 32)
+    _hold(out, reference_attention(q, k, v, causal=False, scale=scale),
+          "attention")
+    want, _ = L.attention({k_: t.cpu() for k_, t in p.items()}, x.cpu(), cfg,
+                          kv_src=enc.cpu(), causal=False)
+    _rel_close(got, want)
+
+
+_CARD_FEATURES = {
+    "bias": dict(qkv_bias=True),
+    "qk_norm": dict(qk_norm=True),
+    "gqa": dict(n_kv_heads=1),
+    "softcap": dict(attn_softcap=2.0),
+    "window": dict(sliding_window=8),
+    "cross": dict(),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feature", list(_CARD_FEATURES))
+def test_attention_feature_runs_b3(card, feature, dtype):
+    """Each attention feature on the card, 4 heads of 32 over a 40-token
+    prompt: one B3 launch, its call against B3's plain version (the
+    kernel's own tolerance), and the layer's output against the same layer
+    on the CPU (float32: ``FAMILY_F32``)."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="attn_card", family="dense", n_layers=1,
+                      d_model=64, n_heads=4, head_dim=32, d_ff=64,
+                      vocab_size=32, dtype=dtype,
+                      **{"n_kv_heads": 2, **_CARD_FEATURES[feature]})
+    gen = torch.Generator(device=card).manual_seed(2)
+    p = L.init_attention(gen, cfg, card)
+    for key in ("bq", "bk", "bv", "q_norm", "k_norm"):
+        if key in p:
+            p[key] = 0.1 * torch.randn(p[key].shape, generator=gen,
+                                       device=card)
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (2, 40, 64), cfg.compute_dtype, card)
+    kv = _randn(rng, (2, 17, 64), cfg.compute_dtype, card) \
+        if feature == "cross" else None
+    seen = []
+    real = ops.attention
+
+    def spy(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    ops.attention = spy
+    try:
+        before = fa.LAUNCHES["flash_attention"]
+        got, _ = L.attention(p, x, cfg, local=feature == "window",
+                             kv_src=kv, causal=True)
+        assert fa.LAUNCHES["flash_attention"] == before + 1
+    finally:
+        ops.attention = real
+    (q, k, v, causal, window, softcap, scale), out = seen[0]
+    assert causal == (feature != "cross")
+    assert window == (8 if feature == "window" else None)
+    assert softcap == cfg.attn_softcap
+    _hold(out, reference_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale),
+          "attention")
+    if dtype == "float32":
+        want, _ = L.attention({k_: t.cpu() for k_, t in p.items()}, x.cpu(),
+                              cfg, local=feature == "window",
+                              kv_src=None if kv is None else kv.cpu(),
+                              causal=True)
+        _rel_close(got, want)
+
+
+def test_families_serve_on_the_card(card):
+    """``serve_requests`` on the card for Whisper (frames encoded once, the
+    decode graph cross-attending through B3) and LLaVA (patches before the
+    prompt): the tokens of eager serving, and of the same weights served
+    on the CPU."""
+    from repro_torch.launch import serve
+    for arch, kw in (("whisper-tiny", dict(encoder_seq=24)),
+                     ("llava-next-mistral-7b", dict(head_dim=32))):
+        cfg = _family_cfg(arch, **kw)
+        params = _family_params(cfg, card)
+        prompts = serve.draw_prompts(6, 4, 24, cfg.vocab_size)
+        rng = np.random.default_rng(7)
+        extra = {}
+        if cfg.family == "encdec":
+            extra["frames"] = rng.standard_normal(
+                (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        else:
+            extra["patch_embeds"] = rng.standard_normal(
+                (4, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        opts = dict(batch=2, max_prompt=24, new_tokens=5, **extra)
+        tokens, times = serve.serve_requests(cfg, params, prompts, **opts)
+        eager, _ = serve.serve_requests(cfg, params, prompts, graph=False,
+                                        **opts)
+        cpu, _ = serve.serve_requests(cfg, _to_cpu(params), prompts, **opts)
+        for a, b, c in zip(tokens, eager, cpu):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        assert times[-1]["prefill"].captures == 1
+        assert times[-1]["step"].replays == 2 * 4

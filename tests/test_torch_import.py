@@ -50,7 +50,11 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                 "core.tuning.profile", "core.partition_ilp",
                 "core.obs.explain", "core.serve", "core.serve.server",
                 "core.serve.store", "core.serve.admission",
-                "core.backends.batch_body"):
+                "core.backends.batch_body", "configs.gemma2_9b",
+                "configs.qwen3_4b", "configs.starcoder2_3b",
+                "configs.llava_next_mistral_7b", "configs.whisper_tiny",
+                "configs.olmoe_1b_7b", "configs.qwen3_moe_235b_a22b",
+                "configs.jamba_v01_52b"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)

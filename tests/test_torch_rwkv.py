@@ -129,26 +129,31 @@ def test_get_config_matches_reference(arch, smoke):
 def test_direct_model_admits_rwkv_and_names_what_it_lacks():
     PT.validate_config(get_config("rwkv6-3b"))                 # bfloat16
     PT.validate_config(get_config("rwkv6-3b", smoke=True))
-    qwen = get_config("qwen1.5-4b", smoke=True)
-    with pytest.raises(ValueError, match="does not support dtype"):
-        PT.validate_config(qwen)
-    with pytest.raises(ValueError, match="does not support qkv_bias"):
-        PT.validate_config(dataclasses.replace(qwen, dtype="float32"))
+    # the attention families run as published; MoE and Mamba are named
+    PT.validate_config(get_config("qwen1.5-4b", smoke=True))
+    for arch, what in (("olmoe-1b-7b", "does not support moe"),
+                       ("qwen3-moe-235b-a22b", "does not support moe"),
+                       ("jamba-v0.1-52b", "does not support mamba")):
+        for smoke in (False, True):
+            with pytest.raises(ValueError, match=what):
+                PT.validate_config(get_config(arch, smoke))
     rwkv = get_config("rwkv6-3b", smoke=True)
-    for kw, what in (({"tie_embeddings": True}, "tie_embeddings"),
-                     ({"final_softcap": 30.0}, "final_softcap"),
-                     ({"act": "gelu"}, "act")):
-        with pytest.raises(ValueError, match=what):
-            PT.validate_config(dataclasses.replace(rwkv, **kw))
-    # the lazy lane keeps refusing rwkv
+    with pytest.raises(ValueError, match="RWKV head size"):
+        PT.validate_config(dataclasses.replace(rwkv, d_model=48))
+    # the lazy lane keeps refusing rwkv and what it refused before
     from repro_torch.models.lazy_transformer import validate_config
     with pytest.raises(ValueError, match="attn\\+mlp"):
         validate_config(rwkv)
+    qwen = get_config("qwen1.5-4b", smoke=True)
+    with pytest.raises(ValueError, match="dtype"):
+        validate_config(qwen)
+    with pytest.raises(ValueError, match="qkv_bias"):
+        validate_config(dataclasses.replace(qwen, dtype="float32"))
 
 
 def test_launcher_refuses_an_arch_the_direct_model_lacks():
-    with pytest.raises(ValueError, match="direct model .* does not support"):
-        serve.main(["--arch", "qwen1.5-4b", "--device", "cpu"])
+    with pytest.raises(ValueError, match="direct model does not support moe"):
+        serve.main(["--arch", "olmoe-1b-7b", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
