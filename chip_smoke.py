@@ -151,6 +151,39 @@ replays bitwise to eager, prefill and decode times, and each distinct B3
 shape's call timed as Gemma's are.  B3's launches join
 the ``kernels`` line.
 
+Then the MoE and Mamba families (``run_moe``, the ``MOE`` lines), each
+config of ``MOE_CASES`` at its published widths, bf16 compute, random
+weights from a seeded ``torch.Generator`` on the card cast once for
+serving, dropped before the next config: Jamba-v0.1
+(``configs/jamba_v01_52b.py``) as one 8-layer period of its pattern — 7
+Mamba layers (d_inner 8192, d_state 16) and one attention layer (32 / 8
+heads of 128) at unit position 4, MoE (16 experts of 14336, top 2) on the
+odd layers — 2 requests padded to 4096 tokens, 16 tokens; OLMoE-1B-7B
+(``configs/olmoe_1b_7b.py``, 64 experts of 1024, top 8, float32 weights
+cast once) at all 16 layers, 2 x 4096, 16 tokens; Qwen3-MoE-235B-A22B at
+2 of its 94 layers (64 / 4 heads: a GQA group of 16; 128 experts of 1536,
+top 8), 2 x 2048, 4 tokens.  Each is served through ``serve_requests``
+with B3's and B5's counts at 0 just before: one prefill capture replayed
+once and one decode capture replayed every step, B3 once an attention
+layer a prefill pass (none in decode), B5 once a Mamba layer a prefill
+pass and a decode step, the decode capture's B5 calls writing the ssm
+state into the static cache (``out_state`` is ``state``).  It requires
+the tokens of eager serving, a prefill replay and up to ``FAMILY_EXTEND``
+decode replays bitwise to eager ones with every logit finite, every B3
+call of a prefill pass within ``MODEL_TOL`` / ``BF16_RTOL`` of the plain
+version, the first and last Mamba layer's B5 call of a prefill and the
+first of a decode step (y and the final state) within ``MODEL_TOL``
+(the plain scan takes about half a second a Jamba layer, so the other
+calls are not held), and for Jamba the state hand-off: prefill(508) and 4
+decode tokens against prefill(512) within ``FAMILY_RTOL``, on a copy of
+the config with the capacity factor raised to n_experts / top_k so no
+token drops.  It prints the share of token-expert pairs dropped at
+capacity in a prefill (a diagnostic), warm prefill ms (eager and
+replayed, in turns) and decode ms a step, each config's first B3 call
+timed beside its library call and B5's prefill-layer and decode-layer
+calls against their bounds (the state's bytes read and written
+included).  B3's and B5's launches join the ``kernels`` line.
+
 Then cross-flush loop fusion (``run_loop``, the ``LOOP`` lines):
 heat_equation, sor, game_of_life and shallow_water at 4096² and
 lattice_boltzmann at 256³ (``CHIP_SIZES`` widths), ``LOOP_ITERS``
@@ -219,9 +252,9 @@ share, and the warm start's writes, hits and partition spans.  B1's
 launches over the phase join the ``kernels`` line.
 
 Last it prints a ``kernels`` JSON line (B1-B7; B3's entry is its
-largest-bound case, since this phase a served Gemma2-9B layer), the
-card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
+largest-bound case, since the FAMILY phase a served Gemma2-9B layer, and
+B5's since the MOE phase a served Jamba-v0.1 prefill layer with its
+state), the card's name and power limit, and ``{"ok": true, "device": {...}}``. Any failure raises (exit code 1). The
 Triton kernels are generated and compiled under ``build/`` as the run
 needs them; the CUDA kernels are compiled into ``build/cuda/`` at their
 first launch, one ``nvcc`` per source at once, then linked.
@@ -229,6 +262,8 @@ first launch, one ``nvcc`` per source at once, then linked.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -337,6 +372,21 @@ FAMILY_RTOL = {"bfloat16": 0.7, "float32": 5e-3}
 FAMILY_OTHERS = ("qwen3-4b", "starcoder2-3b", "llava-next-mistral-7b",
                  "whisper-tiny", "qwen1.5-4b")
 FAMILY_OTHER_BATCH, FAMILY_OTHER_PROMPT, FAMILY_OTHER_STEPS = 2, 512, 4
+#: the MOE phase: (arch, layers, requests, prompt tokens a request after
+#: padding, new tokens), widths as published.  Jamba-v0.1 (52 B
+#: parameters, 104 GB in bf16, more than the card holds) as one 8-layer
+#: period of its pattern: 7 Mamba layers and one attention layer, 4 MoE
+#: layers and 4 dense MLPs, 13.3 B parameters; OLMoE-1B-7B at all 16
+#: layers (None); Qwen3-MoE-235B-A22B at 2 of its 94
+MOE_CASES = (("jamba-v0.1-52b", 8, 2, 4096, 16),
+             ("olmoe-1b-7b", None, 2, 4096, 16),
+             ("qwen3-moe-235b-a22b", 2, 2, 2048, 4))
+#: Jamba's state hand-off: prefill(MOE_HANDOFF - MOE_EXTEND tokens) then
+#: MOE_EXTEND decode tokens against prefill(MOE_HANDOFF), within
+#: FAMILY_RTOL, on a copy of the config whose capacity factor is
+#: n_experts / top_k: a group's dropped tokens depend on the group, so at
+#: the published 1.25 the two runs would drop different tokens
+MOE_HANDOFF, MOE_EXTEND = 512, 4
 #: the LOOP phase: the iterative programs at their CHIP_SIZES widths, each
 #: run for 3 x the default unroll of 32 iterations, so with the default
 #: threshold of 3 a loop-fused run has its per-flush warm-up, two full
@@ -1277,9 +1327,11 @@ def run_model_kernels() -> dict:
 class OpRecorder:
     """While active, wraps ``module.name``: counts its calls, keeps each
     call's positional arguments that are not tensors (``scalars``) and
-    clones of the arguments and the result of the calls numbered in
-    ``keep`` (a CUDA graph's static buffers, which a call may read or
-    return, are overwritten by later replays)."""
+    whether it wrote its final state over its initial one (``in_place``:
+    an ``out_state`` keyword that is the ``state`` keyword's storage), and
+    clones of the arguments (taken before the call) and the result of the
+    calls numbered in ``keep`` (a CUDA graph's static buffers, which a
+    call may read or return, are overwritten by later replays)."""
 
     def __init__(self, module, name: str, keep):
         self.module, self.name, self.keep = module, name, set(keep)
@@ -1287,14 +1339,19 @@ class OpRecorder:
         self.n = 0
         self.calls = {}
         self.scalars = []
+        self.in_place = []
 
     def __enter__(self):
         def spy(*args, **kw):
+            ins = (_clone(args), _clone(kw)) if self.n in self.keep else None
             out = self.orig(*args, **kw)
             self.scalars.append(tuple(a for a in args
                                       if not isinstance(a, torch.Tensor)))
-            if self.n in self.keep:
-                self.calls[self.n] = (_clone(args), _clone(kw), _clone(out))
+            dst, src = kw.get("out_state"), kw.get("state")
+            self.in_place.append(dst is not None and src is not None
+                                 and dst.data_ptr() == src.data_ptr())
+            if ins is not None:
+                self.calls[self.n] = (*ins, _clone(out))
             self.n += 1
             return out
 
@@ -1536,7 +1593,7 @@ def run_rwkv() -> dict:
     state0 = T._index(T.init_cache(cfg, RWKV_BATCH, max_seq,
                                    dtype=cfg.compute_dtype,
                                    device="cuda")["l0"], 0)
-    layer_ms = cuda_ms(lambda: T._apply_layer(lp, x, cfg, "rwkv",
+    layer_ms = cuda_ms(lambda: T._apply_layer(lp, x, cfg, "rwkv", "mlp",
                                               positions=None, cache=state0))
     timed = {}
     for name, rec, fn, plain in (
@@ -1849,7 +1906,8 @@ def _family_graph_vs_eager(cfg, sp, toks, max_seq, steps, pre, step, kw):
     the served :class:`PrefillStep` bitwise to ``serve_prefill`` (logits,
     token, caches), then ``steps`` decode steps through the served graph
     :class:`DecodeStep` and an eager one from the eager prefill's caches,
-    logits, tokens and caches bitwise at every step."""
+    logits, tokens and caches bitwise at every step.  Returns ``(bitwise,
+    every logit finite)``."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     enc_out = None if "frames" not in kw else T.encode(sp, kw["frames"], cfg)
@@ -1862,6 +1920,7 @@ def _family_graph_vs_eager(cfg, sp, toks, max_seq, steps, pre, step, kw):
         tok, serve._greedy(want_l)) and all(
         torch.equal(a, b) for a, b in zip(serve._leaves(caches),
                                           serve._leaves(want_c)))
+    finite = bool(torch.isfinite(logits).all())
     del logits, caches
     eager = serve.DecodeStep(sp, cfg, graph=False)
     gt = et = serve._greedy(want_l)
@@ -1872,7 +1931,8 @@ def _family_graph_vs_eager(cfg, sp, toks, max_seq, steps, pre, step, kw):
         same &= torch.equal(gl, el) and torch.equal(gt, et) and all(
             torch.equal(a, b) for a, b in zip(serve._leaves(gc),
                                               serve._leaves(ec)))
-    return bool(same)
+        finite &= bool(torch.isfinite(gl).all())
+    return bool(same), finite
 
 
 def _extend_err(cfg, sp, toks, extra, max_seq) -> tuple:
@@ -1969,13 +2029,13 @@ def _run_gemma(held: list, rows: list) -> int:
     same_tokens = np.array_equal(np.stack(eager_tokens), gen_tokens)
     toks = _pad_batch(prompts, FAMILY_PROMPT)
     max_seq = FAMILY_PROMPT + FAMILY_NEW_TOKENS
-    same = _family_graph_vs_eager(cfg, sp, toks, max_seq, FAMILY_EXTEND,
-                                  pre, step, {})
+    same, finite = _family_graph_vs_eager(cfg, sp, toks, max_seq,
+                                          FAMILY_EXTEND, pre, step, {})
     print(f"FAMILY gemma2-9b graph vs eager: serve_requests tokens equal="
           f"{same_tokens}; a prefill replay and {FAMILY_EXTEND} decode "
-          f"replays bitwise to eager (logits, tokens, caches)={same}",
-          flush=True)
-    if not (same_tokens and same):
+          f"replays bitwise to eager (logits, tokens, caches)={same}, "
+          f"every logit finite={finite}", flush=True)
+    if not (same_tokens and same and finite):
         raise AssertionError("FAMILY gemma2-9b: graph replays differ from "
                              "eager serving")
 
@@ -2085,9 +2145,9 @@ def _run_other_family(name: str, held: list, rows: list) -> dict:
     toks = _pad_batch(prompts, FAMILY_OTHER_PROMPT)
     max_seq = FAMILY_OTHER_PROMPT + new_tokens + (
         cfg.n_patches if cfg.family == "vlm" else 0)
-    same = _family_graph_vs_eager(cfg, sp, toks, max_seq, FAMILY_OTHER_STEPS,
-                                  pre, step, kw)
-    if not same:
+    same, finite = _family_graph_vs_eager(cfg, sp, toks, max_seq,
+                                          FAMILY_OTHER_STEPS, pre, step, kw)
+    if not (same and finite):
         raise AssertionError(f"FAMILY {name}: graph replays differ from "
                              f"eager serving")
     shapes, errs, worst = {}, {}, (0.0, 0.0)
@@ -2116,7 +2176,8 @@ def _run_other_family(name: str, held: list, rows: list) -> dict:
           f"{f' + {cfg.encoder_seq} frames' if enc else ''}: B3 counted "
           f"{counted} at the wrapper (want {want}), {launches} launches on "
           f"the card; prefill and {FAMILY_OTHER_STEPS} decode graph "
-          f"replays bitwise to eager={same}; {len(rec.calls)} B3 calls held "
+          f"replays bitwise to eager={same} (every logit finite="
+          f"{finite}); {len(rec.calls)} B3 calls held "
           f"against plain, worst max_abs_err={worst[0]:.3g} "
           f"allowance_share={worst[1]:.3g}, shapes {list(shapes)}; "
           f"prefill_ms cold (warm-up, capture, replay)={cold_ms:.1f} warm "
@@ -2160,6 +2221,337 @@ def run_families() -> dict:
           flush=True)
     return {"launches": launches, "max_abs_err": max(held), "rows": rows,
             "others": others}
+
+
+class MoeDrops:
+    """While active, wraps the direct model's ``moe``: for its first ``n``
+    calls (one prefill pass) the share of token-expert pairs its router
+    sends past an expert's capacity (``layers.moe_route``), a diagnostic
+    beside the published capacity factor."""
+
+    def __init__(self, n: int):
+        from repro_torch.models import transformer as T
+        self.T, self.n, self.orig = T, n, T.moe
+        self.shares = []
+
+    def __enter__(self):
+        from repro_torch.models.layers import MOE_GROUP_TOKENS, moe_route
+
+        def spy(p, x, cfg):
+            if len(self.shares) < self.n:
+                s_g = min(x.shape[1], MOE_GROUP_TOKENS)
+                r = moe_route(p, x.reshape(-1, s_g, x.shape[-1]), cfg)
+                self.shares.append(float(1 - r["keep"].sum()
+                                         / r["chosen"].sum()))
+            return self.orig(p, x, cfg)
+
+        self.T.moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe = self.orig
+
+
+def _b5_hold(args, kw, out):
+    """A recorded B5 call (``mamba_scan.ops.mamba``'s six tensors and its
+    ``state`` keyword) against ``reference_mamba`` on the same inputs: y
+    (one bf16 ulp beside ``MODEL_TOL`` for a bf16 y) and the final state,
+    float32.  Returns ``(err, share)``, the larger of the two."""
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    y, h = out
+    py, ph = reference_mamba(*args[:6], state=kw.get("state"),
+                             return_state=True)
+    rtol = BF16_RTOL if y.dtype == torch.bfloat16 else 0.0
+    ey, sy = _hold(y, py, rtol, MODEL_TOL["mamba_scan"])
+    eh, sh = _hold(h, ph, 0.0, MODEL_TOL["mamba_scan"])
+    return max(ey, eh), max(sy, sh)
+
+
+def _b5_timing(label, args, kw, err) -> dict:
+    """A recorded B5 call timed with its state in and out: the kernel as a
+    CUDA graph (32 calls in one graph for a decode token, whose launch is
+    a few microseconds), the plain version, and the bound — the bytes of
+    x, dt, B, C, A, D and y and of the float32 state read and written
+    (``mamba_ops`` for the operations).  A ``kernels`` line row."""
+    from repro_torch.kernels.mamba_scan import kernel as ms_k
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    x, dt, b, c, a, d = args[:6]
+    state = kw.get("state")
+    bsz, t, di = x.shape
+    ds = b.shape[-1]
+    nbytes = (3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) \
+        * x.element_size() + 2 * bsz * di * ds * 4
+    ops = mamba_ops(bsz, t, di, ds)
+    bound_ms, bound_by = _bound(nbytes, ops)
+
+    def run():
+        return ms_k.mamba_scan(x, dt, b, c, a, d, state=state,
+                               return_state=True)
+    ms = graph_ms(run, calls=32 if t == 1 else 1)
+    plain_ms = cuda_ms(lambda: reference_mamba(x, dt, b, c, a, d,
+                                               state=state,
+                                               return_state=True),
+                       reps=3 if t > 1 else 10, burst=1 if t > 1 else 5)
+    return {"label": f"{label} B{bsz} T{t} d_inner {di} d_state {ds} "
+                     f"{str(x.dtype).removeprefix('torch.')}, state in and "
+                     f"out", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library": "none: no PyTorch call computes a selective scan",
+            "library_ms": None}
+
+
+def _moe_config(name, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def _run_moe_config(case, seed: int, rows: dict, held: dict) -> dict:
+    """One config of ``MOE_CASES`` served on the card (see the module doc).
+    Appends its timed B3 and B5 calls to ``rows`` and its held errors to
+    ``held``; returns its launches on the card and times."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import transformer as T
+    name, layers, batch, prompt, new_tokens = case
+    t0 = time.perf_counter()
+    cfg = _moe_config(name, layers)
+    sp, n_params = _family_weights(cfg, seed)
+    pattern = cfg.layer_pattern()
+    n_attn = sum(m.startswith("attn") for m, _ in pattern)
+    n_mamba = sum(m == "mamba" for m, _ in pattern)
+    n_moe = sum(f == "moe" for _, f in pattern)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(prompt // 2 + 1, prompt + 1, batch)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    m = cfg.moe
+    print(f"MOE config {cfg.name} layers={cfg.n_layers} (attention "
+          f"{n_attn}, mamba {n_mamba}; moe {n_moe}, dense "
+          f"{cfg.n_layers - n_moe}) d_model={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} experts={m.n_experts} "
+          f"top_k={m.top_k} d_expert={m.d_expert} capacity_factor="
+          f"{m.capacity_factor} d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
+          + (f" mamba d_inner={cfg.mamba.expand * cfg.d_model} d_state="
+             f"{cfg.mamba.d_state} d_conv={cfg.mamba.d_conv}"
+             if n_mamba else "")
+          + f" dtype={cfg.dtype} param_dtype={cfg.param_dtype} params="
+          f"{n_params} requests={batch} prompt_lengths={lengths.tolist()} "
+          f"max_prompt={prompt} new_tokens={new_tokens} (weights "
+          f"{time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)",
+          flush=True)
+
+    # -- the main path: serve_requests, B3's and B5's counts at 0 ----------
+    # the wrappers run in the prefill's warm-up and capture (calls 0 to
+    # 2n - 1 of n a pass) and the decode step's (2n to 4n - 1); B5's held
+    # calls are the first and last Mamba layer of the prefill's warm-up and
+    # the first of the decode step's, B3's every call of the warm-up
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.mamba_scan import kernel as ms_k
+    keep5 = {0, n_mamba - 1, 2 * n_mamba} if n_mamba else set()
+    with OpRecorder(fa_ops, "attention", range(n_attn)) as r3, \
+            OpRecorder(ms_ops, "mamba", keep5) as r5, MoeDrops(n_moe) as dr:
+        fa_k.LAUNCHES["flash_attention"] = 0
+        ms_k.LAUNCHES["mamba_scan"] = 0
+        tokens, times = serve_requests(cfg, sp, prompts, batch=batch,
+                                       max_prompt=prompt,
+                                       new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        counted = {"flash_attention": fa_k.LAUNCHES["flash_attention"],
+                   "mamba_scan": ms_k.LAUNCHES["mamba_scan"]}
+    pre, step = times[0]["prefill"], times[0]["step"]
+    gen_tokens = np.stack(tokens)
+    want = {"flash_attention": 2 * n_attn, "mamba_scan": 4 * n_mamba}
+    if counted != want:
+        raise AssertionError(f"MOE {name}: the wrappers counted {counted}, "
+                             f"want {want}")
+    _check_served(name, cfg, pre, step, counted["flash_attention"],
+                  want["flash_attention"], new_tokens, gen_tokens)
+    in_place = [i for i, w in enumerate(r5.in_place) if w]
+    if in_place != list(range(3 * n_mamba, 4 * n_mamba)):
+        raise AssertionError(f"MOE {name}: B5 calls writing the state in "
+                             f"place {in_place}, want the decode capture's "
+                             f"{3 * n_mamba} to {4 * n_mamba - 1}")
+    launches = {"flash_attention": n_attn * (1 + pre.replays),
+                "mamba_scan": n_mamba * (1 + pre.replays)
+                + n_mamba * (1 + step.replays)}
+    print(f"MOE {name} main path (serve_requests): prefill graph captures="
+          f"{pre.captures} replays={pre.replays}, decode graph captures="
+          f"{step.captures} replays={step.replays}; a prefill pass runs B3 "
+          f"{n_attn} and B5 {n_mamba} times, a decode step B3 0 and B5 "
+          f"{n_mamba} times (counted at the wrappers {counted}: each "
+          f"step's warm-up and capture); B5 writing the ssm state in place "
+          f"in the decode graph: {len(in_place)} of the capture's "
+          f"{n_mamba} calls (out_state is the static cache's state); "
+          f"launches on the card {launches}; token-expert pairs dropped at "
+          f"capacity in the prefill, by MoE layer "
+          f"{[round(x, 4) for x in dr.shares]} (a diagnostic)", flush=True)
+
+    # -- graph vs eager ----------------------------------------------------
+    eager_tokens, _ = serve_requests(cfg, sp, prompts, batch=batch,
+                                     max_prompt=prompt,
+                                     new_tokens=new_tokens, graph=False)
+    same_tokens = np.array_equal(np.stack(eager_tokens), gen_tokens)
+    toks = _pad_batch(prompts, prompt)
+    max_seq = prompt + new_tokens
+    steps = min(FAMILY_EXTEND, new_tokens - 1)
+    same, finite = _family_graph_vs_eager(cfg, sp, toks, max_seq, steps,
+                                          pre, step, {})
+    print(f"MOE {name} graph vs eager: serve_requests tokens equal="
+          f"{same_tokens}; a prefill replay and {steps} decode replays "
+          f"bitwise to eager (logits, tokens, caches)={same}; every logit "
+          f"finite={finite}", flush=True)
+    if not (same_tokens and same and finite):
+        raise AssertionError(f"MOE {name}: graph replays differ from eager "
+                             f"serving, or a logit is not finite")
+
+    # -- the recorded calls against their plain versions -------------------
+    errs3, errs5 = {}, {}
+    for i in sorted(r3.calls):
+        args, _, out = r3.calls[i]
+        errs3[i] = _b3_hold(args, out)
+        if not errs3[i][1] <= 1.0:
+            raise AssertionError(f"MOE {name} B3 call {i} "
+                                 f"[{_b3_label(args)}]: {errs3[i][1]:.3g}x "
+                                 f"its allowance")
+    for i in sorted(r5.calls):
+        args, kw, out = r5.calls[i]
+        errs5[i] = _b5_hold(args, kw, out)
+        what = "decode" if i >= 2 * n_mamba else "prefill"
+        print(f"MOE {name} B5 call {i} ({what}, Mamba layer "
+              f"{i % n_mamba} of {n_mamba}) [x {tuple(args[0].shape)} "
+              f"{str(args[0].dtype).removeprefix('torch.')}, state in and "
+              f"out]: y and final state max_abs_err={errs5[i][0]:.3g} "
+              f"allowance_share={errs5[i][1]:.3g} (|err| <= "
+              f"{MODEL_TOL['mamba_scan']})", flush=True)
+        if not errs5[i][1] <= 1.0:
+            raise AssertionError(f"MOE {name} B5 call {i}: "
+                                 f"{errs5[i][1]:.3g}x its allowance")
+    if errs3:
+        worst = max(errs3.values(), key=lambda e: e[1])
+        print(f"MOE {name}: {len(errs3)} B3 calls (one prefill pass) held "
+              f"against plain, worst max_abs_err={worst[0]:.3g} "
+              f"allowance_share={worst[1]:.3g} (|err| <= "
+              f"{BF16_RTOL:.3g}|plain| + {MODEL_TOL['flash_attention']})",
+              flush=True)
+    held["flash_attention"] += [e for e, _ in errs3.values()]
+    held["mamba_scan"] += [e for e, _ in errs5.values()]
+
+    # -- the state hand-off (Mamba configs) --------------------------------
+    if n_mamba:
+        ch = cfg.scaled(moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        head = toks[:, -(MOE_HANDOFF - MOE_EXTEND):]
+        err, top, fin = _extend_err(ch, sp, head,
+                                    gen_tokens[:, :MOE_EXTEND], MOE_HANDOFF)
+        print(f"MOE {name} state hand-off, capacity_factor "
+              f"{ch.moe.capacity_factor} (nothing dropped): prefill("
+              f"{MOE_HANDOFF - MOE_EXTEND}) + {MOE_EXTEND} decode tokens vs "
+              f"prefill({MOE_HANDOFF}): last-position logits max abs err / "
+              f"max magnitude = {err:.4g} (bound {FAMILY_RTOL[cfg.dtype]}); "
+              f"max |logit| {top:.4g}; every logit finite={fin}", flush=True)
+        if not (fin and err <= FAMILY_RTOL[cfg.dtype]):
+            raise AssertionError(f"MOE {name}: decode after prefill off by "
+                                 f"{err}, finite {fin}")
+
+    # -- times ---------------------------------------------------------------
+    warm = {"eager": [], "replay": []}
+    for kind in ("eager", "replay", "replay", "eager"):
+        run = (lambda: pre(toks, max_seq)) if kind == "replay" else \
+            (lambda: T.serve_prefill(sp, toks, cfg, max_seq))
+        warm[kind].append(_timed(run)[1] * 1e3)
+    decode_ms = statistics.mean(times[0]["decode_s"][1:]) * 1e3
+    prof = _profile_steps(pre, step, toks, max_seq)
+    print(f"MOE {name} timing: prefill_ms cold (warm-up, capture, replay)="
+          f"{times[0]['prefill_s'] * 1e3:.1f} warm eager="
+          f"{[round(x, 2) for x in warm['eager']]} warm replay="
+          f"{[round(x, 2) for x in warm['replay']]} decode_ms_per_step "
+          f"(steps 2-{new_tokens - 1}, graph replays)={decode_ms:.3f} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    for what, (wall, busy, top) in prof.items():
+        print(f"MOE {name} profile of a {what} (torch.profiler, graph "
+              f"replays): wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f}; top device ops: {top}",
+              flush=True)
+    if r3.calls:
+        args, _, out = r3.calls[0]
+        rows["flash_attention"].append(_b3_timing(f"{name} served", args,
+                                                  out, errs3[0][0]))
+        _print_b3_timing(f"MOE {name} B3 call", rows["flash_attention"][-1])
+    for i, what in ((0, "prefill"), (2 * n_mamba, "decode")):
+        if i not in r5.calls:
+            continue
+        args, kw, _ = r5.calls[i]
+        row = _b5_timing(f"{name} served {what} layer", args, kw,
+                         errs5[i][0])
+        rows["mamba_scan"].append(row)
+        print(f"MOE {name} B5 {what} layer call [{row['label']}]: "
+              f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"bytes={row['bytes']} ops={row['ops']} bound_ms="
+              f"{row['bound_ms']:.4f} ({row['bound_by']}) kernel/bound="
+              f"{row['ms'] / row['bound_ms']:.2f} library=none", flush=True)
+    return {"launches": launches, "prefill_ms": warm, "decode_ms": decode_ms}
+
+
+def _profile_steps(pre, step, toks, max_seq) -> dict:
+    """A prefill replay, and two decode replays from its caches (after one
+    step that copies them into the decode graph's static caches), each
+    under ``torch.profiler``: ``{what: (wall ms, device busy ms, the top
+    device operations by time, each summed over the run)}``; wall and busy
+    per step, the top operations over the run's steps (named in
+    ``what``)."""
+    from torch.profiler import ProfilerActivity, profile as tp
+    _, tok, caches = pre(toks, max_seq)
+    _, tok, caches = step(caches, tok)
+    runs = {"prefill": (1, lambda: pre(toks, max_seq)),
+            "decode step (top ops over 2 steps)":
+                (2, lambda: [step(caches, tok) for _ in range(2)])}
+    out = {}
+    for what, (n, fn) in runs.items():
+        torch.cuda.synchronize()
+        with tp(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = _device_kernels(prof)
+        out[what] = (wall / n, _busy_ms(events) / n,
+                     _top_device_ops(events, 4))
+    return out
+
+
+def run_moe() -> dict:
+    """The MoE and Mamba families (see the module doc): Jamba-v0.1 at one
+    8-layer period, OLMoE-1B-7B whole and Qwen3-MoE-235B-A22B at 2 layers,
+    each served through the prefill and decode graphs, its weights dropped
+    before the next.  Returns B3's and B5's launches on the card, the
+    timed calls' rows and the held calls' largest errors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = {"flash_attention": [], "mamba_scan": []}
+    held = {"flash_attention": [], "mamba_scan": []}
+    launches = {"flash_attention": 0, "mamba_scan": 0}
+    for seed, case in enumerate(MOE_CASES):
+        res = _run_moe_config(case, 10 + seed, rows, held)
+        for k, n in res["launches"].items():
+            launches[k] += n
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"MOE phase: launches {launches}, B3 calls held "
+          f"{len(held['flash_attention'])} (max_abs_err "
+          f"{max(held['flash_attention']):.3g}), B5 calls held "
+          f"{len(held['mamba_scan'])} (max_abs_err "
+          f"{max(held['mamba_scan']):.3g}), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB allocated, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"launches": launches, "rows": rows,
+            "max_abs_err": {k: max(v) for k, v in held.items()}}
 
 
 def _device_kernels(prof):
@@ -3017,6 +3409,14 @@ def main() -> int:
     model["cases"]["flash_attention"].extend(families["rows"])
     for row in model["cases"]["flash_attention"]:
         row["max_abs_err"] = max(row["max_abs_err"], families["max_abs_err"])
+    moe = run_moe()
+    torch.cuda.empty_cache()
+    for name in ("flash_attention", "mamba_scan"):
+        model["launches"][name] += moe["launches"][name]
+        model["cases"][name].extend(moe["rows"][name])
+        for row in model["cases"][name]:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     moe["max_abs_err"][name])
     loop = run_loop(lazy, codegen)
     torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)

@@ -5,9 +5,7 @@ the assigned input-shape grid: the port's copy of ``repro/configs``.
 reference's skip table) and ``input_specs(cfg, shape)``, whose stand-ins
 for the model inputs are tensors on the ``meta`` device: shapes and dtypes
 with no memory behind them, as the reference's ``jax.ShapeDtypeStruct``.
-The direct model runs the attention families and RWKV6; it refuses the
-configs with MoE or Mamba layers (``models.transformer.validate_config``),
-which are registered here all the same."""
+The direct model runs every one of them as published."""
 
 from __future__ import annotations
 

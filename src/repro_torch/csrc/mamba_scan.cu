@@ -6,6 +6,11 @@
 //     y_t = h_t . C_t + D * x_t
 // with the (d_inner x d_state) float32 state kept on chip for the whole
 // sequence, so device memory sees x, dt, B, C and y only.  One launch.
+// The state may start from a given float32 h_0 (B, d_inner, d_state) and
+// its final value h_T may be written out, over h_0 itself if asked (a
+// served decode step updates its cache in place): each thread reads its
+// own states before the scan and writes the same ones after it, and no
+// other thread touches them.
 //
 // What bounds it on an H100: per (token, channel) it reads x and dt and
 // writes y (B_t and C_t are shared by all channels): 12 bytes in float32.
@@ -70,6 +75,7 @@ namespace {
 constexpr int STAGES = 3;               // tiles in flight: the scan's + 2
 constexpr int GROUP = 2;                // channels a thread
 constexpr int CHANNELS = 64;            // channels a block
+constexpr int MAX_STATE = 64;           // the widest d_state (kernel.py's)
 static_assert(CHANNELS % (32 * GROUP) == 0, "a warp is 32 channel groups");
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int MAX_SMEM = 227 * 1024;    // a block's dynamic shared memory
@@ -146,10 +152,19 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[K]) {
 }
 
 // the most threads a block of an instance may have: the K * SPL states a
-// thread holds (about 6 registers each with the prefetched step) bound it
-template <int STATES>
+// thread holds (about 6 registers each with the prefetched step) bound it,
+// and so do the lanes that cover the widest state (MAX_STATE / SPL) for
+// each of a block's CHANNELS / K channel groups.  The bound sets the
+// registers a thread may take (65536 / bound): at 1024, 64, too few for 2
+// channels x 4 states once the state's offset is held across the scan (it
+// spilled, 10% slower); at 512 the Jamba-v0.1 case takes 106 registers
+// and runs 2.5% faster than the stateless kernel did at 64
+// (tools/mamba_layouts.py)
+template <int K, int SPL>
 struct MaxThreads {
-  static constexpr int value = STATES >= 16 ? 512 : 1024;
+  static constexpr int by_states = K * SPL >= 16 ? 512 : 1024;
+  static constexpr int by_lanes = (MAX_STATE + SPL - 1) / SPL * CHANNELS / K;
+  static constexpr int value = by_lanes < by_states ? by_lanes : by_states;
 };
 
 struct Geometry {
@@ -253,12 +268,12 @@ __device__ __forceinline__ void store_row(const float* q, int r, int L,
 }
 
 template <typename T, int SPL, int K = GROUP>
-__global__ void __launch_bounds__(MaxThreads<K * SPL>::value)
+__global__ void __launch_bounds__(MaxThreads<K, SPL>::value)
     mamba_fwd(const T* __restrict__ x, const T* __restrict__ dt,
               const T* __restrict__ bm, const T* __restrict__ cm,
               const T* __restrict__ a, const T* __restrict__ dv,
-              T* __restrict__ y, int Tn, int Di, int Ds, Geometry g,
-              int aligned) {
+              const float* h0, float* hT, T* __restrict__ y, int Tn, int Di,
+              int Ds, Geometry g, int aligned) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* stages = reinterpret_cast<T*>(smem);
   float* ps = reinterpret_cast<float*>(stages + STAGES * g.stage_elems());
@@ -270,6 +285,8 @@ __global__ void __launch_bounds__(MaxThreads<K * SPL>::value)
   const int c0 = blockIdx.x * g.CH, b = blockIdx.y, cb = c0 + cg * K;
   const int left = Di - cb;  // the thread's channels in range, if < K
 
+  // the thread's states: h0 / hT row (b, cb + k), columns lane * SPL + j
+  const size_t hrow = (size_t(b) * Di + cb) * Ds;
   float a2[K][SPL], h[K][SPL], dd[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -277,9 +294,9 @@ __global__ void __launch_bounds__(MaxThreads<K * SPL>::value)
 #pragma unroll
     for (int j = 0; j < SPL; ++j) {
       const int s = lane * SPL + j;
-      a2[k][j] = ok && s < Ds ? to_float(a[size_t(cb + k) * Ds + s]) * LOG2E
-                              : 0.f;
-      h[k][j] = 0.f;
+      const bool in = ok && s < Ds;
+      a2[k][j] = in ? to_float(a[size_t(cb + k) * Ds + s]) * LOG2E : 0.f;
+      h[k][j] = in && h0 ? h0[hrow + size_t(k) * Ds + s] : 0.f;
     }
     // lane 0's partial sums start from D x_t
     dd[k] = ok && lane == 0 ? to_float(dv[cb + k]) : 0.f;
@@ -345,6 +362,15 @@ __global__ void __launch_bounds__(MaxThreads<K * SPL>::value)
                       aligned);
   }
   cp_async_wait<0>();
+  if (hT) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int s = lane * SPL + j;
+        if (k < left && s < Ds) hT[hrow + size_t(k) * Ds + s] = h[k][j];
+      }
+  }
 }
 
 // The launch of one layout: its grid, tile and shared memory.  32 steps a
@@ -359,7 +385,7 @@ struct Plan {
 template <typename T, int SPL>
 int plan(int B, int Di, int Ds, int L, Plan* p) {
   const int threads = L * CHANNELS / GROUP;
-  if (L < 1 || L * SPL < Ds || threads > MaxThreads<GROUP * SPL>::value)
+  if (L < 1 || L * SPL < Ds || threads > MaxThreads<GROUP, SPL>::value)
     return cudaErrorInvalidValue;
   static int sms = 0;
   if (!sms) {
@@ -390,6 +416,8 @@ int plan(int B, int Di, int Ds, int L, Plan* p) {
 
 struct Args {
   const void *x, *dt, *b, *c, *a, *d;
+  const float* h0;
+  float* hT;
   void* y;
   int B, Tn, Di, Ds, L;
 };
@@ -409,7 +437,7 @@ int launch(const Args& r, cudaStream_t stream) {
   mamba_fwd<T, SPL><<<p.grid, r.L * CHANNELS / GROUP, p.smem, stream>>>(
       static_cast<const T*>(r.x), static_cast<const T*>(r.dt),
       static_cast<const T*>(r.b), static_cast<const T*>(r.c),
-      static_cast<const T*>(r.a), static_cast<const T*>(r.d),
+      static_cast<const T*>(r.a), static_cast<const T*>(r.d), r.h0, r.hT,
       static_cast<T*>(r.y), r.Tn, r.Di, r.Ds, p.g, aligned);
   return cudaGetLastError();
 }
@@ -439,14 +467,18 @@ int with_type(int dtype, int SPL, F f) {
 }  // namespace
 
 // x, dt, y: (B, T, Di); b, c: (B, T, Ds); a: (Di, Ds); d: (Di,); all
-// contiguous, of one dtype (DTYPE_F32 or DTYPE_BF16); L lanes a channel
-// holding SPL states each (L * SPL >= Ds), SPL one of with_spl's.
+// contiguous, of one dtype (DTYPE_F32 or DTYPE_BF16); h0, hT: null or
+// contiguous float32 (B, Di, Ds), the initial state (zeros when null) and
+// where the final one goes (hT may be h0); L lanes a channel holding SPL
+// states each (L * SPL >= Ds), SPL one of with_spl's.
 extern "C" int repro_mamba_scan_fwd(const void* x, const void* dt,
                                     const void* b, const void* c,
-                                    const void* a, const void* d, void* y,
+                                    const void* a, const void* d,
+                                    const void* h0, void* hT, void* y,
                                     int dtype, int B, int Tn, int Di, int Ds,
                                     int L, int SPL, void* stream) {
-  const Args r{x, dt, b, c, a, d, y, B, Tn, Di, Ds, L};
+  const Args r{x, dt, b, c, a, d, static_cast<const float*>(h0),
+               static_cast<float*>(hT), y, B, Tn, Di, Ds, L};
   return with_type(dtype, SPL, [&](auto t, auto s) {
     return launch<decltype(t), decltype(s)::value>(
         r, static_cast<cudaStream_t>(stream));

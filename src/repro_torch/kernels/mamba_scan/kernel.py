@@ -8,8 +8,10 @@ states in float32 registers (``lanes`` threads a channel, 64 channels a
 block), the decay as one ``ex2`` of a pre-scaled A, x/dt/B/C tiles
 streamed into shared memory by ``cp.async`` while the scan runs, and the
 lanes' partial outputs summed once a tile.  :func:`layout` picks
-``lanes`` and ``spl`` for each ``d_state``.  It is built by
-:mod:`..cuda_build` at first use.
+``lanes`` and ``spl`` for each ``d_state``.  The state may start from a
+given one and its final value may be written out, over the initial one
+in place if asked (``out_state=state``, as a served decode step's static
+cache has it).  It is built by :mod:`..cuda_build` at first use.
 
 On CPU tensors :func:`mamba_scan` runs the plain version
 (``ref.py:reference_mamba``; ``ref.py:route_mamba`` emulates the kernel's
@@ -45,35 +47,65 @@ def layout(d_state: int) -> tuple:
 LAUNCHES = {"mamba_scan": 0}
 
 
-def mamba_scan(x, dt, b, c, a, d, *, chunk: int = 64) -> torch.Tensor:
+def mamba_scan(x, dt, b, c, a, d, *, chunk: int = 64, state=None,
+               return_state: bool = False, out_state=None):
     """x, dt: ``(B, T, d_inner)``; b, c: ``(B, T, d_state)``; a: ``(d_inner,
     d_state)``; d: ``(d_inner,)``.  Returns y: ``(B, T, d_inner)`` in
-    ``x.dtype``.  ``chunk`` is the TPU kernel's sequence tile: it must be
-    positive and changes nothing else, as there."""
+    ``x.dtype``, and with ``return_state`` the final float32 ``(B,
+    d_inner, d_state)`` state too; ``state`` is the initial one (zeros
+    when None; float32 on the card).  ``out_state``: a float32 ``(B,
+    d_inner, d_state)`` tensor the final state is written into and
+    returned as (it may be ``state`` itself, updated in place); implies
+    ``return_state``.  ``chunk`` is the TPU kernel's sequence tile: it must
+    be positive and changes nothing else, as there."""
     bsz, t, d_inner = x.shape
     d_state = b.shape[-1]
+    hs = (bsz, d_inner, d_state)
     if dt.shape != x.shape or b.shape != (bsz, t, d_state) \
             or c.shape != b.shape or a.shape != (d_inner, d_state) \
-            or d.shape != (d_inner,):
-        raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
-                         f"b {tuple(b.shape)}, c {tuple(c.shape)}, a "
-                         f"{tuple(a.shape)}, d {tuple(d.shape)}")
+            or d.shape != (d_inner,) \
+            or (state is not None and state.shape != hs) \
+            or (out_state is not None and out_state.shape != hs):
+        raise ValueError(
+            f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, b "
+            f"{tuple(b.shape)}, c {tuple(c.shape)}, a {tuple(a.shape)}, d "
+            f"{tuple(d.shape)}, state "
+            f"{None if state is None else tuple(state.shape)}, out_state "
+            f"{None if out_state is None else tuple(out_state.shape)}")
     if chunk < 1:
         raise ValueError(f"chunk {chunk}")
+    return_state = return_state or out_state is not None
     ins = {"x": x, "dt": dt, "b": b, "c": c, "a": a, "d": d}
-    device = kernel_device(ins, "mamba_scan")
+    states = {k: v for k, v in (("state", state), ("out_state", out_state))
+              if v is not None}
+    device = kernel_device({**ins, **states}, "mamba_scan")
     if device is None:
-        return reference_mamba(x, dt, b, c, a, d)
+        out = reference_mamba(x, dt, b, c, a, d, state=state,
+                              return_state=return_state)
+        if out_state is None:
+            return out
+        return out[0], out_state.copy_(out[1])
     cuda_build.require(ins, DTYPES, "mamba_scan")
+    if states:
+        cuda_build.require(states, (torch.float32,), "mamba_scan")
     lanes, spl = layout(d_state)
     y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
+    h_out = out_state
+    if h_out is None and return_state:
+        h_out = torch.empty(hs, dtype=torch.float32, device=x.device)
+    if y.numel() == 0:            # no step to take: h_T is h_0
+        if h_out is not None and state is not None:
+            h_out.copy_(state)
+        elif h_out is not None:
+            h_out.zero_()
+        return (y, h_out) if return_state else y
     cuda_build.launch(
-        "repro_mamba_scan_fwd", "pppppppiiiiiiip",
+        "repro_mamba_scan_fwd", "pppppppppiiiiiiip",
         [x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
-         a.data_ptr(), d.data_ptr(), y.data_ptr(),
+         a.data_ptr(), d.data_ptr(),
+         None if state is None else state.data_ptr(),
+         None if h_out is None else h_out.data_ptr(), y.data_ptr(),
          cuda_build.DTYPE_CODES[x.dtype], bsz, t, d_inner, d_state, lanes,
          spl], device)
     LAUNCHES["mamba_scan"] += 1
-    return y
+    return (y, h_out) if return_state else y

@@ -2,7 +2,9 @@
 Forward is :func:`kernel.mamba_scan` (the kernel on CUDA tensors, the plain
 version on CPU tensors: the tensors' device takes the place of the
 reference's ``interpret`` flag); backward is autograd through the plain
-version, as the reference's is ``jax.vjp`` of its reference."""
+version, as the reference's is ``jax.vjp`` of its reference.  It takes an
+optional initial state and returns the final one when asked, as a model's
+prefill and decode need."""
 
 from __future__ import annotations
 
@@ -14,18 +16,41 @@ from .ref import reference_mamba
 
 class _Mamba(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dt, b, c, a, d, chunk):
-        ctx.save_for_backward(x, dt, b, c, a, d)
-        return mamba_scan(x, dt, b, c, a, d, chunk=chunk)
+    def forward(ctx, chunk, return_state, x, dt, b, c, a, d, state):
+        ctx.return_state = return_state
+        ctx.save_for_backward(x, dt, b, c, a, d, state)
+        return mamba_scan(x, dt, b, c, a, d, chunk=chunk, state=state,
+                          return_state=return_state)
 
     @staticmethod
-    def backward(ctx, g):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+    def backward(ctx, *grads):
+        ins = [None if t is None else t.detach().requires_grad_()
+               for t in ctx.saved_tensors]
         with torch.enable_grad():
-            y = reference_mamba(*ins)
-        return (*torch.autograd.grad(y, ins, g), None)
+            outs = reference_mamba(*ins[:6], state=ins[6],
+                                   return_state=ctx.return_state)
+        outs = outs if ctx.return_state else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = [t for t in ins if t is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return (None, None,
+                *(None if t is None else next(got) for t in ins))
 
 
-def mamba(x, dt, b, c, a, d, chunk: int = 64):
-    """:func:`kernel.mamba_scan`, differentiable in every input."""
-    return _Mamba.apply(x, dt, b, c, a, d, chunk)
+def mamba(x, dt, b, c, a, d, chunk: int = 64, *, state=None,
+          return_state: bool = False, out_state=None):
+    """:func:`kernel.mamba_scan`, differentiable in every input (the
+    initial state included).  With ``out_state`` (serving) the final state
+    is written into that tensor, which may be ``state`` itself, and
+    returned; that form writes in place and is not differentiable."""
+    if out_state is not None:
+        if torch.is_grad_enabled() and any(
+                z is not None and z.requires_grad
+                for z in (x, dt, b, c, a, d, state)):
+            raise ValueError("mamba: out_state writes in place and takes "
+                             "no gradient")
+        return mamba_scan(x, dt, b, c, a, d, chunk=chunk, state=state,
+                          out_state=out_state)
+    return _Mamba.apply(chunk, return_state, x, dt, b, c, a, d, state)

@@ -20,8 +20,9 @@ embeddings prefix each prompt.  Both default to zeros, as the reference
 launcher feeds them.  As in the reference, ``--smoke`` cannot be turned
 off, so ``main`` serves the reduced config with random weights; a
 full-size run calls :func:`serve_requests` with its own config and
-weights.  An arch whose config the direct model refuses (MoE, Mamba)
-raises, naming what it lacks.
+weights.  Every config of ``configs/`` is served: attention, MoE, Mamba
+(the SSM state carried from the prefill into every decode step) and RWKV6
+layers.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..configs import ARCHS, get_config
 from ..core.cuda_graph import capture
 from ..core.device import resolve_device
 from ..models.config import ModelConfig
+from ..models.layers import MOE_GROUP_TOKENS
 from ..models.transformer import (encode, init_params, serve_decode,
                                   serve_prefill, serving_params,
                                   validate_config)
@@ -178,7 +180,8 @@ class DecodeStep(_GraphStep):
     and ``enc_out`` shape over a static ``(B, 1)`` token, a static
     ``enc_out`` and static stacked caches, with the caches updated in place
     (``serve_decode(..., in_place=True)``: B6 writes each RWKV layer's
-    state straight into the static cache).  Every call copies its token
+    state and B5 each Mamba layer's SSM state straight into the static
+    cache).  Every call copies its token
     and ``enc_out`` into the static ones, and its caches too unless they
     are the static ones the last call returned, and replays.  The returned
     logits and caches are the static buffers, overwritten by the next
@@ -251,8 +254,15 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
     ``captures`` and ``replays``).  ``graph`` is both steps': None runs
     each as a CUDA graph on the card and eagerly on the CPU.  The weights
     are cast once (:func:`serving_params`), which leaves every logit
-    bitwise."""
+    bitwise.  A MoE model routes the padded prompt in groups of
+    ``min(S, 512)`` tokens, so ``max_prompt`` must be at most 512 or a
+    multiple of it."""
     validate_config(cfg)
+    if cfg.moe is not None and max_prompt > MOE_GROUP_TOKENS \
+            and max_prompt % MOE_GROUP_TOKENS:
+        raise ValueError(f"serve_requests: a MoE model routes groups of "
+                         f"{MOE_GROUP_TOKENS} tokens; max_prompt "
+                         f"{max_prompt} is above it and not a multiple")
     params = serving_params(params, cfg)
     device = params["embed"].device
     cd = cfg.compute_dtype

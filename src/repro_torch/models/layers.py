@@ -2,25 +2,29 @@
 layers the port's models run: RMSNorm, RoPE, attention (GQA, RoPE,
 qk-norm, QKV bias, logit softcap, sliding window with a ring-buffer KV
 cache, cross-attention onto an encoder output) for prefill and decode,
-the SwiGLU / GeGLU MLP, and the RWKV6 mixer (token shift, data-dependent
-decay, the recurrence through kernels B6/B7, per-head group norm and gate)
-with its carried state.  Pure functions over dictionaries of tensors, in
-the reference's layouts (``x`` is ``(B, S, D)``, q/k/v ``(B, S, H, hd)``,
-caches ``(B, T, Hkv, hd)``, RWKV states ``(B, H, N, N)``), so the tests
+the SwiGLU / GeGLU MLP, the GShard-style MoE layer (grouped capacity
+dispatch, the router's aux losses), the Mamba mixer (causal conv, the
+selective scan through kernel B5) and the RWKV6 mixer (token shift,
+data-dependent decay, the recurrence through kernels B6/B7, per-head group
+norm and gate), the last two with their carried state.  Pure functions
+over dictionaries of tensors, in the reference's layouts (``x`` is ``(B,
+S, D)``, q/k/v ``(B, S, H, hd)``, caches ``(B, T, Hkv, hd)``, Mamba states
+``(B, d_inner, d_state)``, RWKV states ``(B, H, N, N)``), so the tests
 compare like with like.
 
 On the card every multi-token attention and every cross-attention runs
-kernel B3; on the CPU the reference's own ``_dense_attn`` /
-``_chunked_attn``.  No MoE or Mamba: configurations with those layers are
-refused before they get here (``transformer.validate_config``).
+kernel B3 and every Mamba scan kernel B5; on the CPU the reference's own
+``_dense_attn`` / ``_chunked_attn`` and the scan's plain version
+(``reference_mamba``).
 
 On the CPU ``tests/test_torch_family_attention.py`` holds ``attention``
 feature by feature (ring caches included) and the MLP against the JAX
-package, and ``tests/test_torch_families.py`` each attention config's
-model; on a card ``python3 -c "import chip_smoke as c;
-c.run_families()"`` (``PYTHONPATH=src``) serves Gemma2-9B at its 42
-layers and the other attention configs, every B3 call held against its
-plain version.
+package, ``tests/test_torch_family_moe_mamba.py`` ``moe`` and
+``mamba_mixer``, and ``tests/test_torch_families.py`` each config's model;
+on a card ``python3 -c "import chip_smoke as c; c.run_families()"`` and
+``c.run_moe()`` (``PYTHONPATH=src``) serve Gemma2-9B at its 42 layers, the
+other attention configs, Jamba-v0.1, OLMoE-1B-7B and Qwen3-MoE-235B, every
+B3 call and a sample of the B5 calls held against their plain versions.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention import ops as fa_ops
+from ..kernels.mamba_scan import ops as ms_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
 from .config import ModelConfig
 
@@ -301,8 +306,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
-             device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+             device, d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     pd = getattr(torch, cfg.param_dtype)
     return {"w_gate": _init(gen, (d, f), pd, device),
             "w_up": _init(gen, (d, f), pd, device),
@@ -317,6 +322,177 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = t * torch.sigmoid(t) if cfg.act == "silu" else \
         torch.nn.functional.gelu(t, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", g * u, p["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: Optional[torch.Generator], cfg: ModelConfig,
+             device) -> Params:
+    m = cfg.moe
+    d, e, f = cfg.d_model, m.n_experts, m.d_expert
+    pd = getattr(torch, cfg.param_dtype)
+    p = {"router": _init(gen, (d, e), pd, device, scale=0.02),
+         "w_gate": _init(gen, (e, d, f), pd, device),
+         "w_up": _init(gen, (e, d, f), pd, device),
+         "w_down": _init(gen, (e, f, d), pd, device)}
+    if m.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device,
+                               d_ff=m.d_expert * m.n_shared_experts)
+    return p
+
+
+#: GShard-style routing group: expert capacity is set per group of this
+#: many tokens, so the dispatch tensor grows linearly with the sequence
+MOE_GROUP_TOKENS = 512
+
+
+def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig) -> Dict:
+    """The router of :func:`moe` over ``(groups, s_g, d)`` tokens, in
+    float32: ``logits`` and ``probs`` ``(g, s_g, e)``, ``chosen`` (0/1 a
+    token's top-k experts), ``gate`` (its renormalised gates there),
+    ``keep`` (``chosen`` less the pairs past their expert's capacity: a
+    token's position in its expert's buffer is the exclusive cumsum of
+    ``chosen`` over the group), ``pos`` and the capacity ``cap``."""
+    m = cfg.moe
+    e, k = m.n_experts, m.top_k
+    cap = int(m.capacity_factor * xg.shape[1] * k / e) + 1
+    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32),
+                          p["router"].to(torch.float32))
+    probs = _softmax(logits)
+    gate_vals, idx = torch.topk(probs, k)                  # (g, s, k)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    # jax.nn.one_hot: a compare against the expert index
+    onehot = (idx[..., None] == torch.arange(e, device=xg.device)).to(
+        torch.float32)                                     # (g, s, k, e)
+    chosen = onehot.sum(2)                                 # (g, s, e) 0/1
+    pos = torch.cumsum(chosen, dim=1) - chosen
+    return {"logits": logits, "probs": probs, "chosen": chosen,
+            "gate": torch.einsum("gsk,gske->gse", gate_vals, onehot),
+            "keep": chosen * (pos < cap), "pos": pos, "cap": cap}
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Returns ``(y, aux_loss)``: the reference's grouped dispatch and
+    combine.  Tokens route within groups of ``min(s, 512)`` (``s`` must be
+    a multiple of it); each expert takes at most ``int(capacity_factor ·
+    s_g · k / e) + 1`` tokens a group, in token order, and drops the rest
+    (:func:`moe_route`).  The experts' products run in ``x.dtype``.
+    ``aux`` is the load-balance loss plus the router z-loss, float32."""
+    m = cfg.moe
+    b, s, d = x.shape
+    s_g = min(s, MOE_GROUP_TOKENS)
+    assert s % s_g == 0, (s, s_g)
+    xg = x.reshape(b * (s // s_g), s_g, d)
+    r = moe_route(p, xg, cfg)
+    slot = torch.arange(r["cap"], device=x.device)
+    dispatch = (r["keep"][..., None] * (r["pos"][..., None] == slot)).to(
+        x.dtype)                                           # (g, s, e, cap)
+    combine = dispatch * r["gate"][..., None].to(x.dtype)
+    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    t = torch.einsum("egcd,edf->egcf", xin, p["w_gate"].to(x.dtype))
+    h = t * torch.sigmoid(t)
+    h = h * torch.einsum("egcd,edf->egcf", xin, p["w_up"].to(x.dtype))
+    out = torch.einsum("egcf,efd->egcd", h, p["w_down"].to(x.dtype))
+    y = torch.einsum("gsec,egcd->gsd", combine, out).reshape(b, s, d)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x, cfg)
+    # aux losses: load balance (Switch) and the router's z-loss
+    me = r["probs"].mean(dim=(0, 1))
+    ce = r["chosen"].mean(dim=(0, 1)) / m.top_k
+    lb = m.n_experts * torch.sum(me * ce) * m.load_balance_coef
+    z = torch.mean(torch.logsumexp(r["logits"], dim=-1) ** 2) \
+        * m.router_z_coef
+    return y, lb + z
+
+
+# ---------------------------------------------------------------------------
+# Mamba mixer (Jamba's SSM layers)
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device) -> Params:
+    m = cfg.mamba
+    d = cfg.d_model
+    d_in = m.expand * d
+    dtr = m.dt_rank or -(-d // 16)
+    pd = getattr(torch, cfg.param_dtype)
+    states = torch.arange(1, m.d_state + 1, dtype=torch.float32,
+                          device=device)
+    return {
+        "in_proj": _init(gen, (d, 2 * d_in), pd, device),
+        "conv_w": _init(gen, (m.d_conv, d_in), pd, device, scale=0.5),
+        "conv_b": torch.zeros((d_in,), dtype=pd, device=device),
+        "x_proj": _init(gen, (d_in, dtr + 2 * m.d_state), pd, device),
+        "dt_proj": _init(gen, (dtr, d_in), pd, device),
+        "dt_bias": torch.full((d_in,), 0.1, dtype=pd, device=device),
+        "a_log": torch.log(states.repeat(d_in, 1)),
+        "d": torch.ones((d_in,), dtype=torch.float32, device=device),
+        "out_proj": _init(gen, (d_in, d), pd, device),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (no linear cut-off, as
+    ``F.softplus`` has)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def mamba_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[Dict] = None, in_place: bool = False):
+    """Returns ``(out, new_state)``; ``state`` (prefill and decode) is
+    ``{"conv": (B, d_conv - 1, d_inner), "ssm": (B, d_inner, d_state)
+    float32}``: the inputs the causal conv reads before ``x`` and the scan's
+    state.  The scan is ``mamba_scan.ops.mamba``: kernel B5 on the card,
+    the reference's own ``reference_mamba`` on the CPU.  With
+    ``in_place`` (a decode token) the new ssm state is written into
+    ``state["ssm"]`` itself (on the card by B5), and that is returned."""
+    m = cfg.mamba
+    b, s, d = x.shape
+    d_in = m.expand * d
+    dtr = m.dt_rank or -(-d // 16)
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    xi, z = xz[..., :d_in], xz[..., d_in:]
+    # the causal depthwise conv: the taps summed in order in the compute
+    # dtype, then the bias, as the reference sums them
+    if state is None:
+        pad = torch.zeros((b, m.d_conv - 1, d_in), dtype=xi.dtype,
+                          device=x.device)
+        xpad = torch.cat([pad, xi], dim=1)
+    else:
+        xpad = torch.cat([state["conv"].to(xi.dtype), xi], dim=1)
+    conv = 0
+    for i in range(m.d_conv):
+        conv = conv + xpad[:, i:i + s] * p["conv_w"][i].to(xi.dtype)
+    conv = conv + p["conv_b"].to(xi.dtype)
+    xc = conv * torch.sigmoid(conv)
+    proj = torch.einsum("bsi,ie->bse", xc, p["x_proj"].to(xc.dtype))
+    dt = _softplus(
+        torch.einsum("bsr,ri->bsi", proj[..., :dtr],
+                     p["dt_proj"].to(xc.dtype)).to(torch.float32)
+        + p["dt_bias"].to(torch.float32))
+    bb = proj[..., dtr:dtr + m.d_state].to(torch.float32)
+    cc = proj[..., dtr + m.d_state:].to(torch.float32)
+    a = -torch.exp(p["a_log"].to(torch.float32))
+    d_skip = p["d"].to(torch.float32)
+    ssm = None if state is None else state["ssm"]
+    # B5 takes inputs of one dtype, contiguous: xc widened exactly (y in
+    # float32, rounded once below, as reference_mamba rounds it)
+    out = ms_ops.mamba(xc.to(torch.float32), dt.contiguous(),
+                       bb.contiguous(), cc.contiguous(), a.contiguous(),
+                       d_skip.contiguous(), state=ssm,
+                       return_state=state is not None,
+                       out_state=ssm if in_place else None)
+    y, new_ssm = out if state is not None else (out, None)
+    new_state = None
+    if state is not None:
+        new_state = {"conv": xpad[:, -(m.d_conv - 1):].to(
+            state["conv"].dtype), "ssm": new_ssm}
+    y = y.to(x.dtype) * (z * torch.sigmoid(z))
+    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
+    return out, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The direct (eager) LM of ``repro/models/transformer.py`` in PyTorch:
-decoder-only, encoder-decoder and VLM models of attention (full and
-sliding-window, with the ring-buffer caches of local layers) + MLP
-layers, and RWKV6 + MLP layers, at any compute dtype the config names.
-:func:`validate_config` refuses MoE and Mamba layers, naming them.
+decoder-only, MoE, encoder-decoder, VLM, SSM-hybrid and RWKV models —
+attention (full and sliding-window, with the ring-buffer caches of local
+layers), Mamba and RWKV6 mixers, each followed by a dense MLP or a MoE
+layer — at any compute dtype the config names: every config of
+``configs/`` as published.
 
 It is the port's end-to-end oracle for the lazy lane: the tests hold it
 against the JAX package's jitted model on the same weights
@@ -11,7 +12,8 @@ lazy transformer is held against it.  It never runs on the lazy path.  It
 is also the serving path itself (``launch/serve.py``): on the card every
 multi-token attention and every cross-attention runs kernel B3, RWKV
 layers run the recurrence through kernels B7 (a prompt, in chunks) and B6
-(a decode token, carrying the state).
+(a decode token, carrying the state), Mamba layers their scan through
+kernel B5 (a prompt or a decode token, carrying the state).
 
 The parameter tree has the reference's structure: ``groups/l{i}/...``
 stacked on a leading layer axis (one entry per repeat of the layer
@@ -22,7 +24,8 @@ layers) and ``enc_norm``.  Layers run in a Python loop over that axis
 
 Entry points: :func:`forward` (logits for a whole sequence),
 :func:`serve_prefill` (prompt → last-position logits and a filled cache:
-KV caches for attention, the token shift and wkv state for RWKV),
+KV caches for attention, the conv inputs and SSM state for Mamba, the
+token shift and wkv state for RWKV),
 :func:`serve_decode` (one token against the cache), :func:`encode` (the
 encoder over frame embeddings) and :func:`lm_loss`.
 """
@@ -37,8 +40,9 @@ import torch
 
 from ..core.device import resolve_device
 from .config import ModelConfig
-from .layers import (attention, init_attention, init_mlp, init_rmsnorm,
-                     init_rwkv, mlp, rmsnorm, rwkv_mixer)
+from .layers import (attention, init_attention, init_mamba, init_mlp,
+                     init_moe, init_rmsnorm, init_rwkv, mamba_mixer, mlp,
+                     moe, rmsnorm, rwkv_mixer)
 
 Params = Dict[str, Any]
 
@@ -64,37 +68,33 @@ def _index(tree: Params, g: int) -> Params:
 
 def validate_config(cfg: ModelConfig) -> None:
     """Raise ``ValueError``, naming what the direct model lacks, unless
-    every layer of ``cfg`` is attention (full or local) or RWKV6 with a
-    dense MLP: MoE and Mamba layers are refused."""
-    pattern = cfg.layer_pattern()
-    checks = [
-        (cfg.mamba is None and all(m != "mamba" for m, _ in pattern),
-         "mamba"),
-        (cfg.moe is None and all(f != "moe" for _, f in pattern), "moe"),
-        (cfg.rwkv is None or cfg.d_model % cfg.rwkv.head_dim == 0,
-         f"d_model {cfg.d_model} not a multiple of the RWKV head size "
-         f"{cfg.rwkv and cfg.rwkv.head_dim}"),
-    ]
-    for ok, what in checks:
-        if not ok:
-            raise ValueError(f"the direct model does not support {what}")
+    every layer of ``cfg`` can run.  Every layer kind of
+    ``ModelConfig.layer_pattern`` can; an RWKV6 model needs a ``d_model``
+    that is a multiple of its head size."""
+    if cfg.rwkv is not None and cfg.d_model % cfg.rwkv.head_dim:
+        raise ValueError(f"the direct model does not support d_model "
+                         f"{cfg.d_model} not a multiple of the RWKV head "
+                         f"size {cfg.rwkv.head_dim}")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ModelConfig, mixer: str, device,
+_INIT_MIXER = {"attn": init_attention, "attn_local": init_attention,
+               "mamba": init_mamba, "rwkv": init_rwkv}
+
+
+def _init_layer(gen, cfg: ModelConfig, mixer: str, ffn: str, device,
                 cross: bool = False) -> Params:
     pd = getattr(torch, cfg.param_dtype)
-    init_mixer = init_rwkv if mixer == "rwkv" else init_attention
     p = {"norm1": init_rmsnorm(cfg.d_model, pd, device),
-         "mixer": init_mixer(gen, cfg, device)}
+         "mixer": _INIT_MIXER[mixer](gen, cfg, device)}
     if cross:
         p["cross"] = init_attention(gen, cfg, device)
         p["norm_cross"] = init_rmsnorm(cfg.d_model, pd, device)
     p["norm2"] = init_rmsnorm(cfg.d_model, pd, device)
-    p["ffn"] = init_mlp(gen, cfg, device)
+    p["ffn"] = (init_moe if ffn == "moe" else init_mlp)(gen, cfg, device)
     return p
 
 
@@ -112,8 +112,8 @@ def _build(cfg: ModelConfig, gen, device) -> Params:
 
     cross = cfg.n_encoder_layers > 0
     params: Params = {"groups": _stack([
-        {f"l{i}": _init_layer(gen, cfg, mixer, device, cross=cross)
-         for i, (mixer, _) in enumerate(unit)}
+        {f"l{i}": _init_layer(gen, cfg, mixer, ffn, device, cross=cross)
+         for i, (mixer, ffn) in enumerate(unit)}
         for _ in range(n_groups)])}
     params["embed"] = normal((cfg.vocab_size, cfg.d_model), 0.02)
     params["final_norm"] = init_rmsnorm(cfg.d_model, pd, device)
@@ -122,7 +122,7 @@ def _build(cfg: ModelConfig, gen, device) -> Params:
                                    1 / math.sqrt(cfg.d_model))
     if cfg.n_encoder_layers:
         params["encoder"] = _stack([
-            _init_layer(gen, cfg, "attn", device)
+            _init_layer(gen, cfg, "attn", "mlp", device)
             for _ in range(cfg.n_encoder_layers)])
         params["enc_norm"] = init_rmsnorm(cfg.d_model, pd, device)
     return params
@@ -154,20 +154,30 @@ def abstract_params(cfg: ModelConfig) -> Params:
 def params_from_numpy(tree, device=None) -> Params:
     """The JAX package's parameter tree (leaves as numpy arrays, or anything
     ``np.asarray`` takes) as the port's: the same nesting, torch tensors on
-    ``device`` (the CUDA card unless given)."""
+    ``device`` (the CUDA card unless given).  A bfloat16 leaf (numpy's
+    ``ml_dtypes`` type, which ``torch.from_numpy`` refuses) keeps its
+    bits."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(resolve_device(device))
+    arr = np.array(tree)
+    if arr.dtype.name == "bfloat16":
+        out = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        out = torch.from_numpy(arr)
+    return out.to(resolve_device(device))
 
 
 #: the leaves the forward pass casts to ``cfg.compute_dtype`` before use
-#: (the projection matrices of attention, RWKV6 and the MLP, the QKV
-#: biases, the embedding and the unembedding); every other leaf (RWKV6's
-#: ``mix``, ``w0``, ``w_a``, ``w_b``, ``u``, ``ln_g``, the norm gains and
-#: the qk-norm gains) is read in float32
+#: (the projection matrices of attention, RWKV6, Mamba, the MLP and the
+#: experts, the QKV biases, Mamba's conv taps and bias, the embedding and
+#: the unembedding); every other leaf (RWKV6's ``mix``, ``w0``, ``w_a``,
+#: ``w_b``, ``u``, ``ln_g``, the MoE ``router``, Mamba's ``dt_bias``,
+#: ``a_log`` and ``d``, the norm gains and the qk-norm gains) is read in
+#: float32
 COMPUTE_LEAVES = frozenset({"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wr",
-                            "wg", "w_gate", "w_up", "w_down", "embed",
-                            "lm_head"})
+                            "wg", "w_gate", "w_up", "w_down", "in_proj",
+                            "conv_w", "conv_b", "x_proj", "dt_proj",
+                            "out_proj", "embed", "lm_head"})
 
 
 def serving_params(params, cfg: ModelConfig) -> Params:
@@ -191,13 +201,18 @@ def serving_params(params, cfg: ModelConfig) -> Params:
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, *, positions,
-                 cache=None, enc_out=None, causal: bool = True,
+def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
+                 positions, cache=None, enc_out=None, causal: bool = True,
                  in_place: bool = False):
+    """One layer; returns ``(x, new_cache, aux)``: ``aux`` the MoE
+    router's loss, or None for a dense MLP."""
     h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
     if mixer == "rwkv":
         a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
                                   in_place=in_place)
+    elif mixer == "mamba":
+        a, new_cache = mamba_mixer(lp["mixer"], h, cfg, state=cache,
+                                   in_place=in_place)
     else:
         a, new_cache = attention(lp["mixer"], h, cfg,
                                  local=mixer == "attn_local",
@@ -209,25 +224,32 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, *, positions,
         c, _ = attention(lp["cross"], h, cfg, kv_src=enc_out, causal=False)
         x = x + c
     h = rmsnorm(lp["norm2"], x, plus_one=cfg.norm_plus_one)
-    return x + mlp(lp["ffn"], h, cfg), new_cache
+    if ffn == "moe":
+        f, aux = moe(lp["ffn"], h, cfg)
+        return x + f, new_cache, aux
+    return x + mlp(lp["ffn"], h, cfg), new_cache, None
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
                 enc_out=None, in_place: bool = False):
     """The layers in order over the stacked groups.  ``caches`` is stacked
-    over the group axis (or None).  Returns ``(x, new_caches)``; with
-    ``in_place`` the new caches are written into ``caches`` (each layer's
-    right after it runs; an RWKV layer's wkv state by the layer itself) and
-    ``caches`` is returned."""
+    over the group axis (or None).  Returns ``(x, new_caches, aux)``, aux
+    the float32 sum of the MoE layers' router losses (zero without any);
+    with ``in_place`` the new caches are written into ``caches`` (each
+    layer's right after it runs; an RWKV layer's wkv state and a Mamba
+    layer's ssm state by the layer itself) and ``caches`` is returned."""
     unit, n_groups = cfg.scan_groups()
     new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
     gp = params["groups"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(n_groups):
-        for i, (mixer, _) in enumerate(unit):
+        for i, (mixer, ffn) in enumerate(unit):
             c = None if caches is None else _index(caches[f"l{i}"], g)
-            x, nc = _apply_layer(_index(gp[f"l{i}"], g), x, cfg, mixer,
-                                 positions=positions, cache=c,
-                                 enc_out=enc_out, in_place=in_place)
+            x, nc, a = _apply_layer(_index(gp[f"l{i}"], g), x, cfg, mixer,
+                                    ffn, positions=positions, cache=c,
+                                    enc_out=enc_out, in_place=in_place)
+            if a is not None:
+                aux = aux + a
             if nc is None:
                 continue
             if not in_place:
@@ -237,8 +259,8 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
                 if nc[key].data_ptr() != dst.data_ptr():  # not written yet
                     dst.copy_(nc[key])
     if caches is None or in_place:
-        return x, caches
-    return x, {k: _stack(v) for k, v in new.items()}
+        return x, caches, aux
+    return x, {k: _stack(v) for k, v in new.items()}, aux
 
 
 # ---------------------------------------------------------------------------
@@ -288,26 +310,27 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     x = _input(params, frames, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None]
     for li in range(cfg.n_encoder_layers):
-        x, _ = _apply_layer(_index(params["encoder"], li), x, cfg, "attn",
-                            positions=pos, causal=False)
+        x, _, _ = _apply_layer(_index(params["encoder"], li), x, cfg,
+                               "attn", "mlp", positions=pos, causal=False)
     return rmsnorm(params["enc_norm"], x, plus_one=cfg.norm_plus_one)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, frames=None,
             patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/eval logits ``(B, S, vocab)`` and the auxiliary loss (zero:
-    the layers the port has hold no router).  ``frames``: the encoder's
-    input; ``patch_embeds``: ``(B, n_patches, d)`` prefixed to the tokens
-    and dropped from the logits."""
+    """Training/eval logits ``(B, S, vocab)`` and the auxiliary loss (the
+    MoE layers' router losses summed, float32; zero without MoE layers).
+    ``frames``: the encoder's input; ``patch_embeds``: ``(B, n_patches,
+    d)`` prefixed to the tokens and dropped from the logits."""
     validate_config(cfg)
     enc_out = None if frames is None else encode(params, frames, cfg)
     x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, _ = _run_groups(params, x, cfg, positions=positions, enc_out=enc_out)
+    x, _, aux = _run_groups(params, x, cfg, positions=positions,
+                            enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     if patch_embeds is not None:
         x = x[:, patch_embeds.shape[1]:]
-    return _unembed(params, x, cfg), torch.zeros((), device=x.device)
+    return _unembed(params, x, cfg), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -367,8 +390,8 @@ def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
     caches = init_cache(cfg, b, max_seq, dtype=cfg.compute_dtype,
                         device=x.device)
     positions = torch.arange(s, device=x.device)[None]
-    x, new_caches = _run_groups(params, x, cfg, positions=positions,
-                                caches=caches, enc_out=enc_out)
+    x, new_caches, _ = _run_groups(params, x, cfg, positions=positions,
+                                   caches=caches, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     return _unembed(params, x[:, -1:], cfg), new_caches
 
@@ -384,16 +407,17 @@ def serve_decode(params, caches, token, cfg: ModelConfig, *, enc_out=None,
     x = _embed(params, token, cfg)
     idx = _first_idx(caches, x.device)
     positions = (idx + torch.arange(1, device=x.device))[None]
-    x, new_caches = _run_groups(params, x, cfg, positions=positions,
-                                caches=caches, enc_out=enc_out,
-                                in_place=in_place)
+    x, new_caches, _ = _run_groups(params, x, cfg, positions=positions,
+                                   caches=caches, enc_out=enc_out,
+                                   in_place=in_place)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     return _unembed(params, x, cfg), new_caches
 
 
 def _first_idx(caches, device) -> torch.Tensor:
     """The position of the next token: the write index of the first
-    attention cache (the same for every attention layer); RWKV layers keep
+    attention cache, wherever it sits in the unit (the same for every
+    attention layer; Jamba's is at position 4); Mamba and RWKV layers keep
     no position, only their state."""
     for v in caches.values():
         if "idx" in v:
@@ -406,8 +430,8 @@ def _first_idx(caches, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def lm_loss(params, batch, cfg: ModelConfig, *, z_coef: float = 1e-4):
-    """Next-token cross entropy plus the logit z-loss (and the router's
-    auxiliary loss, zero: no MoE layers).  ``batch`` holds ``tokens``,
+    """Next-token cross entropy plus the logit z-loss and the MoE routers'
+    auxiliary loss (:func:`forward`'s).  ``batch`` holds ``tokens``,
     ``labels`` (negative labels are masked out) and optionally ``frames``
     and ``patch_embeds``.  Returns ``(loss, {"nll", "aux"})``."""
     logits, aux = forward(params, batch["tokens"], cfg,

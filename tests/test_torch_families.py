@@ -1,14 +1,21 @@
-"""The port's attention model families against the JAX package, on the CPU.
+"""The port's model families against the JAX package, on the CPU.
 
-The direct model (``repro_torch.models``) runs every attention-only config
-of ``repro/configs`` as published: Gemma2-9B (sliding-window layers with
-ring-buffer caches, logit softcaps, tied embeddings, GeGLU), Qwen3-4B
-(qk-norm, GQA), StarCoder2-3B (GQA 12, gelu), LLaVA-NeXT-Mistral-7B (patch
-embeddings), Whisper-tiny (encoder-decoder, cross-attention) and
-Qwen1.5-4B (QKV bias).  On the CPU attention runs the reference's own
-``_dense_attn`` / ``_chunked_attn`` arithmetic (on the card, kernel B3:
+The direct model (``repro_torch.models``) runs every config of
+``repro/configs`` as published; here the attention and MoE / Mamba ones:
+Gemma2-9B (sliding-window layers with ring-buffer caches, logit softcaps,
+tied embeddings, GeGLU), Qwen3-4B (qk-norm, GQA), StarCoder2-3B (GQA 12,
+gelu), LLaVA-NeXT-Mistral-7B (patch embeddings), Whisper-tiny
+(encoder-decoder, cross-attention), Qwen1.5-4B (QKV bias), OLMoE-1B-7B and
+Qwen3-MoE-235B-A22B (a MoE layer for every MLP, the router's aux loss in
+``forward`` and ``lm_loss``) and Jamba-v0.1 (Mamba layers with attention
+at unit position 4, MoE every other layer, the SSM state carried from
+prefill into decode).  On the CPU attention runs the reference's own
+``_dense_attn`` / ``_chunked_attn`` arithmetic and the Mamba scan its
+``reference_mamba`` (on the card, kernels B3 and B5:
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``); attention feature by
-feature is ``tests/test_torch_family_attention.py``.  Every test feeds the
+feature is ``tests/test_torch_family_attention.py``, MoE and the Mamba
+mixer ``tests/test_torch_family_moe_mamba.py``.  RWKV6-3B is
+``tests/test_torch_rwkv.py``.  Every test feeds the
 same numpy inputs (``np.random.default_rng``) and the JAX package's own
 weights (``params_from_numpy``) to the jitted JAX function and to the
 port.  The reference initialises norm gains, QKV biases and qk-norm gains
@@ -24,7 +31,9 @@ bound for the bf16 model (measured at most 0.015: the two packages round
 the bf16 products and activations at other places).
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -44,12 +53,32 @@ F32 = 1e-4
 BF16 = 0.1
 TOL = {"float32": F32, "bfloat16": BF16}
 DTYPES = ("float32", "bfloat16")
-#: the attention-only archs the direct model runs as published
+#: the archs held here as published: the attention-only ones, then the
+#: MoE and Mamba ones
 FAMILIES = ("gemma2-9b", "qwen3-4b", "starcoder2-3b",
-            "llava-next-mistral-7b", "whisper-tiny", "qwen1.5-4b")
-REFUSED = {"olmoe-1b-7b": "moe", "qwen3-moe-235b-a22b": "moe",
-           "jamba-v0.1-52b": "mamba"}
+            "llava-next-mistral-7b", "whisper-tiny", "qwen1.5-4b",
+            "olmoe-1b-7b", "qwen3-moe-235b-a22b", "jamba-v0.1-52b")
+#: the archs with MoE layers (a router's aux loss) and with Mamba layers
+MOE = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "jamba-v0.1-52b")
+MAMBA = ("jamba-v0.1-52b",)
 PROMPT, STEPS = 20, 3
+#: A bf16 MoE model routes each token by a top-k of router probabilities
+#: that the two packages compute from activations about 2% apart (their
+#: bf16 roundings fall at other places).  At a near-tie they pick other
+#: experts, and that token's output — and through attention and the scan
+#: every later position's — leaves ``BF16`` (Jamba's SMOKE config, without
+#: this: 0.99 of the largest logit, its first flip a gap of 0.0025 in the
+#: router logits).  So in bf16 the port's MoE layers take the experts the
+#: reference chose (:meth:`_Arch.port_routing`), at the port's own
+#: probabilities, and every choice of the port's own that differs must be
+#: a near-tie: the probability of the reference's pick at most
+#: ``ROUTE_TIE`` below the port's k-th largest (measured: 3 rows of
+#: Jamba's forward differ, by at most 3.5e-4; none of OLMoE's or
+#: Qwen3-MoE's).  float32 routes
+#: unpinned, and ``tests/test_torch_family_moe_mamba.py`` holds the
+#: indices of ``moe`` on equal inputs.
+ROUTE_TIE = 0.01
+_TOP_K = jax.lax.top_k
 
 
 def _rel(got, want, tol):
@@ -94,14 +123,13 @@ def _np(x):
 @pytest.mark.parametrize("arch", RC.ARCHS)
 def test_get_config_matches_reference(arch, smoke):
     assert PC.ARCHS == RC.ARCHS
-    assert PC.get_config(arch, smoke) == to_port_config(
-        RC.get_config(arch, smoke))
-    if arch in REFUSED:
-        with pytest.raises(ValueError,
-                           match=f"does not support {REFUSED[arch]}"):
-            PT.validate_config(PC.get_config(arch, smoke))
-    else:
-        PT.validate_config(PC.get_config(arch, smoke))
+    cfg = PC.get_config(arch, smoke)
+    assert cfg == to_port_config(RC.get_config(arch, smoke))
+    # every config is admitted, the MoE and Mamba ones included
+    PT.validate_config(cfg)
+    kinds = {k for pair in cfg.layer_pattern() for k in pair}
+    assert ("moe" in kinds) == (arch in MOE)
+    assert ("mamba" in kinds) == (arch in MAMBA)
 
 
 @pytest.mark.parametrize("shape", list(RC.SHAPES))
@@ -148,13 +176,14 @@ def test_input_specs_match_reference(arch, shape):
 
 @pytest.mark.parametrize("arch", RC.ARCHS)
 def test_abstract_params_match_reference(arch):
+    """Every leaf's path, shape and dtype, the experts' stacks and the
+    Mamba leaves included, at the published sizes (no memory)."""
     cfg = PC.get_config(arch)
-    if arch in REFUSED:
-        with pytest.raises(ValueError, match=REFUSED[arch]):
-            PT.abstract_params(cfg)
-        return
-    _same_shapes(PT.abstract_params(cfg),
-                 T.abstract_params(RC.get_config(arch))[0])
+    got = PT.abstract_params(cfg)
+    _same_shapes(got, T.abstract_params(RC.get_config(arch))[0])
+    names = {p[-1] for p, _ in _port_leaves(got)}
+    assert ("router" in names) == (arch in MOE)
+    assert ("a_log" in names) == (arch in MAMBA)
 
 
 # ---------------------------------------------------------------------------
@@ -200,13 +229,57 @@ class _Arch:
         self.pkw = {k: torch.from_numpy(v) for k, v in self.kw.items()}
         self.max_seq = PROMPT + STEPS + 1 + cfg.n_patches
         self.tol = TOL[dtype]
-        self.forward = jax.jit(lambda p, t, kw: T.forward(p, t, cfg, **kw))
-        self.loss = jax.jit(lambda p, b: T.lm_loss(p, b, cfg))
-        self.prefill = jax.jit(lambda p, t, kw, max_seq: T.serve_prefill(
+        # bf16 MoE: the reference's expert choices recorded (ROUTE_TIE)
+        self.pinned = cfg.moe is not None and dtype == "bfloat16"
+        self.routes = []
+        jit = self._recording_jit if self.pinned else jax.jit
+        self.forward = jit(lambda p, t, kw: T.forward(p, t, cfg, **kw))
+        self.loss = jit(lambda p, b: T.lm_loss(p, b, cfg))
+        self.prefill = jit(lambda p, t, kw, max_seq: T.serve_prefill(
             p, t, cfg, max_seq, **kw), static_argnums=3)
-        self.decode = jax.jit(lambda p, c, t, e: T.serve_decode(
+        self.decode = jit(lambda p, c, t, e: T.serve_decode(
             p, c, t, cfg, enc_out=e))
         self.encode = jax.jit(lambda p, f: T.encode(p, f, cfg))
+
+    def _recording_jit(self, fn, **kw):
+        """``jax.jit(fn)`` traced with ``jax.lax.top_k`` recording each
+        call's indices into ``self.routes``, in order, at run time."""
+        def top_k(x, k):
+            vals, idx = _TOP_K(x, k)
+            jax.debug.callback(lambda i: self.routes.append(np.asarray(i)),
+                               idx, ordered=True)
+            return vals, idx
+
+        def traced(*args):
+            with mock.patch.object(jax.lax, "top_k", top_k):
+                return fn(*args)
+        return jax.jit(traced, **kw)
+
+    @contextlib.contextmanager
+    def port_routing(self):
+        """Around a port call that follows the same reference call: in bf16
+        MoE (``self.pinned``) each of the port's top-k calls takes the
+        indices the reference recorded, in order, at the port's own
+        probabilities, each differing choice a near-tie (``ROUTE_TIE``),
+        and all of them are used; otherwise nothing changes."""
+        if not self.pinned:
+            yield
+            return
+        jax.effects_barrier()
+        queue, real = list(self.routes), torch.topk
+        self.routes.clear()
+
+        def topk(x, k):
+            idx = torch.as_tensor(np.array(queue.pop(0)), dtype=torch.long)
+            own, _ = real(x, k)
+            chosen = torch.gather(x, -1, idx)
+            gap = float((own[..., -1:] - chosen).max())
+            assert gap <= ROUTE_TIE, (gap, ROUTE_TIE)
+            return chosen, idx
+
+        with mock.patch.object(torch, "topk", topk):
+            yield
+        assert not queue, f"{len(queue)} recorded routings left unused"
 
     def enc_out(self):
         if "frames" not in self.kw:
@@ -243,29 +316,36 @@ def model(request, archs):
 
 def test_forward_matches_jitted_reference(model):
     m = model
-    want, _ = m.forward(m.params, m.tokens, m.jkw)
-    got, aux = PT.forward(m.pparams, m.tokens, m.pcfg, **m.pkw)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    want, want_aux = m.forward(m.params, m.tokens, m.jkw)
+    with m.port_routing():
+        got, aux = PT.forward(m.pparams, m.tokens, m.pcfg, **m.pkw)
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
     assert got.shape == (2, PROMPT, m.cfg.vocab_size)
     _rel(got, want, m.tol)
+    # the MoE layers' router losses, zero without them
+    assert (float(aux) > 0) == (float(want_aux) > 0) == (
+        m.cfg.moe is not None)
+    _rel(aux.reshape(1), np.asarray(want_aux).reshape(1), m.tol)
 
 
 def test_prefill_and_decode_match_jitted_reference(model):
     """``serve_prefill`` then ``STEPS`` ``serve_decode`` steps (the decode
     cross-attending to the encoder output where there is one): logits at
-    every step, and every cache leaf (ring-deep for local layers) at the
-    end."""
+    every step, and every cache leaf (ring-deep for local layers; Mamba's
+    conv inputs and float32 SSM state) at the end."""
     m = model
     want_l, want_c = m.prefill(m.params, m.tokens, m.jkw, m.max_seq)
-    got_l, got_c = PT.serve_prefill(m.pparams, m.tokens, m.pcfg, m.max_seq,
-                                    **m.pkw)
+    with m.port_routing():
+        got_l, got_c = PT.serve_prefill(m.pparams, m.tokens, m.pcfg,
+                                        m.max_seq, **m.pkw)
     _rel(got_l, want_l, m.tol)
     j_enc, p_enc = m.enc_out()
     for step in range(STEPS):
         tok = np.asarray([[5 + step], [11 + step]], np.int32)
         want_l, want_c = m.decode(m.params, want_c, tok, j_enc)
-        got_l, got_c = PT.serve_decode(m.pparams, got_c, tok, m.pcfg,
-                                       enc_out=p_enc)
+        with m.port_routing():
+            got_l, got_c = PT.serve_decode(m.pparams, got_c, tok, m.pcfg,
+                                           enc_out=p_enc)
         _rel(got_l, want_l, m.tol)
     got, want = list(_port_leaves(got_c)), _ref_leaves(want_c)
     assert [p for p, _ in got] == [p for p, _ in want]
@@ -275,7 +355,7 @@ def test_prefill_and_decode_match_jitted_reference(model):
             assert g.dtype == torch.int32
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         else:
-            assert g.dtype == m.pcfg.compute_dtype, path
+            assert str(g.dtype).removeprefix("torch.") == str(w.dtype), path
             _rel(g, _np(w), m.tol)
 
 
@@ -295,9 +375,14 @@ def test_encode_and_loss_match_jitted_reference(model):
         m.params, {k: jnp.asarray(v).astype(m.cfg.compute_dtype)
                    if k in m.kw else jnp.asarray(v)
                    for k, v in batch.items()})
-    got, parts = PT.lm_loss(m.pparams, {k: torch.from_numpy(v)
-                                        for k, v in batch.items()}, m.pcfg)
-    assert float(parts["aux"]) == float(wparts["aux"]) == 0.0
+    with m.port_routing():
+        got, parts = PT.lm_loss(m.pparams, {k: torch.from_numpy(v)
+                                            for k, v in batch.items()},
+                                m.pcfg)
+    # the router's aux loss is in the loss (zero without MoE layers)
+    assert (float(parts["aux"]) > 0) == (m.cfg.moe is not None)
+    _rel(parts["aux"].reshape(1), np.asarray(wparts["aux"]).reshape(1),
+         m.tol)
     # the loss is of order log(vocab): held to the same fraction of it
     _rel(got.reshape(1), np.asarray(want).reshape(1), m.tol)
     _rel(parts["nll"].reshape(1), np.asarray(wparts["nll"]).reshape(1),
@@ -373,7 +458,8 @@ def test_whisper_decode_sees_the_audio(archs):
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b",
-                                  "gemma2-9b"])
+                                  "gemma2-9b", "olmoe-1b-7b",
+                                  "qwen3-moe-235b-a22b", "jamba-v0.1-52b"])
 def test_launcher_serves_the_family_on_the_cpu(arch, capsys):
     """``main`` serves the SMOKE config with zero frames or patches, as the
     reference launcher does."""

@@ -783,6 +783,83 @@ def test_mamba_refuses(card):
         mamba_scan(*wide)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [1, 100])
+def test_mamba_kernel_state_form(card, t, dtype):
+    """B5 from a given float32 state, its final state returned: one decode
+    token and a prompt over several tiles (100 steps, tiles of at most 32),
+    Jamba's d_state 16 on 200 channels, against ``reference_mamba(state=,
+    return_state=True)``; twice, one launch each, bitwise."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    rng = np.random.default_rng(70 + t)
+    ins = _mamba_inputs(rng, 2, t, 200, 16, dtype, card)
+    h0 = _randn(rng, (2, 200, 16), torch.float32, card, 0.5)
+    y, h = _twice_same(lambda: mk.mamba_scan(*ins, state=h0,
+                                             return_state=True),
+                       mk.LAUNCHES, "mamba_scan")
+    want_y, want_h = reference_mamba(*ins, state=h0, return_state=True)
+    _hold(y, want_y, "scan")
+    _hold(h, want_h, "scan")
+    # no state: the zero state, as before
+    _, hz = mk.mamba_scan(*ins, return_state=True)
+    _hold(hz, reference_mamba(*ins, return_state=True)[1], "scan")
+
+
+def test_mamba_kernel_writes_the_state_in_place(card):
+    """``out_state`` aliasing ``state``: the final state overwrites the
+    initial one, bitwise what a separate output gets, y unchanged; a
+    prompt's final state carried into one more token equals the scan of
+    both at once (within the scan tolerance)."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    rng = np.random.default_rng(80)
+    ins = _mamba_inputs(rng, 2, 37, 130, 16, torch.float32, card)
+    h0 = _randn(rng, (2, 130, 16), torch.float32, card, 0.5)
+    y_sep, h_sep = mk.mamba_scan(*ins, state=h0, return_state=True)
+    inout = h0.clone()
+    y_in, h_in = mk.mamba_scan(*ins, state=inout, out_state=inout)
+    torch.cuda.synchronize()
+    assert h_in is inout
+    assert torch.equal(h_in, h_sep) and torch.equal(y_in, y_sep)
+    head = [z[:, :36].contiguous() if z.dim() == 3 and z.shape[1] == 37
+            else z for z in ins]
+    tail = [z[:, 36:].contiguous() if z.dim() == 3 and z.shape[1] == 37
+            else z for z in ins]
+    _, st = mk.mamba_scan(*head, state=h0, return_state=True)
+    y1, _ = mk.mamba_scan(*tail, state=st, out_state=st)
+    _hold(y1, y_sep[:, 36:], "scan")
+    _hold(st, h_sep, "scan")
+
+
+def test_mamba_kernel_in_a_cuda_graph(card):
+    """B5's decode form (T = 1, the state written in place) captured in a
+    CUDA graph and replayed 5 times: each replay bitwise the eager calls
+    on the same inputs, the state carried replay to replay."""
+    from repro_torch.core.cuda_graph import capture
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    rng = np.random.default_rng(90)
+    steps = [_mamba_inputs(rng, 2, 1, 256, 16, torch.float32, card)
+             for _ in range(5)]
+    h0 = _randn(rng, (2, 256, 16), torch.float32, card, 0.5)
+    static = [z.clone() for z in steps[0]]
+    state = h0.clone()
+
+    def run():
+        return mk.mamba_scan(*static, state=state, out_state=state)[0]
+
+    graph, out = capture(card, run, run)
+    state.copy_(h0)
+    eager = h0.clone()
+    for ins in steps:
+        for dst, src in zip(static, ins):
+            dst.copy_(src)
+        graph.replay()
+        want, _ = mk.mamba_scan(*ins, state=eager, out_state=eager)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(state, eager)
+
+
 def _rwkv_inputs(rng, bh, t, n, dtype, dev):
     return (_randn(rng, (bh, t, n), dtype, dev),
             _randn(rng, (bh, t, n), dtype, dev, 0.3),
@@ -1730,3 +1807,43 @@ def test_families_serve_on_the_card(card):
             np.testing.assert_array_equal(a, c)
         assert times[-1]["prefill"].captures == 1
         assert times[-1]["step"].replays == 2 * 4
+
+
+def test_jamba_serves_on_the_card(card):
+    """Jamba-v0.1's SMOKE config (8 layers: 7 Mamba, attention at 4, MoE on
+    the odd layers; heads of 32 for B3) served on the card: the prefill
+    and decode graphs give the tokens of eager serving and of the same
+    weights served on the CPU (float32); one capture of each step serves
+    both batches, so the wrappers count B5 once a Mamba layer in the
+    prefill's warm-up and capture and the decode step's, and B3 once in
+    each prefill run (decode attends without it); the decode graph writes
+    every Mamba layer's ssm state into its static cache."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.launch import serve
+    cfg = _family_cfg("jamba-v0.1-52b", head_dim=32)
+    params = _family_params(cfg, card)
+    prompts = serve.draw_prompts(11, 4, 24, cfg.vocab_size)
+    opts = dict(batch=2, max_prompt=24, new_tokens=5)
+    mk.LAUNCHES["mamba_scan"] = fa.LAUNCHES["flash_attention"] = 0
+    tokens, times = serve.serve_requests(cfg, params, prompts, **opts)
+    torch.cuda.synchronize()
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layer_pattern())
+    assert n_mamba == 7
+    assert mk.LAUNCHES["mamba_scan"] == 2 * n_mamba + 2 * n_mamba
+    assert fa.LAUNCHES["flash_attention"] == 2
+    eager, _ = serve.serve_requests(cfg, params, prompts, graph=False, **opts)
+    cpu, _ = serve.serve_requests(cfg, _to_cpu(params), prompts, **opts)
+    for a, b, c in zip(tokens, eager, cpu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    step = times[-1]["step"]
+    assert times[-1]["prefill"].captures == 1 and step.replays == 2 * 4
+    # the static caches' ssm leaves are the ones B5 wrote: one more replay
+    # moves each of them without a copy after the graph
+    (_, (_, _, s_caches, _)), = step._static.items()
+    ssm = [c["ssm"] for c in s_caches.values() if "ssm" in c]
+    before = [z.clone() for z in ssm]
+    step(s_caches, torch.zeros((2, 1), dtype=torch.int32, device=card))
+    torch.cuda.synchronize()
+    assert all(not torch.equal(a, b) for a, b in zip(before, ssm))

@@ -129,14 +129,15 @@ def test_get_config_matches_reference(arch, smoke):
 def test_direct_model_admits_rwkv_and_names_what_it_lacks():
     PT.validate_config(get_config("rwkv6-3b"))                 # bfloat16
     PT.validate_config(get_config("rwkv6-3b", smoke=True))
-    # the attention families run as published; MoE and Mamba are named
+    # the attention families, MoE and Mamba run as published
     PT.validate_config(get_config("qwen1.5-4b", smoke=True))
-    for arch, what in (("olmoe-1b-7b", "does not support moe"),
-                       ("qwen3-moe-235b-a22b", "does not support moe"),
-                       ("jamba-v0.1-52b", "does not support mamba")):
+    for arch, kind in (("olmoe-1b-7b", "moe"),
+                       ("qwen3-moe-235b-a22b", "moe"),
+                       ("jamba-v0.1-52b", "mamba")):
         for smoke in (False, True):
-            with pytest.raises(ValueError, match=what):
-                PT.validate_config(get_config(arch, smoke))
+            cfg = get_config(arch, smoke)
+            PT.validate_config(cfg)
+            assert kind in {k for pair in cfg.layer_pattern() for k in pair}
     rwkv = get_config("rwkv6-3b", smoke=True)
     with pytest.raises(ValueError, match="RWKV head size"):
         PT.validate_config(dataclasses.replace(rwkv, d_model=48))
@@ -151,9 +152,16 @@ def test_direct_model_admits_rwkv_and_names_what_it_lacks():
         validate_config(dataclasses.replace(qwen, dtype="float32"))
 
 
-def test_launcher_refuses_an_arch_the_direct_model_lacks():
-    with pytest.raises(ValueError, match="direct model does not support moe"):
-        serve.main(["--arch", "olmoe-1b-7b", "--device", "cpu"])
+def test_launcher_refuses_an_arch_the_direct_model_lacks(capsys):
+    """Every registered arch is served (MoE ones included); a name outside
+    the registry is refused by the argument parser."""
+    serve.main(["--arch", "olmoe-1b-7b", "--device", "cpu", "--requests",
+                "2", "--batch", "2", "--new-tokens", "2"])
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "[serve] 2 requests, 4 tokens")
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "no-such-arch", "--device", "cpu"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------

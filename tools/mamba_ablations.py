@@ -159,12 +159,13 @@ def main() -> int:
     y = torch.empty_like(ins[0])
     for name in VARIANTS:
         fn = ctypes.CDLL(str(libs[name])).repro_mamba_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
 
         def run():
-            err = fn(*[z.data_ptr() for z in ins], y.data_ptr(), 0, bsz, t,
-                     di, ds, LANES, SPL, stream)
+            # no initial state and no final one (h0, hT null)
+            err = fn(*[z.data_ptr() for z in ins], None, None, y.data_ptr(),
+                     0, bsz, t, di, ds, LANES, SPL, stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -17,7 +17,9 @@ one launch replayed between CUDA events (median of 10), held against the
 plain version by ``chip_smoke.py``'s per-element rule, beside the
 launch's occupancy (the tile of steps, shared memory and registers a
 block, blocks an SM holds and blocks in the grid) and the bound
-(``chip_smoke._bound``).  The package's own ``ops.mamba`` is timed too.
+(``chip_smoke._bound``).  The package's own ``ops.mamba`` is timed too,
+and where it takes a state, its served form (a zero float32 state in,
+the final state out).
 With ``--src`` it times that tree's ``ops.mamba`` only, so a parent and
 this tree can be timed in turns in one call.  ``--sass`` disassembles
 the copies (``cuobjdump -sass``) and counts, in each float32 instance,
@@ -31,6 +33,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import inspect
 import json
 import re
 import shutil
@@ -179,6 +182,13 @@ def main(argv=None) -> int:
         print(f"MAMBA layout {extra}: {row}", flush=True)
 
     measure(lambda: ops.mamba(*ins, 64), layout="default")
+    if "state" in inspect.signature(ops.mamba).parameters:
+        # the served form: a float32 state in (zeros, so y is the same) and
+        # the final state out
+        h0 = torch.zeros(ins[4].shape, device="cuda").expand(
+            ins[0].shape[0], *ins[4].shape).contiguous()
+        measure(lambda: ops.mamba(*ins, 64, state=h0, return_state=True),
+                layout="default, state in and out")
     if not args.src:
         from tools.mamba_ablations import build
         libs = build(OUT, sources(
@@ -198,13 +208,14 @@ def main(argv=None) -> int:
                 occ["blocks_per_sm"], -(-occ["grid_blocks"] // 132)) \
                 * (lanes * channels // group) // 32
             fn = lib.repro_mamba_scan_fwd
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
                 + [ctypes.c_void_p]
 
             def run(fn=fn, lanes=lanes, spl=spl):
+                # no initial state and no final one (h0, hT null)
                 cuda_build.check(fn(
-                    *[z.data_ptr() for z in ins], y.data_ptr(), 0, bsz, t,
-                    di, ds, lanes, spl,
+                    *[z.data_ptr() for z in ins], None, None, y.data_ptr(),
+                    0, bsz, t, di, ds, lanes, spl,
                     torch.cuda.current_stream().cuda_stream), "mamba_scan")
                 return y
 
