@@ -184,6 +184,46 @@ timed beside its library call and B5's prefill-layer and decode-layer
 calls against their bounds (the state's bytes read and written
 included).  B3's and B5's launches join the ``kernels`` line.
 
+Then training (``run_train``, the ``TRAIN`` lines).  Its main path:
+Qwen3-4B (``configs/qwen3_4b.py``) at its published widths and all 36
+layers (d_model 2560, 32 / 8 heads of 128, d_ff 9728, vocab 151936, 4.41 B
+parameters), float32 parameters, bf16 compute, int8 moments and remat
+(the config's defaults), random weights from a seeded
+``torch.Generator`` on the card with the norm gains drawn around 1,
+batches of 4 x 2048 tokens from ``data.SyntheticLM(seed=0)`` in
+``TRAIN_MICRO`` microbatches, ``TRAIN_STEPS`` steps of
+``launch.steps.make_train_step`` (a warm-up, then the timed ones, the
+card synchronized around each) at peak lr ``TRAIN_LR`` after a 1-step
+warm-up, B3's count at 0 before each step.  It requires 288 B3 launches a
+step (a forward and a remat recompute per layer and microbatch), every
+loss finite and the last two averaging below the first, and prints step
+ms (median and spread), tokens/s, 6·N·tokens over the step time as a
+share of the card's dense bf16 rate, the peak memory, and one more step
+under ``torch.profiler``: wall against device busy, the idle share, and
+the device time split into B3, GEMMs, the plain attention backward and
+the optimizer (the device spans of the step's ``record_function``
+ranges) and the rest, with the top device operations.  The first
+microbatch's first and last layer's B3 calls, forward and recompute, are
+held against the plain version, and the first is timed beside its bound
+and SDPA.  Then at 2 layers, full width, through the same step: every B3
+call of a step held against the plain version; one step with B3 against
+the same step with the plain version (the checker patches
+``flash_attention.ops``' forward for that run only), from a common first
+step, in float32 moments: the loss, every parameter and every moment
+held to ``TRAIN_LOSS_RTOL``, ``TRAIN_PARAM_LR``, ``TRAIN_PARAM_SHARE``
+and ``TRAIN_MOMENT_RTOL`` (the same with int8 moments printed); the loss
+curves of ``TRAIN_SWEEP`` (peak lr, moments); and checkpoint/restart
+through ``launch/train.py``'s path: ``FaultTolerantLoop`` with a
+``CheckpointManager`` in a temporary directory under ``build/``, a save
+every 2 steps and a step that raises once at step 3, the restored state
+bitwise to the saved one and the replayed losses within
+``TRAIN_REPLAY_RTOL`` of a run straight through.  Last, the AdamW tape
+(``optim/fused.record_adamw_tape``) at ``TRAIN_TAPE_N`` float64 elements
+under ``backend="triton"``: the update one block claimed by B1 with no
+decline, bitwise to the torch floor, its blocks held bitwise against
+their plain versions and the update block timed against its bound.  B3's
+launches and the tape's B1 launches join the ``kernels`` line.
+
 Then cross-flush loop fusion (``run_loop``, the ``LOOP`` lines):
 heat_equation, sor, game_of_life and shallow_water at 4096² and
 lattice_boltzmann at 256³ (``CHIP_SIZES`` widths), ``LOOP_ITERS``
@@ -262,6 +302,7 @@ first launch, one ``nvcc`` per source at once, then linked.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -381,6 +422,49 @@ FAMILY_OTHER_BATCH, FAMILY_OTHER_PROMPT, FAMILY_OTHER_STEPS = 2, 512, 4
 MOE_CASES = (("jamba-v0.1-52b", 8, 2, 4096, 16),
              ("olmoe-1b-7b", None, 2, 4096, 16),
              ("qwen3-moe-235b-a22b", 2, 2, 2048, 4))
+#: the TRAIN phase: Qwen3-4B (configs/qwen3_4b.py) at its published widths
+#: and all 36 layers, float32 parameters, bf16 compute, int8 moments and
+#: remat (the config's defaults), batch 4 x 2048 tokens in 4 microbatches
+#: of 1 x 2048, TRAIN_STEPS steps (a warm-up, then the timed ones) at peak
+#: lr TRAIN_LR after a 1-step warm-up (step 0 has lr 0), cosine over
+#: TRAIN_TOTAL steps
+TRAIN_ARCH = "qwen3-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 2048, 4
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-5
+TRAIN_TOTAL = 1000
+#: the 2-layer loss curves printed beside it: (peak lr, moments)
+TRAIN_SWEEP = ((TRAIN_LR, "int8"), (TRAIN_LR, "f32"), (3e-4, "int8"),
+               (3e-4, "f32"))
+#: the held runs: the same config at 2 layers (full width) through the
+#: same make_train_step; the checkpoint/restart run: steps, save every,
+#: the step that raises once
+TRAIN_HOLD_LAYERS = 2
+TRAIN_RESTART = (5, 2, 3)
+#: the AdamW tape at the size of one MLP weight (d_model x d_ff)
+TRAIN_TAPE_N = 2560 * 9728
+#: B3 step vs plain step, the second step from a common first, with
+#: float32 moments: the loss's relative difference; the parameters'
+#: largest difference in units of lr (that step's Adam update, (0.9 m1 +
+#: 0.1 g) / 0.19 over the root of (0.95 v1 + 0.05 g^2) / 0.0975, is at most
+#: about 3 in those units, so two of them differ by at most about 6) and
+#: the share of weights off by more than TRAIN_PARAM_SHARE_AT lr; each
+#: moment leaf's largest difference over its largest value (the second
+#: step's gradient enters m and v by 0.1 and 0.05 of it).  With int8
+#: moments the same step is printed, not held: a code at a rounding edge,
+#: or a row whose second-moment code is zero (the update then divides by
+#: eps), moves its weight by many lr (on an H100 80GB HBM3 at 700 W:
+#: 133 lr apart for losses 3.6e-6 apart)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_LR = 8.0
+TRAIN_PARAM_SHARE_AT, TRAIN_PARAM_SHARE = 0.01, 0.02
+TRAIN_MOMENT_RTOL = 0.05
+#: the replay's losses against the straight run's, relative: the same
+#: arithmetic on the same data, bitwise on an H100 80GB HBM3, but
+#: PyTorch does not promise a deterministic backward on the card (an
+#: atomic add's order can flip a bf16 accumulator's rounding and an Adam
+#: sign), so a tolerance
+TRAIN_REPLAY_RTOL = 1e-4
 #: Jamba's state hand-off: prefill(MOE_HANDOFF - MOE_EXTEND tokens) then
 #: MOE_EXTEND decode tokens against prefill(MOE_HANDOFF), within
 #: FAMILY_RTOL, on a copy of the config whose capacity factor is
@@ -1364,7 +1448,7 @@ class OpRecorder:
 
 def _clone(x):
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return x.detach().clone()
     if isinstance(x, (tuple, list)):
         return type(x)(_clone(z) for z in x)
     if isinstance(x, dict):
@@ -2555,9 +2639,17 @@ def run_moe() -> dict:
 
 
 def _device_kernels(prof):
+    """The device kernels of a profile, without the device-side spans of
+    ``record_function`` ranges (user annotations)."""
     from torch.autograd import DeviceType
     return [e for e in prof.events()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not _is_annotation(e)]
+
+
+def _is_annotation(e) -> bool:
+    return bool(getattr(e, "is_user_annotation", False)) \
+        or e.name in TRAIN_RANGES or e.name == "train_step.forward_backward"
 
 
 def _busy_ms(kernels) -> float:
@@ -3304,6 +3396,523 @@ def _serve_random(lazy, backend, size) -> dict:
             "batched": srv.metrics.counter("serve.batched_requests").get()}
 
 
+def _train_config(layers=None):
+    """``configs/qwen3_4b.py`` as published, or cut to ``layers``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def _train_state(cfg, seed: int):
+    """Random float32 weights on the card from a generator seeded
+    ``seed``, the zero-initialised gains drawn (``_draw_gains``), and zero
+    moments of the config's dtype (int8)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_params(cfg, gen, "cuda")
+    _draw_gains(params, gen, cfg.norm_plus_one)
+    return params, adamw_init(params, state_dtype=cfg.opt_state_dtype)
+
+
+def _train_step(cfg, lr=TRAIN_LR, moments=None):
+    from repro_torch.launch.steps import make_train_step
+    step, _ = make_train_step(cfg, num_microbatches=TRAIN_MICRO,
+                              peak_lr=lr, warmup=1, total_steps=TRAIN_TOTAL,
+                              opt_state_dtype=moments)
+    return step
+
+
+def _train_sweep(cfg, data) -> dict:
+    """The loss curves of ``TRAIN_STEPS`` steps at 2 layers from one
+    initialisation, for each (peak lr, moments) of ``TRAIN_SWEEP``: how
+    the int8 moments and the lr move the first steps."""
+    from repro_torch.optim import adamw_init
+    curves = {}
+    for lr, moments in TRAIN_SWEEP:
+        params, _ = _train_state(cfg, 44)
+        opt = adamw_init(params, state_dtype=moments)
+        step = _train_step(cfg, lr, moments)
+        losses = []
+        for s in range(TRAIN_STEPS):
+            params, opt, m = step(params, opt, data.batch_at(s))
+            losses.append(round(float(m["loss"]), 4))
+        curves[lr, moments] = losses
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return curves
+
+
+def _clone_tree(tree):
+    """A detached copy of a tree of tensors (dicts, tuples, ``OptState``)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_tree(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+@contextlib.contextmanager
+def _plain_b3():
+    """The checker's patch, for one run: ``flash_attention.ops.attention``'s
+    forward takes the plain version (``reference_attention``) in place of
+    kernel B3; its backward is that plain version's autograd either way."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    real = ops.flash_attention
+    ops.flash_attention = reference_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+#: the trace's ranges (``launch/steps.py``, ``flash_attention/ops.py``)
+#: that name a kernel's part of the step; kernels outside them by name
+TRAIN_RANGES = {"flash_attention.backward": "attention backward (plain)",
+                "train_step.adamw": "optimizer",
+                "train_step.accumulate": "bf16 accumulate"}
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "gemv", "matmul")
+
+
+def _kernel_part(name: str) -> str:
+    if "flash_fwd" in name:
+        return "B3"
+    if any(w in name.lower() for w in GEMM_NAMES):
+        return "GEMM"
+    return "other"
+
+
+def _train_split(prof, kernels):
+    """Device ms and kernels by part of the step: a kernel inside the
+    device-side span of a ``TRAIN_RANGES`` range (one stream: the span's
+    kernels are the ones its range launched) takes that range's part,
+    any other kernel its name's (:func:`_kernel_part`).  Returns ``{part:
+    (ms, kernels)}``."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, TRAIN_RANGES[e.name])
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.name in TRAIN_RANGES)
+    starts = [a for a, _, _ in spans]
+    parts = {}
+    for k in kernels:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        if i >= 0 and k.time_range.end <= spans[i][1]:
+            part = spans[i][2]
+        else:
+            part = _kernel_part(k.name)
+        ms, n = parts.get(part, (0.0, 0))
+        parts[part] = (ms + (k.time_range.end - k.time_range.start) / 1e3,
+                       n + 1)
+    return parts
+
+
+def _train_profile(step, params, opt, batch) -> dict:
+    """One train step under ``torch.profiler``: wall and device-busy ms,
+    the idle share, the split by part and the top device operations."""
+    from torch.profiler import ProfilerActivity, profile as tp
+    torch.cuda.synchronize()
+    with tp(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            acc_events=True) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = _device_kernels(prof)
+    busy = _busy_ms(events)
+    parts = _train_split(prof, events)
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "parts": parts, "loss": float(m["loss"]),
+            "top": _top_device_ops(events, 8), "params": params, "opt": opt}
+
+
+def _moment_diff(a, b) -> dict:
+    """Two optimizer states' moments: the share of int8 codes that differ
+    and the largest code difference, and the largest relative difference
+    of the scales and of the float32 moments."""
+    from repro_torch.checkpoint.manager import _flatten
+    codes = diff = n = 0
+    rel = 0.0
+    for (path, x), (_, y) in zip(_flatten((a.m, a.v)),
+                                 _flatten((b.m, b.v))):
+        if x.dtype == torch.int8:
+            d = (x.int() - y.int()).abs()
+            codes += int((d != 0).sum())
+            n += d.numel()
+            diff = max(diff, int(d.max()))
+        else:
+            big = float(y.abs().max()) or 1.0
+            rel = max(rel, float((x - y).abs().max()) / big)
+    return {"code_share": codes / max(n, 1), "code_max": diff, "rel": rel}
+
+
+def _b3_vs_plain(cfg, data, moments) -> dict:
+    """One train step with B3 against the same step with the plain
+    version (:func:`_plain_b3`), both from the state after a common first
+    step, with ``moments``: the loss's relative difference, the
+    parameters' largest difference and the share off by more than
+    ``TRAIN_PARAM_SHARE_AT`` lr, the moments' differences
+    (:func:`_moment_diff`) and B3's launches in each."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.optim import adamw_init
+    step = _train_step(cfg, TRAIN_LR, moments)
+    params, _ = _train_state(cfg, 41)
+    opt = adamw_init(params, state_dtype=moments)
+    params, opt, _ = step(params, opt, data.batch_at(0))
+    pa, oa = _clone_tree(params), _clone_tree(opt)
+    batch = data.batch_at(1)
+    fa_k.LAUNCHES["flash_attention"] = 0
+    pa, oa, ma = step(pa, oa, batch)
+    launches = [fa_k.LAUNCHES["flash_attention"]]
+    with _plain_b3():
+        pb, ob, mb = step(params, opt, batch)
+    launches.append(fa_k.LAUNCHES["flash_attention"] - launches[0])
+    lr = float(ma["lr"])
+    pairs = list(zip(_flatten(pa), _flatten(pb)))
+    dp = max(float((x - y).abs().max()) for (_, x), (_, y) in pairs)
+    moved = sum(int(((x - y).abs() > TRAIN_PARAM_SHARE_AT * lr).sum())
+                for (_, x), (_, y) in pairs) / sum(x.numel()
+                                                   for (_, x), _ in pairs)
+    out = {"lr": lr, "launches": launches, "dp": dp, "moved": moved,
+           "loss": (round(float(ma["loss"]), 6), round(float(mb["loss"]), 6)),
+           "loss_rel": abs(float(ma["loss"]) - float(mb["loss"]))
+           / float(mb["loss"]), "moments": _moment_diff(oa, ob)}
+    del params, opt, pa, oa, pb, ob, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_restart(cfg, step, data) -> dict:
+    """Checkpoint and restart through ``launch/train.py``'s path (see the
+    module doc): ``TRAIN_RESTART[0]`` steps under ``FaultTolerantLoop``
+    with a ``CheckpointManager`` in a temporary directory under
+    ``build/`` (removed afterwards), a save every ``TRAIN_RESTART[1]``
+    steps and a step function that raises once at step
+    ``TRAIN_RESTART[2]``, against the same steps run straight through."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.runtime import FaultTolerantLoop
+    n, every, fail = TRAIN_RESTART
+    params, opt = _train_state(cfg, 43)
+    start = (_clone_tree(params), _clone_tree(opt))
+    clean = []
+    for s in range(n):
+        params, opt, m = step(params, opt, data.batch_at(s))
+        clean.append(float(m["loss"]))
+    del params, opt
+    os.makedirs(ROOT / "build", exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d, keep=2)
+        saved, restored = {}, []
+        real_save, real_restore = mgr.save, mgr.restore
+
+        def save(s, tree, blocking=False):
+            if s == every and s not in saved:
+                saved[s] = _clone_tree(tree)
+            return real_save(s, tree, blocking=blocking)
+
+        def restore(s, like):
+            out = real_restore(s, like)
+            # a copy: the replayed steps update the state in place
+            restored.append((out[0], _clone_tree(out[1])))
+            return out
+
+        mgr.save, mgr.restore = save, restore
+        losses, fired = {}, []
+
+        def step_fn(state, batch):
+            s, batch = batch
+            if s == fail and not fired:
+                fired.append(s)
+                raise RuntimeError("injected failure")
+            p, o, m = step(*state, batch)
+            losses[s] = float(m["loss"])
+            return (p, o)
+
+        loop = FaultTolerantLoop(mgr, save_every=every)
+        loop.run(start, step_fn, lambda s: (s, data.batch_at(s)), n)
+        loop_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+    if loop.restarts != 1 or [s for s, _ in restored] != [every]:
+        raise AssertionError(f"TRAIN restart: {loop.restarts} restarts, "
+                             f"restored steps {[s for s, _ in restored]}, "
+                             f"want 1 and [{every}]")
+    bitwise = all(torch.equal(x, y) and x.dtype == y.dtype
+                  for (_, x), (_, y) in zip(_flatten(restored[0][1]),
+                                            _flatten(saved[every])))
+    rel = max(abs(losses[s] - clean[s]) / clean[s] for s in range(n))
+    return {"bitwise": bitwise, "loss_rel": rel, "losses": losses,
+            "clean": clean, "loop_s": loop_s, "bytes": size,
+            "leaves": len(list(_flatten(saved[every])))}
+
+
+def _adamw_tape(lazy, codegen) -> dict:
+    """``optim/fused.record_adamw_tape`` at ``TRAIN_TAPE_N`` under
+    ``backend="triton"`` and the torch floor: one block claimed by B1 with
+    no decline, bitwise to the floor; each distinct block held bitwise
+    against its plain version and the update block timed
+    (``hold_blocks``)."""
+    from repro_torch.optim.fused import record_adamw_tape
+    outs, hist = {}, {}
+    kw = dict(lr=TRAIN_LR, c1=0.1, c2=0.05)
+    with BlockRecorder(codegen.FusedBlockKernel) as rec:
+        codegen.LAUNCHES["fused_block"] = 0
+        for backend in ("triton", "torch"):
+            with lazy.fresh_runtime(backend=backend,
+                                    loop_fusion=False) as rt:
+                outs[backend] = [r.numpy() for r in
+                                 record_adamw_tape(rt, TRAIN_TAPE_N, **kw)]
+                # the update's flush: the one with the most ops (the
+                # draws' flush and the outputs' reads are the others)
+                hist[backend] = max((h for h in rt.history
+                                     if not h.get("cached")),
+                                    key=lambda h: h["n_ops"])
+                if backend == "triton":
+                    stats = rt.executor.stats.snapshot()
+                    launches = codegen.LAUNCHES["fused_block"]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(outs["triton"],
+                                                       outs["torch"]))
+    blk = hold_blocks("adamw tape", rec.calls, codegen, exact=True)
+    return {"bitwise": bitwise, "n_blocks": hist["triton"]["n_blocks"],
+            "n_ops": hist["triton"]["n_ops"], "stats": stats,
+            "launches": launches, "blk": blk}
+
+
+def _train_sweep_print(data) -> None:
+    t0 = time.perf_counter()
+    curves = _train_sweep(_train_config(TRAIN_HOLD_LAYERS), data)
+    print(f"TRAIN loss curves at {TRAIN_HOLD_LAYERS} layers, one "
+          f"initialisation, warm-up 1 step: " + "; ".join(
+              f"lr {lr:g} {moments} moments {losses}"
+              for (lr, moments), losses in curves.items())
+          + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+
+
+def run_train(lazy, codegen) -> dict:
+    """The TRAIN phase (see the module doc).  Returns B3's launches and
+    largest held error, its timed training call (a ``kernels`` row) and the
+    AdamW tape's B1 launches."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    cfg = _train_config()
+    params, opt = _train_state(cfg, 40)
+    n_params = sum(p.numel() for _, p in _flatten(params))
+    n_attn = cfg.n_layers
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    step = _train_step(cfg)
+    print(f"TRAIN config {cfg.name} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={n_params} "
+          f"param_dtype={cfg.param_dtype} compute={cfg.dtype} moments="
+          f"{cfg.opt_state_dtype} remat={cfg.remat} batch={TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} microbatches={TRAIN_MICRO} peak_lr={TRAIN_LR} "
+          f"(warm-up 1 step: step 0 has lr 0) data=SyntheticLM(seed=0) "
+          f"({time.perf_counter() - t_start:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)",
+          flush=True)
+
+    # -- the main path: make_train_step, B3's count at 0 around each step --
+    # the wrapper runs per microbatch n_attn forwards (calls 0 to n - 1)
+    # then n_attn recomputes in the backward, last layer first; kept: the
+    # first microbatch's first and last layer, forward and recompute
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, counts = [], [], []
+    keep = {0, n_attn - 1, n_attn, 2 * n_attn - 1}
+    with OpRecorder(fa_ops, "attention", keep) as rec:
+        for s in range(TRAIN_STEPS):
+            fa_k.LAUNCHES["flash_attention"] = 0
+            batch = data.batch_at(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts.append(fa_k.LAUNCHES["flash_attention"])
+            losses.append(float(m["loss"]))
+            print(f"TRAIN step {s}{' (warm-up)' if s == 0 else ''}: "
+                  f"{times[-1]:.1f} ms loss {losses[-1]:.5f} lr "
+                  f"{float(m['lr']):.3g} B3 launches {counts[-1]}",
+                  flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * n_attn * TRAIN_MICRO
+    if counts != [want] * TRAIN_STEPS:
+        raise AssertionError(f"TRAIN: B3 launches a step {counts}, want "
+                             f"{want} (a forward and a recompute per layer "
+                             f"and microbatch)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"TRAIN: a loss is not finite: {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        _train_sweep_print(data)
+        raise AssertionError(f"TRAIN: the last two losses {losses[-2:]} do "
+                             f"not average below the first {losses[0]}")
+    timed = times[1:]
+    med = statistics.median(timed)
+    flops = 6 * n_params * tokens
+    print(f"TRAIN main path: {len(timed)} timed steps after a warm-up, "
+          f"step ms median {med:.1f} (min {min(timed):.1f}, max "
+          f"{max(timed):.1f}); {tokens / med * 1e3:.0f} tokens/s; 6*N*tokens "
+          f"= {flops:.4g} FLOP a step, {flops / med / 1e9:.1f} TFLOP/s = "
+          f"{flops / med * 1e3 / (2 * TC_BF16_MACS_PER_S):.4f} of the dense "
+          f"bf16 rate; peak {peak / 2 ** 30:.2f} GiB allocated "
+          f"(max_memory_allocated); B3 launches a step {want} "
+          f"({n_attn} layers x {TRAIN_MICRO} microbatches x 2: forward and "
+          f"remat recompute); losses {[round(x, 5) for x in losses]} (last "
+          f"two average {np.mean(losses[-2:]):.5f} < first "
+          f"{losses[0]:.5f})", flush=True)
+
+    fa_k.LAUNCHES["flash_attention"] = 0
+    prof = _train_profile(step, params, opt, data.batch_at(TRAIN_STEPS))
+    params, opt = prof.pop("params"), prof.pop("opt")
+    counts.append(fa_k.LAUNCHES["flash_attention"])
+    if counts[-1] != want:
+        raise AssertionError(f"TRAIN: the profiled step launched B3 "
+                             f"{counts[-1]} times, want {want}")
+    split = "; ".join(f"{part} {ms:.1f} ms ({n} kernels)" for part, (ms, n)
+                      in sorted(prof["parts"].items(), key=lambda kv:
+                                -kv[1][0]))
+    print(f"TRAIN profile (one step under torch.profiler): wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, "
+          f"idle share {prof['idle']:.4f}; split by the device spans of "
+          f"the step's ranges, else by kernel name: {split}; "
+          f"top device ops: {prof['top']}", flush=True)
+
+    # the kept full-depth calls against the plain version; one timed
+    held = []
+    for i in sorted(rec.calls):
+        args, _, out = rec.calls[i]
+        err, share = _b3_hold(args, out)
+        held.append(err)
+        what = "forward" if i < n_attn else "recompute"
+        print(f"TRAIN B3 call {i} ({what}, layer "
+              f"{i if i < n_attn else 2 * n_attn - 1 - i}) "
+              f"[{_b3_label(args)}]: max_abs_err={err:.3g} "
+              f"allowance share={share:.3f}", flush=True)
+        if not share <= 1.0:
+            raise AssertionError(f"TRAIN B3 call {i}: {share:.3g}x its "
+                                 "allowance")
+    args, _, out = rec.calls[0]
+    row = _b3_timing("TRAIN", args, out, max(held))
+    _print_b3_timing("TRAIN B3 one training call", row)
+    launches = sum(counts)
+    del params, opt, rec, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- held at 2 layers ---------------------------------------------------
+    cfg2 = _train_config(TRAIN_HOLD_LAYERS)
+    step2 = _train_step(cfg2)
+    params, opt = _train_state(cfg2, 41)
+    n2 = 2 * TRAIN_HOLD_LAYERS * TRAIN_MICRO
+    with OpRecorder(fa_ops, "attention", range(n2)) as rec:
+        params, opt, m0 = step2(params, opt, data.batch_at(0))
+    shares = []
+    for i in sorted(rec.calls):
+        args, _, out = rec.calls[i]
+        err, share = _b3_hold(args, out)
+        held.append(err)
+        shares.append(share)
+    del rec
+    if len(shares) != n2 or not max(shares) <= 1.0:
+        raise AssertionError(f"TRAIN 2 layers: {len(shares)} B3 calls held "
+                             f"(want {n2}), largest allowance share "
+                             f"{max(shares):.3g}")
+    print(f"TRAIN held at {TRAIN_HOLD_LAYERS} layers: every B3 call of a "
+          f"step ({n2}: forward and recompute, {TRAIN_MICRO} microbatches) "
+          f"against the plain version, max_abs_err {max(held[-n2:]):.3g}, "
+          f"largest allowance share {max(shares):.3f}", flush=True)
+    del params, opt
+    gc.collect()
+    d = {moments: _b3_vs_plain(cfg2, data, moments)
+         for moments in ("f32", "int8")}
+    f, q = d["f32"], d["int8"]
+    print(f"TRAIN B3 step vs plain step ({TRAIN_HOLD_LAYERS} layers, the "
+          f"second step from a common first, lr {f['lr']:.3g}, float32 "
+          f"moments; B3 launches {f['launches']}): loss {f['loss']} rel "
+          f"diff {f['loss_rel']:.3g} (tolerance {TRAIN_LOSS_RTOL}); "
+          f"parameters max |diff| {f['dp']:.3g} = {f['dp'] / f['lr']:.3g} lr "
+          f"(tolerance {TRAIN_PARAM_LR} lr), share off by more than "
+          f"{TRAIN_PARAM_SHARE_AT} lr {f['moved']:.3g} (tolerance "
+          f"{TRAIN_PARAM_SHARE}); moments' largest difference over their "
+          f"leaf's largest {f['moments']['rel']:.3g} (tolerance "
+          f"{TRAIN_MOMENT_RTOL}). The same with the config's int8 moments, "
+          f"for the record (no tolerance: a code near a rounding edge or "
+          f"a row's zero code moves its weight by many lr): loss "
+          f"{q['loss']} rel diff {q['loss_rel']:.3g}; parameters max "
+          f"|diff| {q['dp'] / q['lr']:.3g} lr, share off by more than "
+          f"{TRAIN_PARAM_SHARE_AT} lr {q['moved']:.3g}; int8 codes "
+          f"differing {q['moments']['code_share']:.3g}, by at most "
+          f"{q['moments']['code_max']}; float32 moments (gains) rel diff "
+          f"{q['moments']['rel']:.3g}", flush=True)
+    if f["launches"] != [n2, 0] or q["launches"] != [n2, 0]:
+        raise AssertionError(f"TRAIN: B3 launched {f['launches']} and "
+                             f"{q['launches']} times in the kernel and "
+                             f"plain steps, want [{n2}, 0]")
+    if not (f["loss_rel"] <= TRAIN_LOSS_RTOL
+            and f["dp"] <= TRAIN_PARAM_LR * f["lr"]
+            and f["moved"] <= TRAIN_PARAM_SHARE
+            and f["moments"]["rel"] <= TRAIN_MOMENT_RTOL):
+        raise AssertionError("TRAIN: the B3 step and the plain step differ "
+                             "beyond their tolerances")
+    del d, f, q
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _train_sweep_print(data)
+    rs = _train_restart(cfg2, step2, data)
+    n, every, fail = TRAIN_RESTART
+    print(f"TRAIN checkpoint/restart ({TRAIN_HOLD_LAYERS} layers, "
+          f"FaultTolerantLoop over {n} steps, save every {every}, a failure "
+          f"injected once at step {fail}): restored step {every} of "
+          f"{rs['leaves']} leaves bitwise to the saved state="
+          f"{rs['bitwise']}; losses after the replay "
+          f"{[round(rs['losses'][s], 6) for s in range(n)]} vs straight "
+          f"through {[round(x, 6) for x in rs['clean']]}, largest rel diff "
+          f"{rs['loss_rel']:.3g} (tolerance {TRAIN_REPLAY_RTOL}); the loop "
+          f"with its saves {rs['loop_s']:.1f}s, {rs['bytes'] / 2 ** 30:.2f} "
+          f"GiB on disk at the end", flush=True)
+    if not (rs["bitwise"] and rs["loss_rel"] <= TRAIN_REPLAY_RTOL):
+        raise AssertionError("TRAIN: the restart differs from the saved "
+                             "state or the straight run")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tape = _adamw_tape(lazy, codegen)
+    st, blk = tape["stats"], tape["blk"]
+    print(f"TRAIN AdamW tape (optim/fused.record_adamw_tape, n="
+          f"{TRAIN_TAPE_N} float64, backend=triton): the update's flush "
+          f"{tape['n_ops']} ops in {tape['n_blocks']} block(s); triton "
+          f"blocks {st['triton_blocks']} declines "
+          f"{dict(st['triton_fallbacks'])}; B1 launches {tape['launches']} "
+          f"(the draws' blocks and the update's); "
+          f"bitwise to the torch floor={tape['bitwise']}; update block "
+          f"kernel_ms={blk['ms']:.4f} call_ms={blk['call_ms']:.4f} "
+          f"plain_ms={blk['plain_ms']:.4f} bytes={blk['bytes']} bound_ms="
+          f"{blk['bound_ms']:.4f} ({blk['bound_by']})", flush=True)
+    if not (tape["n_blocks"] == 1 and tape["bitwise"]
+            and not st["triton_fallback_blocks"]
+            and tape["launches"] == st["triton_blocks"] >= 2):
+        raise AssertionError("TRAIN: the AdamW tape is not one B1 block "
+                             "bitwise to the floor")
+    print(f"TRAIN phase: {time.perf_counter() - t_start:.1f}s", flush=True)
+    return {"launches": launches, "row": row, "max_abs_err": max(held),
+            "b1_launches": tape["launches"]}
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -3417,6 +4026,12 @@ def main() -> int:
         for row in model["cases"][name]:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      moe["max_abs_err"][name])
+    train = run_train(lazy, codegen)
+    torch.cuda.empty_cache()
+    model["launches"]["flash_attention"] += train["launches"]
+    model["cases"]["flash_attention"].append(train["row"])
+    for row in model["cases"]["flash_attention"]:
+        row["max_abs_err"] = max(row["max_abs_err"], train["max_abs_err"])
     loop = run_loop(lazy, codegen)
     torch.cuda.empty_cache()
     launch_s = launch_cost_s(lazy, codegen)
@@ -3431,7 +4046,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
-                     + loop["launches"] + a7_launches + serve_launches),
+                     + loop["launches"] + a7_launches + serve_launches
+                     + train["b1_launches"]),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

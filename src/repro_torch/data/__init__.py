@@ -1,0 +1,3 @@
+"""Data: the port of ``repro/data``."""
+
+from .pipeline import SyntheticLM, make_batch_specs          # noqa: F401

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from .kernel import flash_attention
 from .ref import reference_attention
@@ -24,10 +25,14 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = reference_attention(*ins, **ctx.opts)
-        return (*torch.autograd.grad(out, ins, g), None, None, None, None)
+        # a profiler range, so a trace can tell this plain float32
+        # recompute from the model's own GEMMs and elementwise kernels
+        with record_function("flash_attention.backward"):
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                out = reference_attention(*ins, **ctx.opts)
+            grads = torch.autograd.grad(out, ins, g)
+        return (*grads, None, None, None, None)
 
 
 def attention(q, k, v, causal: bool = True, window: Optional[int] = None,

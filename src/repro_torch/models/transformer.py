@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core.device import resolve_device
 from .config import ModelConfig
@@ -230,6 +231,26 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     return x + mlp(lp["ffn"], h, cfg), new_cache, None
 
 
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` per-group trees of a tree stacked over its leading axis, as
+    views through ``torch.unbind``: its backward stacks the groups'
+    gradients once, where indexing each group would add a zero-filled
+    gradient of the whole stack per group."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: p[g] for k, p in parts.items()} for g in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _remat(enabled: bool, fn, *args):
+    """``fn(*args)``; when ``enabled`` and gradients are being recorded,
+    keeping none of its activations for the backward pass, which runs it
+    again (the reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
                 enc_out=None, in_place: bool = False):
     """The layers in order over the stacked groups.  ``caches`` is stacked
@@ -237,16 +258,31 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
     the float32 sum of the MoE layers' router losses (zero without any);
     with ``in_place`` the new caches are written into ``caches`` (each
     layer's right after it runs; an RWKV layer's wkv state and a Mamba
-    layer's ssm state by the layer itself) and ``caches`` is returned."""
+    layer's ssm state by the layer itself) and ``caches`` is returned.
+    Without caches and with ``cfg.remat`` each group's body is
+    rematerialized in the backward pass (:func:`_remat`), so only the
+    group-boundary activations stay alive."""
     unit, n_groups = cfg.scan_groups()
-    new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
-    gp = params["groups"]
+    groups = _unstack(params["groups"], n_groups)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups):
+    if caches is None:
+        def group(x, aux, gp):
+            for i, (mixer, ffn) in enumerate(unit):
+                x, _, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
+                                       positions=positions, enc_out=enc_out)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        for gp in groups:
+            x, aux = _remat(cfg.remat, group, x, aux, gp)
+        return x, None, aux
+    new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
+    for g, gp in enumerate(groups):
         for i, (mixer, ffn) in enumerate(unit):
-            c = None if caches is None else _index(caches[f"l{i}"], g)
-            x, nc, a = _apply_layer(_index(gp[f"l{i}"], g), x, cfg, mixer,
-                                    ffn, positions=positions, cache=c,
+            c = _index(caches[f"l{i}"], g)
+            x, nc, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
+                                    positions=positions, cache=c,
                                     enc_out=enc_out, in_place=in_place)
             if a is not None:
                 aux = aux + a
@@ -258,7 +294,7 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
             for key, dst in c.items():
                 if nc[key].data_ptr() != dst.data_ptr():  # not written yet
                     dst.copy_(nc[key])
-    if caches is None or in_place:
+    if in_place:
         return x, caches, aux
     return x, {k: _stack(v) for k, v in new.items()}, aux
 
@@ -305,13 +341,18 @@ def _unembed(params, x, cfg: ModelConfig):
 def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     """The encoder over precomputed frame embeddings ``(B, enc_seq, d)``
     (the reference's conv front end is a stub too): full attention, RoPE
-    on its self-attention as in the reference, then ``enc_norm``."""
+    on its self-attention as in the reference, then ``enc_norm``; with
+    ``cfg.remat`` each layer rematerialized in the backward pass."""
     validate_config(cfg)
     x = _input(params, frames, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None]
-    for li in range(cfg.n_encoder_layers):
-        x, _, _ = _apply_layer(_index(params["encoder"], li), x, cfg,
-                               "attn", "mlp", positions=pos, causal=False)
+
+    def layer(x, lp):
+        return _apply_layer(lp, x, cfg, "attn", "mlp", positions=pos,
+                            causal=False)[0]
+
+    for lp in _unstack(params["encoder"], cfg.n_encoder_layers):
+        x = _remat(cfg.remat, layer, x, lp)
     return rmsnorm(params["enc_norm"], x, plus_one=cfg.norm_plus_one)
 
 

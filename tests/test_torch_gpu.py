@@ -1847,3 +1847,124 @@ def test_jamba_serves_on_the_card(card):
     step(s_caches, torch.zeros((2, 1), dtype=torch.int32, device=card))
     torch.cuda.synchronize()
     assert all(not torch.equal(a, b) for a, b in zip(before, ssm))
+
+
+# ---------------------------------------------------------------------------
+# training on the card: B3 in every attention forward and remat recompute
+# ---------------------------------------------------------------------------
+
+#: the card's train step against the same step on the CPU (float32, head
+#: dim 64, float32 moments): each step's loss within TRAIN_LOSS_F32
+#: relative, and after 3 steps every parameter within TRAIN_PARAM_LR x lr
+#: of the CPU's (an Adam step moves a weight by about lr whatever its
+#: gradient's size, so a weight whose gradient is near zero can move
+#: differently on the two devices) with at most TRAIN_PARAM_SHARE of them
+#: off by more than 1e-3 lr (measured on an H100: 289 of 164416, 0.18%)
+TRAIN_LOSS_F32 = 1e-5
+TRAIN_PARAM_LR = 4.0
+TRAIN_PARAM_SHARE = 1e-2
+
+
+def _train_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _train_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def test_train_step_on_the_card_follows_the_cpu(card):
+    """Qwen3-4B's SMOKE config at head dim 64 with remat, 3 steps of
+    ``make_train_step`` (2 microbatches) on the card, where B3 runs every
+    attention forward and its recompute, against the same steps on the
+    CPU (the plain attention)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    cfg = _family_cfg("qwen3-4b", head_dim=64, remat=True)
+    params = _family_params(cfg, card, seed=3)
+    cpu = _to_cpu(params)
+    kw = dict(num_microbatches=2, opt_state_dtype="f32", peak_lr=1e-3,
+              warmup=1, total_steps=100)
+    step, _ = make_train_step(cfg, **kw)
+    cstep, _ = make_train_step(cfg, device="cpu", **kw)
+    opt, copt = adamw_init(params, state_dtype="f32"), adamw_init(
+        cpu, state_dtype="f32")
+    data = SyntheticLM(cfg, 4, 32, seed=1)
+    fa.LAUNCHES["flash_attention"] = 0
+    for s in range(3):
+        params, opt, m = step(params, opt, data.batch_at(s))
+        cpu, copt, cm = cstep(cpu, copt, data.batch_at(s))
+        assert abs(float(m["loss"]) - float(cm["loss"])) \
+            <= TRAIN_LOSS_F32 * float(cm["loss"])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 3 * 2 * 2 * cfg.n_layers
+    lr = float(m["lr"])
+    off = n = 0
+    for (path, g), (_, w) in zip(_train_leaves(params), _train_leaves(cpu)):
+        d = (g.cpu() - w).abs()
+        assert float(d.max()) <= TRAIN_PARAM_LR * lr, path
+        off += int((d > 1e-3 * lr).sum())
+        n += d.numel()
+    assert off <= TRAIN_PARAM_SHARE * n, (off, n)
+
+
+def test_adamw_tape_is_one_b1_block_bitwise_to_the_floor(cuda):
+    from repro_torch.core import lazy
+    from repro_torch.optim.fused import record_adamw_tape
+    """The update's flush is one block; under triton every block run (the
+    draws' and the update's) is one B1 launch, none declined, and the
+    outputs are the floor's bit for bit."""
+    outs = {}
+    for backend in ("triton", "torch"):
+        with lazy.fresh_runtime(backend=backend, loop_fusion=False) as rt:
+            codegen.LAUNCHES["fused_block"] = 0
+            res = record_adamw_tape(rt, 100_003, lr=1e-3, c1=0.1, c2=0.05)
+            outs[backend] = [r.numpy() for r in res]
+            update = max((h for h in rt.history if not h.get("cached")),
+                         key=lambda h: h["n_ops"])
+            assert update["n_blocks"] == 1 and update["n_ops"] > 10
+            if backend == "triton":
+                st = rt.executor.stats.snapshot()
+                assert st["triton_fallback_blocks"] == 0
+                assert codegen.LAUNCHES["fused_block"] \
+                    == st["triton_blocks"] >= 2
+    for a, b in zip(outs["triton"], outs["torch"]):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_checkpoint_restores_to_the_card(card, tmp_path):
+    """A tree saved from the card (float32, bf16, int8 and int32 leaves,
+    an ``OptState``) restores onto the card bitwise, each leaf on its
+    like-leaf's device and dtype."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import OptState
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn((64, 32), generator=gen, device=card),
+            "h": torch.randn(7, generator=gen, device=card).bfloat16(),
+            "opt": OptState(step=torch.tensor(4, dtype=torch.int32,
+                                              device=card),
+                            m={"q": torch.randint(-127, 128, (3, 5),
+                                                  generator=gen, device=card,
+                                                  dtype=torch.int8),
+                               "scale": torch.rand((3, 1), generator=gen,
+                                                   device=card)},
+                            v=torch.zeros(2, device=card))}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, tree)
+    mgr.wait()
+    like = {"w": torch.zeros((64, 32), device=card),
+            "h": torch.zeros(7, device=card, dtype=torch.bfloat16),
+            "opt": OptState(step=torch.zeros((), dtype=torch.int32,
+                                             device=card),
+                            m={"q": torch.zeros((3, 5), dtype=torch.int8,
+                                                device=card),
+                               "scale": torch.zeros((3, 1), device=card)},
+                            v=torch.zeros(2, device=card))}
+    step, got = mgr.restore(None, like)
+    assert step == 4
+    from repro_torch.checkpoint.manager import _flatten
+    for (p, a), (_, b) in zip(_flatten(got), _flatten(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, p
+        assert torch.equal(a, b), p

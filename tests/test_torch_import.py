@@ -54,7 +54,10 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                 "configs.qwen3_4b", "configs.starcoder2_3b",
                 "configs.llava_next_mistral_7b", "configs.whisper_tiny",
                 "configs.olmoe_1b_7b", "configs.qwen3_moe_235b_a22b",
-                "configs.jamba_v01_52b"):
+                "configs.jamba_v01_52b", "optim", "optim.adamw",
+                "optim.schedule", "optim.fused", "data", "data.pipeline",
+                "checkpoint", "checkpoint.manager", "runtime",
+                "runtime.fault", "launch.steps", "launch.train"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
@@ -129,13 +132,39 @@ def _entry_points():
         "serve": lambda **kw: serve.main(
             ["--requests", "1", "--new-tokens", "2"]
             + [f"--{k}={v}" for k, v in kw.items()]),
+        "make_train_step": lambda **kw: _train_step(cfg, **kw),
+        "train": _train,
     }
+
+
+def _train_step(cfg, **kw):
+    """One step of the train step on weights made on the CPU, wherever the
+    step runs (it raises for weights off its device)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    cfg = cfg.scaled(dtype="float32")
+    step, _ = make_train_step(cfg, **kw)
+    params = init_params(cfg, torch.Generator(), "cpu")
+    batch = {"tokens": np.ones((2, 4), np.int32),
+             "labels": np.ones((2, 4), np.int32)}
+    step(params, adamw_init(params), batch)
+
+
+def _train(**kw):
+    import tempfile
+    from repro_torch.launch import train
+    with tempfile.TemporaryDirectory() as ckpt:
+        train.main(["--smoke", "--steps", "2", "--batch", "2", "--seq", "8",
+                    "--ckpt-dir", ckpt]
+                   + [f"--{k}={v}" for k, v in kw.items()])
 
 
 ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
                 "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
                 "LoweringContext", "init_cache", "init_params",
-                "reference_block", "Server", "Runtime.session", "serve"]
+                "reference_block", "Server", "Runtime.session", "serve",
+                "make_train_step", "train"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
