@@ -291,6 +291,32 @@ device-to-host copy ms, the profiled pass's device busy time and idle
 share, and the warm start's writes, hits and partition spans.  B1's
 launches over the phase join the ``kernels`` line.
 
+Then the mesh (``run_mesh``, the ``MESH`` lines; ``core/dist`` and the
+``shard_map`` backend).  (a) A world of one over NCCL in this process
+(``dist.host_mesh()``): black_scholes, game_of_life and heat_equation at
+``CHIP_SIZES`` and ``tests/test_dist_fusion.py``'s window, aligned and
+reduction programs at ``MESH_SIZE`` float64 elements with ``dist.shard``
+applied, under ``backend="triton"`` and ``cost_model="comm"``, in a
+runtime with the mesh and one without, each cold once and then
+``MESH_REPS`` warm runs each in turns (the medians compared), B1's
+launches counted in the mesh runs: each bitwise to the run without a
+mesh, with B1 launches (over
+one rank every base is replicated, so ``shard_map`` declines every block
+and B1 runs them); then a plan store shared by a mesh runtime, a
+mesh-less one and a second mesh runtime: the mesh-less runtime must miss
+the mesh's plans (the topology is in the key) and the second mesh runtime
+hit them.  The process group is destroyed before (b).  (b) ``MESH_RANKS``
+ranks spawned on the one card over gloo (``testing.mesh.spawn``; gloo
+stages each collective through host memory, so these walls are not the
+fabric's): the three programs at ``MESH_SIZE`` under ``greedy`` and
+``singleton`` on the mesh and without one, each bitwise to the
+single-device run on every rank, ``shard_map_blocks`` above 0 and fused
+collectives and fabric bytes below unfused on the window program, then
+``check_dist`` on ``MESH_SEEDS`` at ``MESH_SEED_SIZE`` elements (the torch
+floor).  Each run's line prints its warm wall, blocks per backend,
+``shard_map`` blocks, collectives and interconnect bytes; (a)'s B1
+launches join the ``kernels`` line.
+
 Last it prints a ``kernels`` JSON line (B1-B7; B3's entry is its
 largest-bound case, since the FAMILY phase a served Gemma2-9B layer, and
 B5's since the MOE phase a served Jamba-v0.1 prefill layer with its
@@ -494,6 +520,15 @@ ILP_BUDGET_S = 1.0
 #: array (128 MiB, CHIP_SIZES) and the reference's own 4096
 SERVE_TENANTS, SERVE_REQUESTS = 4, 8
 SERVE_SIZES = (2 ** 24, 4096)
+#: the MESH phase: its programs' size, the benchmark programs part (a) runs
+#: at ``CHIP_SIZES``, part (a)'s warm runs a side, the ranks of part (b)
+#: and its ``check_dist`` seeds
+MESH_SIZE = 2 ** 24
+MESH_PROGRAMS = ("black_scholes", "game_of_life", "heat_equation")
+MESH_REPS = 5
+MESH_RANKS = 4
+MESH_SEEDS = tuple(range(8))
+MESH_SEED_SIZE = 2 ** 20
 SERVE_WINDOW_S, SERVE_MAX_BATCH = 0.002, 4
 
 
@@ -3913,6 +3948,159 @@ def run_train(lazy, codegen) -> dict:
             "b1_launches": tape["launches"]}
 
 
+def _mesh_line(label: str, run: dict, extra: str = "") -> None:
+    print(f"MESH {label} warm_ms={run['wall_s'] * 1e3:.3f} "
+          f"blocks={dict(sorted(run['backend_blocks'].items()))} "
+          f"shard_map_blocks={run['shard_map_blocks']} "
+          f"collectives={run['collectives']} "
+          f"interconnect_bytes={run['interconnect_bytes']:.0f}{extra}",
+          flush=True)
+
+
+def _ms_list(walls) -> str:
+    return "/".join(f"{w * 1e3:.3f}" for w in walls)
+
+
+def _mesh_pair(lazy, codegen, fn, mesh):
+    """One program in a runtime with the mesh and in one without, each
+    cold once, then ``MESH_REPS`` warm runs each in turns (mesh, none,
+    none, mesh, ...).  Returns each side's last result, median warm wall,
+    walls and last run's stats, and B1's launches in the mesh runs."""
+    from repro_torch.core.executor import stats_delta
+    rts = {side: lazy.Runtime(backend="triton", cost_model="comm",
+                              loop_fusion=False, **kw)
+           for side, kw in (("mesh", {"mesh": mesh}), ("none", {}))}
+    walls = {side: [] for side in rts}
+    res, b1 = {}, 0
+    order = ["mesh", "none"]
+    for i in range(MESH_REPS + 1):
+        for side in (order if i % 2 == 0 else order[::-1]):
+            ex = rts[side].executor
+            before = ex.snapshot_stats()
+            n0 = codegen.LAUNCHES["fused_block"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rts[side].activate():
+                out = fn()
+            torch.cuda.synchronize()
+            if i:                         # run 0 is each side's cold run
+                walls[side].append(time.perf_counter() - t0)
+            if side == "mesh":
+                b1 += codegen.LAUNCHES["fused_block"] - n0
+            st = stats_delta(before, ex.stats)
+            res[side] = {"out": np.asarray(out),
+                         "backend_blocks": dict(st["backend_blocks"]),
+                         **{k: st.get(k, 0) for k in (
+                             "shard_map_blocks", "collectives",
+                             "interconnect_bytes")}}
+    for side in rts:
+        res[side]["walls"] = walls[side]
+        res[side]["wall_s"] = statistics.median(walls[side])
+    return res["mesh"], res["none"], b1
+
+
+def _mesh_world_of_one(lazy, codegen) -> int:
+    """Part (a): a world of one over NCCL in this process.  Returns B1's
+    launches in the mesh runs."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    from repro_torch.core.dist import host_mesh
+    from repro_torch.testing import mesh as tmesh
+    from repro_torch.testing.programs import BENCHMARKS, CHIP_SIZES
+    if tdist.is_initialized():
+        raise AssertionError("MESH: a process group is already up")
+    mesh = host_mesh()
+    b1 = 0
+    try:
+        if tdist.get_backend(mesh.get_group()) != "nccl":
+            raise AssertionError("MESH: the world of one is not NCCL")
+        todo = {k: (lambda f=f: f(lazy, dist, 1, MESH_SIZE))
+                for k, f in tmesh.PROGRAMS.items()}
+        for k in MESH_PROGRAMS:
+            todo[k] = (lambda f=BENCHMARKS[k], a=CHIP_SIZES[k]:
+                       f(*a).numpy())
+        for name, fn in todo.items():
+            got, want, n = _mesh_pair(lazy, codegen, fn, mesh)
+            if got["out"].tobytes() != want["out"].tobytes():
+                raise AssertionError(f"MESH {name}: the NCCL world of one "
+                                     "differs from the run without a mesh")
+            if n == 0:
+                raise AssertionError(f"MESH {name}: no B1 launch")
+            b1 += n
+            _mesh_line(f"nccl-1 {name}", got,
+                       f" nomesh_warm_ms={want['wall_s'] * 1e3:.3f} "
+                       f"ratio={got['wall_s'] / want['wall_s']:.4f} (medians "
+                       f"of {MESH_REPS} warm runs each, in turns; mesh "
+                       f"{_ms_list(got['walls'])}, none "
+                       f"{_ms_list(want['walls'])}) b1_launches={n} "
+                       "bitwise=True")
+            torch.cuda.empty_cache()
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            counts = []
+            for kw in ({"mesh": mesh}, {}, {"mesh": mesh}):
+                with lazy.fresh_runtime(backend="triton", cost_model="comm",
+                                        plan_store=d, loop_fusion=False,
+                                        **kw) as rt:
+                    tmesh.window(lazy, dist, 1, MESH_SIZE)
+                    reg = rt.executor.metrics
+                    counts.append(
+                        (reg.counter("cache.plan_store.hit").get(),
+                         reg.counter("cache.plan_store.write").get(),
+                         rt.executor.topology_key()))
+        if not (counts[0][0] == 0 and counts[0][1] > 0 and counts[1][0] == 0
+                and counts[1][1] > 0 and counts[2][0] > 0
+                and counts[0][2] != counts[1][2]):
+            raise AssertionError(f"MESH plan store: {counts}")
+        print(f"MESH nccl-1 plans: mesh topology={counts[0][2]} writes "
+              f"{counts[0][1]}; mesh-less topology={counts[1][2]} hits "
+              f"{counts[1][0]} writes {counts[1][1]}; a second mesh runtime "
+              f"hits {counts[2][0]}", flush=True)
+    finally:
+        tdist.destroy_process_group()
+    return b1
+
+
+def run_mesh(lazy, codegen) -> int:
+    """The MESH phase: (a) a world of one over NCCL in this process, every
+    program under the mesh bitwise to the same run without one and its
+    plans keyed by the topology; (b) ``MESH_RANKS`` ranks spawned on the
+    one card over gloo (collectives staged through the host), the window,
+    aligned and reduction programs at ``MESH_SIZE`` bitwise to the
+    single-device run on each rank, fused collectives and bytes below
+    unfused, and ``check_dist`` on ``MESH_SEEDS``.  Returns B1's launches
+    in (a)'s mesh runs."""
+    from repro_torch.testing import mesh as tmesh
+    t0 = time.perf_counter()
+    b1 = _mesh_world_of_one(lazy, codegen)
+    t1 = time.perf_counter()
+    res = tmesh.spawn(tmesh.mesh_suite, MESH_RANKS, device="cuda",
+                      backend="triton", size=MESH_SIZE, seeds=MESH_SEEDS,
+                      seed_size=MESH_SEED_SIZE, keep_outputs=False,
+                      warm=True)
+    runs = res[0]["runs"]
+    for name, modes in runs.items():
+        for mode in ("greedy", "singleton", "single"):
+            _mesh_line(f"gloo-{MESH_RANKS} {name} {mode}", modes[mode],
+                       " (host-staged)" if mode != "single" else "")
+    win = runs["window"]
+    fused, unfused = win["greedy"], win["singleton"]
+    if not (fused["shard_map_blocks"] > 0
+            and fused["collectives"] < unfused["collectives"]
+            and 0 < fused["interconnect_bytes"]
+            < unfused["interconnect_bytes"]):
+        raise AssertionError(f"MESH window: fused {fused} unfused {unfused}")
+    if any(r["n_seeds"] != len(MESH_SEEDS) for r in res):
+        raise AssertionError("MESH: check_dist did not run on every rank")
+    t2 = time.perf_counter()
+    print(f"MESH gloo-{MESH_RANKS} bitwise to single-device on every rank; "
+          f"check_dist seeds {MESH_SEEDS[0]}-{MESH_SEEDS[-1]} at "
+          f"{MESH_SEED_SIZE} elements bitwise; phase (a) {t1 - t0:.1f}s, "
+          f"(b) {t2 - t1:.1f}s with the spawn", flush=True)
+    return b1
+
+
 def _model_entry(name, route, source, replaces, res) -> dict:
     """The ``kernels`` line entry of a model kernel: its largest-bound case
     (the largest error over its cases)."""
@@ -4040,6 +4228,8 @@ def main() -> int:
     a7_launches = run_a7(launch_s)
     torch.cuda.empty_cache()
     serve_launches = run_serve(lazy, codegen)
+    torch.cuda.empty_cache()
+    mesh_launches = run_mesh(lazy, codegen)
     kernels = {"kernels": [{
         "name": "fused_block",
         "route": "triton",
@@ -4047,7 +4237,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
                      + loop["launches"] + a7_launches + serve_launches
-                     + train["b1_launches"]),
+                     + train["b1_launches"] + mesh_launches),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

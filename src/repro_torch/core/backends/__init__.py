@@ -9,6 +9,8 @@ on import:
 * ``torch``  — one PyTorch call per op (claims everything; the floor);
 * ``triton`` — one generated Triton kernel per block (claims what the
   fused-block generator expresses);
+* ``shard_map`` — sharded blocks on a ``DeviceMesh`` with real
+  collectives (claims sharded blocks on a mesh; ``core/dist``);
 * ``flash_attention`` / ``rmsnorm`` / ``mamba_scan`` — hand-written-kernel
   claimants for LM blocks (op-pattern matchers over the row-replay
   generator; the ``backend="lm"`` stack).
@@ -24,28 +26,35 @@ from .base import (LoweringBackend, LoweringContext,         # noqa: F401
                    unregister_backend)
 from .lm import (LM_STACK, FlashAttentionBackend,            # noqa: F401
                  MambaScanBackend, RMSNormBackend)
+from .shard_map import ShardMapBackend                       # noqa: F401
 from .torch_floor import TorchFloorBackend                   # noqa: F401
 from .triton import TritonBackend                            # noqa: F401
 
 register_backend(TorchFloorBackend())
 register_backend(TritonBackend())
+register_backend(ShardMapBackend())
 register_backend(FlashAttentionBackend())
 register_backend(RMSNormBackend())
 register_backend(MambaScanBackend())
 
 
-def default_stack(backend="torch") -> Tuple[str, ...]:
+def default_stack(backend="torch", mesh=None) -> Tuple[str, ...]:
     """Resolve an executor's ``backend=`` parameter into the
     preference-ordered candidate list of the lowering policy.
 
     ``"torch"`` → the floor only; ``"lm"`` → the hand-written-kernel
     claimants over the generic generator over the floor (``lm.LM_STACK``);
     any other registered name (``"triton"``) → that backend with the floor
-    for the blocks it declines; a tuple/list is taken verbatim."""
+    for the blocks it declines; a tuple/list is taken verbatim.  A mesh
+    prepends ``shard_map`` so sharded blocks prefer collectives."""
     if isinstance(backend, (tuple, list)):
-        return tuple(backend)
-    if backend == "torch":
-        return ("torch",)
-    if backend == "lm":
-        return LM_STACK
-    return (backend, "torch")
+        names = tuple(backend)
+    elif backend == "torch":
+        names = ("torch",)
+    elif backend == "lm":
+        names = LM_STACK
+    else:
+        names = (backend, "torch")
+    if mesh is not None and "shard_map" not in names:
+        names = ("shard_map",) + names
+    return names

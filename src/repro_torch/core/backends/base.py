@@ -45,12 +45,17 @@ from ..device import resolve_device
 @dataclass(frozen=True)
 class LoweringContext:
     """Executor configuration a backend may need to claim or build a block:
-    the RNG seed and the device the block's buffers live on (the CUDA card
-    unless given).  It carries no buffers: backends build functions, the
-    executor owns the store."""
+    the RNG seed, the device the block's buffers live on (the CUDA card
+    unless given) and, for sharded lowerings, the device mesh (``mesh``, a
+    1-D ``DeviceMesh``; ``None`` on a single-device executor), its
+    ``axis`` and its rank count ``n_dev``.  It carries no buffers: backends
+    build functions, the executor owns the store."""
 
     seed: int = 0
     device: torch.device = field(default_factory=resolve_device)
+    mesh: object = None
+    axis: Optional[str] = None
+    n_dev: int = 1
 
 
 @dataclass(frozen=True)
@@ -116,6 +121,16 @@ class LoweringBackend:
         salts or, in a fused loop body, a ``prng.KeyTable`` its draws read
         their key words from.  A failure here raises to the caller."""
         raise NotImplementedError
+
+    def cache_token(self, ops: Sequence, plan, ctx: LoweringContext) -> Tuple:
+        """Extra executable-cache key components beyond the structural
+        signature (e.g. placement).  Default: none."""
+        return ()
+
+    def post_dispatch(self, ops: Sequence, plan, ctx: LoweringContext,
+                      stats) -> None:
+        """Per-dispatch accounting hook (e.g. the collective and
+        fabric-byte counters of the ``shard_map`` backend)."""
 
 
 # ---------------------------------------------------------------------------

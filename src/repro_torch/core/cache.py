@@ -11,9 +11,8 @@ templates instead of rebuilding every geometry tuple.
 
 The port's copy of ``repro.core.cache``, with the cross-flush loop
 fusion helpers (``tapes_structurally_equal``, ``tape_io``,
-``carried_state_mapping``, ``TapeMatcher``; ``core/loop.py`` uses them),
-without the piece that serves distributed placement, which is not ported
-yet: the key has no placement digest.
+``carried_state_mapping``, ``TapeMatcher``; ``core/loop.py`` uses them)
+and the mesh's topology and placement digest in the key.
 """
 
 from __future__ import annotations
@@ -100,19 +99,35 @@ def block_signature(ops: Sequence[Op]) -> Tuple:
     return tuple(sig)
 
 
+def _shard_digest(tape: Sequence[Op]) -> Tuple:
+    """Placement of every base on the tape (``dist.spec.placement_digest``).
+    Distributed plans are placement-dependent: the comm cost model prices
+    shard counts and the resharding pass shapes the tape around them, so two
+    structurally-equal tapes with different ShardSpecs must never share a
+    cache entry."""
+    from .dist.spec import placement_digest   # local: cache loads pre-dist
+    return placement_digest(tape)
+
+
 def tape_signature(tape: Sequence[Op], algorithm: str, cost_model: str,
-                   backends: Tuple = (), cost_token: Tuple = (),
+                   topology: Tuple = (), backends: Tuple = (),
+                   cost_token: Tuple = (),
                    partition_backend: str = "greedy") -> Tuple:
-    """Canonical merge-cache key.  ``backends`` is the lowering policy's
-    candidate list (``LoweringPolicy.key()``): cached entries carry
-    per-block backend decisions, which are only valid for the stack that
-    made them.  ``cost_token`` is the cost model's extra identity beyond its
-    name (``cost.model_cache_token``) — the ``calibrated`` model's prices
-    move with each installed fit, so its calibration epoch keys the cache
-    too.  It sits at ``key[2]``, where the reference's plan store reads it
-    by position; ``partition_backend`` (greedy vs ilp solver) comes last."""
-    return (algorithm, cost_model, tuple(cost_token), tuple(backends),
-            block_signature(tape), partition_backend)
+    """Canonical merge-cache key.  ``topology`` is the executor's device/mesh
+    identity (``dist.mesh.topology_key``): a partition computed under one
+    rank count must never be replayed under another once plans become
+    placement-dependent.  ``backends`` is the lowering policy's candidate
+    list (``LoweringPolicy.key()``): cached entries carry per-block backend
+    decisions, which are only valid for the stack that made them.
+    ``cost_token`` is the cost model's extra identity beyond its name
+    (``cost.model_cache_token``) — the ``calibrated`` model's prices move
+    with each installed fit, so its calibration epoch keys the cache too.
+    It sits at ``key[2]``, where the plan store's envelope reads it by
+    position, so new key components never shift the prefix;
+    ``partition_backend`` (greedy vs ilp solver) comes last."""
+    return (algorithm, cost_model, tuple(cost_token), tuple(topology),
+            tuple(backends), _shard_digest(tape), block_signature(tape),
+            partition_backend)
 
 
 def tapes_structurally_equal(a: Sequence[Op], b: Sequence[Op]) -> bool:

@@ -10,7 +10,9 @@ Every model exposes
 
 All models are monotone: ``merge_saving >= 0`` always.  The paper models
 are copies of ``repro.core.cost``; ``gpu`` takes the place of the
-reference's ``tpu`` model with the same structure and H100 constants, and
+reference's ``tpu`` model with the same structure and H100 constants,
+``gpu_dist`` of its ``tpu_dist``, ``comm`` is the reference's
+communication-aware model over the sharded IR (``core/dist``), and
 ``calibrated`` prices ``gpu``'s structure with the fit that
 ``core.tuning`` measures on the card.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 from .blocks import BlockInfo, view_key
-from .ir import COMM_OPS, Op, View
+from .ir import Op, View
 
 # NVIDIA H100 SXM device-memory rate (data sheet).
 HBM_BW = 3.35e12          # bytes/s
@@ -30,8 +32,8 @@ HBM_BW = 3.35e12          # bytes/s
 # 700 W limit; PERF.md).
 KERNEL_LAUNCH_S = 45.24e-6
 # NVLink 4 rate of one H100 SXM in one direction (data sheet: 900 GB/s
-# both ways).  Only the calibration's default for a fabric slope it cannot
-# identify: no backend of the port moves bytes between cards yet.
+# both ways): the fabric rate of the ``comm`` and ``gpu_dist`` models and
+# the calibration's default for a fabric slope it cannot identify.
 FABRIC_BW = 450e9
 
 # Version of the port's cost-model feature space — the quantities a
@@ -340,16 +342,16 @@ class CalibratedCost(GPUCost):
       overhead and byte slope, so a backend that measures slow loses
       blocks it would win on dispatch counts alone.
 
+    * ``fabric_s_per_byte`` → a :class:`CommCost`-style unique-collective
+      fabric term (``FABRIC_BW`` until a fit identifies a slope).
+
     With **zero samples** (no installed fit) every coefficient is the
-    analytic default, i.e. the model prices exactly like ``gpu`` —
-    "calibrated" is always safe to select.
+    analytic default, i.e. the model prices exactly like ``gpu`` plus the
+    fabric term, which is zero on tapes without COMM ops — "calibrated" is
+    always safe to select.
 
-    The reference adds a fabric term for COMM ops; the port has no
-    resharding pass to count their bytes (ROADMAP A10b), so a block that
-    holds a COMM op raises instead of being priced at zero.
-
-    Monotone: identical term structure to ``GPUCost`` with constant
-    per-view/per-dispatch prices, so merging only deduplicates and
+    Monotone: identical term structure to ``GPUCost``/``CommCost`` with
+    constant per-view/per-dispatch prices, so merging only deduplicates and
     contracts — every term shrinks.
     """
 
@@ -366,15 +368,15 @@ class CalibratedCost(GPUCost):
                          else KERNEL_LAUNCH_S,
                          align_codegen=align_codegen)
         self.name = "calibrated"
+        self.fabric_s_per_byte = (fit.fabric_s_per_byte if fit is not None
+                                  else 1.0 / FABRIC_BW)
 
     def block_cost(self, b: BlockInfo) -> float:
-        for o in b.ops:
-            if o.opcode in COMM_OPS:
-                raise NotImplementedError(
-                    f"the calibrated model cannot price a {o.opcode!r} op: "
-                    "its fabric bytes need the resharding pass, which is "
-                    "not ported yet (ROADMAP A10b)")
-        return super().block_cost(b)
+        base = super().block_cost(b)
+        if base == 0.0:
+            return base             # DEL/SYNC-only blocks dispatch nothing
+        from .dist.reshard import block_comm_bytes
+        return base + block_comm_bytes(b.ops) * self.fabric_s_per_byte
 
     def dispatch_price(self, n_dispatches: int,
                        backend: Optional[str] = None,
@@ -395,10 +397,113 @@ class CalibratedCost(GPUCost):
                 + slope * float(ext_bytes))
 
 
+class GPUDistCost(_KernelAlignment, CostModel):
+    """``gpu`` plus halo bytes over the fabric (the port's counterpart of
+    the reference's ``tpu_dist``, its function unchanged).
+
+    Bases may be sharded along one dimension across ``n_shards`` devices
+    (``base.shard = (n_shards, dim)``).  An external view whose element
+    span is *misaligned* with the shard grid (e.g. the shifted reads of a
+    stencil) requires a halo exchange over NVLink; contracted temporaries
+    never leave the kernel and need no halo.  Fusing stencil steps
+    therefore removes whole halo exchanges, not just device-memory trips.
+
+    Like the reference's, :meth:`halo_bytes` reads ``base.shard``, an
+    attribute nothing in either package sets (the sharded IR's placement is
+    ``base.shard_spec``), so the model prices exactly like ``gpu`` on every
+    tape (ROADMAP C26).
+
+    Monotone: per-view costs are constants; merging only deduplicates views
+    and contracts arrays, so block costs only shrink.
+    """
+
+    def __init__(self, hbm_bw: float = HBM_BW, fabric_bw: float = FABRIC_BW,
+                 launch_s: float = KERNEL_LAUNCH_S, align_codegen: bool = True):
+        self.name = "gpu_dist"
+        self.unit = "bytes"
+        self.hbm_bw = hbm_bw
+        self.fabric_bw = fabric_bw
+        self.launch_s = launch_s
+        self.align_codegen = align_codegen
+
+    @staticmethod
+    def halo_bytes(v: View) -> int:
+        shard = getattr(v.base, "shard", None)
+        if not shard:
+            return 0
+        n_shards, dim = shard
+        if n_shards <= 1 or dim >= len(v.shape):
+            return 0
+        # slab = bytes per unit length along the sharded dim
+        slab = v.nbytes // max(1, v.shape[dim])
+        # shift of this view against the shard grid along `dim`
+        stride = v.strides[dim] if v.strides[dim] != 0 else 1
+        shift = (v.offset // abs(stride)) % max(1, v.shape[dim] // n_shards or 1)
+        if shift == 0 and v.shape[dim] % n_shards == 0:
+            return 0
+        width = min(abs(shift) if shift else 1, 4)   # halo width in elements
+        return (n_shards - 1) * width * slab
+
+    def block_cost(self, b: BlockInfo) -> float:
+        if all(o.is_system() for o in b.ops):
+            return 0.0
+        reads, writes = b.ext_views()
+        hbm = sum(v.nbytes for v in (*reads, *writes)) + gather_table_bytes(b)
+        halo = sum(self.halo_bytes(v) for v in (*reads, *writes))
+        return (hbm / self.hbm_bw + halo / self.fabric_bw
+                + self.launch_s * self._dispatches(b))
+
+
+class CommCost(CostModel):
+    """Communication-aware WSP over the sharded IR (``core/dist``): the
+    paper's fusion criterion "shape compatibility, data reusability AND
+    communication", priced on explicit COMM graph nodes.
+
+    A block costs its per-device memory traffic time (ext bytes divided by
+    the shard count of each base's placement) plus its interconnect time:
+    the fabric bytes of the block's *unique* collectives
+    (``comm_op_bytes``, deduplicated on ``(kind, source view, target
+    placement)``).  The resharding pass inserts one COMM per consuming read
+    site, so merging identical reshards deduplicates collectives — the
+    model's ``merge_saving`` prices exactly the interconnect bytes that
+    fusion elides, alongside the usual dedup/contraction savings.
+
+    Monotone: merging only deduplicates ext views, contracts temporaries and
+    deduplicates collectives — every term shrinks.  Sparse: a non-zero
+    saving needs a shared identical view key (incl. the COMM dedup case) or
+    a creator/reader/writer/deleter pair, so the saving-support weight graph
+    of ``PartitionState`` applies.
+    """
+
+    sparse_weights = True
+
+    def __init__(self, hbm_bw: float = HBM_BW, fabric_bw: float = FABRIC_BW):
+        self.name = "comm"
+        self.unit = "bytes"
+        self.hbm_bw = hbm_bw
+        self.fabric_bw = fabric_bw
+
+    @staticmethod
+    def _local_nbytes(v: View) -> float:
+        from .dist.spec import spec_of
+        spec = spec_of(v.base)
+        return v.nbytes / (spec.n_shards if spec is not None else 1)
+
+    def block_cost(self, b: BlockInfo) -> float:
+        if all(o.is_system() for o in b.ops):
+            return 0.0
+        from .dist.reshard import block_comm_bytes
+        reads, writes = b.ext_views()
+        hbm = sum(self._local_nbytes(v) for v in (*reads, *writes))
+        return hbm / self.hbm_bw + block_comm_bytes(b.ops) / self.fabric_bw
+
+
 _MODELS = {
     "bohrium": BohriumCost,
     "calibrated": CalibratedCost,
+    "comm": CommCost,
     "gpu": GPUCost,
+    "gpu_dist": GPUDistCost,
     "max_contract": MaxContractCost,
     "max_locality": MaxLocalityCost,
     "robinson": RobinsonCost,
@@ -416,8 +521,13 @@ def make_cost_model(name: str, **kw) -> CostModel:
     * ``"robinson"``     — Def. 21, lexicographic combination
     * ``"gpu"``          — device-memory time + launches, Triton-codegen
       aligned
+    * ``"gpu_dist"``     — ``gpu`` plus halo bytes over NVLink (the
+      reference's ``tpu_dist``)
+    * ``"comm"``         — per-device bytes plus the unique collectives'
+      fabric bytes over the sharded IR (``core/dist``)
     * ``"calibrated"``   — ``gpu``'s structure with measured, fitted prices
-      (per-backend dispatch overhead and byte slope; ``core.tuning``)
+      (per-backend dispatch overhead and byte slope, the fabric term;
+      ``core.tuning``)
 
     All models are monotone (``merge_saving >= 0``); models with
     ``sparse_weights=True`` opt into the sparse saving-support weight graph

@@ -9,7 +9,8 @@ block becomes is a per-block lowering decision over the backend registry
 (``repro_torch.core.backends``): ``torch`` (the :func:`make_block_fn` floor
 below, one PyTorch call per op) or ``triton`` (the fused-block Triton
 generator).  ``BlockExecutor`` is the thin dispatch engine over that
-registry.
+registry.  Given a ``DeviceMesh`` it also runs sharded blocks through the
+``shard_map`` backend with real collectives (``core/dist``).
 
 Buffers are flat 1-D tensors on the executor's device.  The floor never
 writes one in place (a partial write clones its base, :func:`_write`).
@@ -551,7 +552,7 @@ class BlockExecutor:
     without the other."""
 
     def __init__(self, seed: int = 0, backend="torch", device=None,
-                 profiler=None):
+                 profiler=None, mesh=None, axis: Optional[str] = None):
         """``backend`` resolves to the preference-ordered candidate list of
         the lowering policy (``backends.default_stack``): ``"torch"`` runs
         every block on the floor; ``"triton"`` prefers the fused-block
@@ -562,13 +563,32 @@ class BlockExecutor:
         by ``torch.cuda.synchronize`` on a CUDA device and timed with
         ``time.perf_counter`` (the host's wrapper call, the launch and the
         kernel — what the cost model's ``launch_s`` and byte slope price),
-        so profiling trades the asynchronous pipeline for honest walls."""
+        so profiling trades the asynchronous pipeline for honest walls.
+
+        ``mesh`` (a 1-D ``DeviceMesh``, ``dist.host_mesh``) prepends the
+        ``shard_map`` backend so sharded blocks run with real collectives,
+        folds placement into the executable-cache key and declares the
+        ``shard_map_blocks``/``collectives``/``interconnect_bytes`` stats.
+        The store then holds each base the mesh can shard as a ``Shard(0)``
+        DTensor (``dist.mesh.held_sharded``); a block another backend runs
+        sees whole tensors, gathered first, and leaves this rank's chunk of
+        a sharded output.  The mesh's device type must be the executor's."""
         from .backends import default_stack
         self.seed = seed
         self.profiler = profiler
         self.backend = backend
         self.device = resolve_device(device)
-        self.backends: Tuple[str, ...] = default_stack(backend)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh under an "
+                                 f"executor on {self.device}")
+            self.axis = axis or mesh.mesh_dim_names[0]
+            self.n_dev = int(mesh.size())
+        else:
+            self.axis = axis
+            self.n_dev = 1
+        self.backends: Tuple[str, ...] = default_stack(backend, mesh)
         self._cache: Dict[Tuple, object] = {}
         #: lowering decisions for plans the scheduler did not annotate
         self._decisions: Dict[Tuple, object] = {}
@@ -599,7 +619,13 @@ class BlockExecutor:
         buffer at a drain's start where the state is not already there, at
         an iteration's end where a block's carried output did not land in
         its buffer, and of another buffer or SYNC snapshot that shares a
-        state buffer's storage, before a drain overwrites it."""
+        state buffer's storage, before a drain overwrites it.
+
+        On a mesh (``shard_map`` in the stack): ``shard_map_blocks`` counts
+        the dispatches that backend ran, ``collectives`` their unique
+        collectives and ``interconnect_bytes`` their fabric bytes
+        (``dist.reshard.block_comm_bytes``); a COMM op another backend runs
+        is a local copy and counts in neither."""
         st = self.stats
         with self.metrics.lock:
             for key in ("blocks_run", "exec_cache_hits", "exec_cache_misses",
@@ -613,6 +639,14 @@ class BlockExecutor:
                              presets=self.backends)
             st.declare_group("backend_fallbacks", ("backend", "reason"),
                              presets=self.backends)
+            if "shard_map" in self.backends:
+                st.declare_scalar("shard_map_blocks")
+                st.declare_scalar("collectives")
+                st.declare_scalar("interconnect_bytes", 0.0)
+            else:
+                for key in ("shard_map_blocks", "collectives",
+                            "interconnect_bytes"):
+                    st.drop(key)
 
     def snapshot_stats(self) -> Dict:
         """Plain nested-dict copy of the counters, for before/after flush
@@ -622,7 +656,9 @@ class BlockExecutor:
     # -- policy --------------------------------------------------------
     def lowering_context(self):
         from .backends import LoweringContext
-        return LoweringContext(seed=self.seed, device=self.device)
+        return LoweringContext(seed=self.seed, device=self.device,
+                               mesh=self.mesh, axis=self.axis,
+                               n_dev=self.n_dev)
 
     def lowering_policy(self):
         """What ``Runtime.flush`` hands ``Scheduler.plan`` so the lower
@@ -632,9 +668,12 @@ class BlockExecutor:
                               ctx=self.lowering_context())
 
     def topology_key(self) -> Tuple:
-        """The device/mesh identity a plan is valid for: ``()`` on one
-        device, until the mesh is ported (ROADMAP A10b)."""
-        return ()
+        """The device/mesh identity a plan is valid for, mixed into the
+        merge-cache key (``()`` on a single-device executor)."""
+        if self.mesh is None:
+            return ()
+        from .dist.mesh import topology_key
+        return topology_key(self.mesh)
 
     def run(self, tape: Sequence[Op], op_blocks: Sequence[Sequence[int]],
             buffers: Dict[int, torch.Tensor]) -> None:
@@ -651,21 +690,29 @@ class BlockExecutor:
         rule, cached by the plan's signature so steady-state dispatches
         skip the probing."""
         from .backends import select_lowering
+        key = plan.signature
+        if self.mesh is not None:       # decisions depend on placement
+            from .dist.spec import placement_digest
+            key = (key, placement_digest(ops))
         with self._lock:
-            d = self._decisions.get(plan.signature)
+            d = self._decisions.get(key)
         if d is None:
             d = select_lowering(ops, plan, self.backends, ctx)
             with self._lock:
-                self._decisions[plan.signature] = d
+                self._decisions[key] = d
         return d
 
     def _executable(self, decision, ops: Sequence[Op], plan, ctx):
         """Look up (or build) the executable for one decided plan.
         Returns ``(fn, warm)``: ``warm`` is True on a cache hit (the
         profiler times only warm dispatches — a cold one includes the
-        kernel's generation)."""
+        kernel's generation).  The key is the backend, the plan's
+        signature and the backend's ``cache_token`` (``shard_map`` folds in
+        placement, so one signature never serves two shardings)."""
         from .backends import get_backend
-        key = (decision.backend, plan.signature)
+        key = ((decision.backend, plan.signature)
+               + tuple(get_backend(decision.backend).cache_token(
+                   ops, plan, ctx)))
         with self._lock:
             fn = self._cache.get(key)
         if fn is not None:
@@ -695,6 +742,8 @@ class BlockExecutor:
             st.inc("backend_blocks", labels=(decision.backend,))
             for name, reason in decision.declined:
                 st.inc("backend_fallbacks", labels=(name, reason))
+            if decision.backend == "shard_map":
+                st.inc("shard_map_blocks")
             if decision.backend == "triton":
                 st.inc("triton_blocks")
             else:
@@ -728,7 +777,10 @@ class BlockExecutor:
         donates, the input positions it may overwrite), then honor SYNC
         (snapshot into ``sync_store``) and DEL (free) in Bohrium order.
         With a profiler attached, each warm dispatch is timed between two
-        synchronizations and recorded."""
+        synchronizations and recorded.  On a mesh, a block that a backend
+        other than ``shard_map`` runs gets its sharded inputs whole and
+        leaves this rank's chunk of each sharded output
+        (:meth:`_chunked`)."""
         from .backends import get_backend
         tape = schedule.tape
         ctx = self.lowering_context()
@@ -764,6 +816,12 @@ class BlockExecutor:
                             raise RuntimeError(
                                 f"base {u} read before definition")
                         in_bufs.append(buffers[u])
+                    placed = (self.mesh is not None
+                              and decision.backend != "shard_map")
+                    if placed:       # the collective XLA inserts where the
+                        from .dist.mesh import whole  # reference's floor
+                        in_bufs = [whole(b) for b in in_bufs]  # reads a
+                        # sharded global array
                     salts = tuple(getattr(op, "salt", op.uid) % (2**31 - 1)
                                   for op in ops if not op.is_system()
                                   and op.opcode == "random")
@@ -783,6 +841,10 @@ class BlockExecutor:
                             self.profiler.record(decision.backend, ops, plan,
                                                  ctx,
                                                  time.perf_counter() - t0)
+                    if placed:
+                        out_bufs = self._chunked(out_bufs, ops, plan.outputs)
+                    get_backend(decision.backend).post_dispatch(
+                        ops, plan, ctx, self.stats)
                     pos = {u: k for k, u in enumerate(plan.inputs)}
                     reused = sum(1 for u, b in zip(plan.outputs, out_bufs)
                                  if u in pos and b is in_bufs[pos[u]])
@@ -796,6 +858,19 @@ class BlockExecutor:
                             hold(self.sync_store, b.uid, buffers[b.uid])
                     for b in op.del_bases:
                         hold(buffers, b.uid, None)
+
+    def _chunked(self, bufs: Sequence[torch.Tensor], ops: Sequence[Op],
+                 uids: Sequence[int]) -> List:
+        """The store form of a block's whole outputs ``bufs`` (bases
+        ``uids``) on a mesh: each output of a base the mesh holds sharded
+        becomes a copy of this rank's chunk as a DTensor (a copy, so the
+        rest of the whole tensor is freed)."""
+        from .dist.mesh import as_sharded, chunk_of, held_sharded
+        bases = {v.base.uid: v.base for op in ops
+                 for v in (*op.in_views(), *op.out_views())}
+        return [as_sharded(chunk_of(b, self.mesh).clone(), self.mesh)
+                if held_sharded(bases[u], self.n_dev) else b
+                for u, b in zip(uids, bufs)]
 
     def run_loop(self, loop_plan, buffers: Dict[int, torch.Tensor],
                  state_uids: Sequence[int], inv_uids: Sequence[int],
@@ -931,5 +1006,9 @@ class BlockExecutor:
 
 
 def _storage(t: torch.Tensor) -> int:
-    """Identity of a tensor's storage (tensors that share it alias)."""
+    """Identity of a tensor's storage (tensors that share it alias; a
+    sharded buffer's is its local chunk's)."""
+    local = getattr(t, "to_local", None)
+    if local is not None:
+        t = local()
     return t.untyped_storage().data_ptr()

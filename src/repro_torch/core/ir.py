@@ -35,6 +35,11 @@ class BaseArray:
         self.dtype = np.dtype(self.dtype)
         if not self.name:
             self.name = f"b{self.uid}"
+        # Optional distributed placement (``core.dist.ShardSpec``).  None
+        # means replicated / single-device; the resharding pass and the
+        # ``comm`` cost model read it, the ``shard_map`` backend lowers
+        # against it.
+        self.shard_spec = None
 
     @property
     def nbytes(self) -> int:
@@ -80,6 +85,11 @@ class View:
     @property
     def dtype(self) -> np.dtype:
         return self.base.dtype
+
+    @property
+    def shard_spec(self):
+        """Placement of the observed data (inherited from the base)."""
+        return self.base.shard_spec
 
     def span(self) -> Tuple[int, int]:
         """Smallest/largest element index touched (inclusive/exclusive hi)."""
@@ -141,9 +151,12 @@ ELEMENTWISE = {
 }
 REDUCTIONS = {"reduce_sum", "reduce_max", "reduce_min", "reduce_prod"}
 SPECIAL = {"random", "range", "matmul", "gather", "del", "sync", "free"}
-# Explicit communication ops of the reference's distributed fusion.  The
-# port has no mesh yet; the set stays so that fusion legality and the
-# codegen's ``comm`` decline slug treat such ops exactly as the reference.
+# Explicit communication ops (distributed fusion, ``core/dist``).  Value
+# semantics: identity copy into a fresh base with a different ShardSpec —
+# only the *placement* changes.  The resharding pass injects them wherever
+# consecutive ops disagree on placement, so the partitioner prices
+# interconnect traffic as ordinary graph nodes; the ``shard_map`` backend
+# lowers them to real collectives over a ``DeviceMesh``.
 COMM_OPS = {"comm_allgather", "comm_reduce_scatter", "comm_ppermute"}
 
 

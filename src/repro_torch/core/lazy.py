@@ -29,6 +29,9 @@ import torch
 from .algorithms import PartitionResult
 from .cache import MergeCache
 from .device import resolve_device
+from .dist import insert_resharding, tape_has_sharding
+from .dist.mesh import whole
+from .dist.spec import sharding_ever_used
 from .executor import BlockExecutor, _read, numpy_dtype, stats_delta
 from .ir import BaseArray, Op, View
 from .loop import LoopFuser
@@ -64,6 +67,11 @@ class Runtime:
         names an explicit preference-ordered backend stack.
     device : ``None`` (default) runs on the CUDA card and raises when there
         is none; ``"cpu"`` (or any torch device) runs there.
+    mesh : optional 1-D ``DeviceMesh`` (``dist.host_mesh``) of the same
+        device type; prepends the ``shard_map`` backend (real collectives
+        for sharded blocks), keys plans by its topology and enables the
+        resharding pass.  Every rank runs the same program (SPMD), and
+        ``.numpy()`` of a sharded array gathers it on every rank.
     history_limit : cap on ``Runtime.history`` entries.
     profiler : optional ``repro_torch.core.tuning.Profiler``; when set, warm
         block dispatches are timed between two synchronizations of the
@@ -115,7 +123,7 @@ class Runtime:
                  loop_threshold: int = 3, loop_unroll: int = 32,
                  partition_backend: str = "greedy",
                  time_budget_s: Optional[float] = None, plan_store=None,
-                 _scheduler: Optional[Scheduler] = None,
+                 mesh=None, _scheduler: Optional[Scheduler] = None,
                  _executor: Optional[BlockExecutor] = None):
         self.algorithm = algorithm
         self.cost_model = cost_model
@@ -137,7 +145,7 @@ class Runtime:
         self.executor = (_executor if _executor is not None
                          else BlockExecutor(seed=seed, backend=backend,
                                             device=self.device,
-                                            profiler=profiler))
+                                            profiler=profiler, mesh=mesh))
         if self.executor.device != self.device:
             raise ValueError(f"a runtime on {self.device} over an executor "
                              f"on {self.executor.device}")
@@ -157,7 +165,7 @@ class Runtime:
         #: dispatch, not the user program's op recording)
         self.flush_wall_s = 0.0
         self.last_partition: Optional[PartitionResult] = None
-        #: the last tape handed to the scheduler
+        #: the last tape handed to the scheduler (after resharding)
         self.last_tape: Optional[List[Op]] = None
         self._t_trace0: Optional[int] = None   # first record() of this tape
         #: per-flush records: planning stats plus an ``"exec"`` dict of
@@ -250,6 +258,11 @@ class Runtime:
                     tr.complete("stage.trace", self._t_trace0, t0_ns,
                                 {"n_ops": len(tape), "flush": self.flushes})
                 self._t_trace0 = None
+                if sharding_ever_used() and tape_has_sharding(tape):
+                    # placement disagreements become explicit COMM graph
+                    # nodes BEFORE partitioning, so WSP prices interconnect
+                    # traffic
+                    tape = insert_resharding(tape)
                 h0, m0 = self.cache.hits, self.cache.misses
                 if fus is not None and fus.fuse(self, tape):
                     fsp.set(deferred=True)
@@ -262,6 +275,7 @@ class Runtime:
                     cost_model=self.cost_model,
                     node_budget=self.node_budget,
                     use_cache=self.use_cache,
+                    topology=self.executor.topology_key(),
                     lowering=self.executor.lowering_policy(),
                     partition_backend=self.partition_backend,
                     time_budget_s=self.time_budget_s)
@@ -298,6 +312,7 @@ class Runtime:
         buf = self.buffers.get(view.base.uid)
         if buf is None:
             buf = self.executor.sync_store[view.base.uid]
+        buf = whole(buf)             # a sharded one: every rank gathers it
         return np.array(_read(buf, view).cpu().numpy())
 
     def adopt(self, arr) -> "LazyArray":

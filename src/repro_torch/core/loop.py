@@ -188,14 +188,19 @@ class LoopFuser:
     def _session_block_reason(self, rt) -> Optional[str]:
         """Per-flush session conditions — None when deferral is allowed,
         else a reason slug (recorded on break events).  A profiler needs
-        per-block timings; ``use_cache=False`` disables plan reuse
+        per-block timings; a mesh routes through ``shard_map`` collectives
+        (out of scope for the loop body, and a CUDA graph cannot capture a
+        gloo collective); ``use_cache=False`` disables plan reuse
         entirely.  And the loop state must actually exist: the previous
         flush's outputs must be live buffers (or queued — then drain
         seeding happens against ``exec_outs`` which ARE buffers)."""
+        ex = rt.executor
         if not rt.use_cache:
             return "cache-disabled"
-        if rt.executor.profiler is not None:
+        if ex.profiler is not None:
             return "profiler-active"
+        if ex.mesh is not None:
+            return "mesh-active"
         outs = self.exec_outs
         if outs is None:
             return "no-executed-state"
@@ -234,6 +239,7 @@ class LoopFuser:
         sched = rt.scheduler.plan(
             tape, algorithm=rt.algorithm, cost_model=rt.cost_model,
             node_budget=rt.node_budget, use_cache=True,
+            topology=rt.executor.topology_key(),
             lowering=rt.executor.lowering_policy(),
             partition_backend=rt.partition_backend,
             time_budget_s=rt.time_budget_s)

@@ -27,7 +27,7 @@ and machine-readable JSON (:meth:`ExplainReport.to_json`); the
 
 The port's copy of ``repro.core.obs.explain``, with the same schema.  It
 probes the merge cache with the key the port's scheduler builds
-(``scheduler.merge_key``: the port's key has no topology component).
+(``scheduler.merge_key``, with the executor's topology).
 """
 
 from __future__ import annotations
@@ -297,7 +297,8 @@ def explain(rt, tape: Optional[Sequence] = None) -> ExplainReport:
             backend=best[2] if best else None,
             verdicts=tuple(verdicts)))
 
-    key = merge_key(tape, rt.algorithm, rt.cost_model, policy, pbackend)
+    key = merge_key(tape, rt.algorithm, rt.cost_model, policy, pbackend,
+                    rt.executor.topology_key())
     cache = {"key_digest": signature_digest(key),
              "resident": key in rt.cache,
              "hits": rt.cache.hits, "misses": rt.cache.misses,

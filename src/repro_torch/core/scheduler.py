@@ -113,10 +113,11 @@ def plan_blocks(tape: Sequence[Op],
 
 def merge_key(tape: Sequence[Op], algorithm: str, cost_model: str,
               lowering: Optional[LoweringPolicy],
-              partition_backend: str = "greedy") -> Tuple:
+              partition_backend: str = "greedy",
+              topology: Tuple = ()) -> Tuple:
     """The merge-cache key of a flush, as :meth:`Scheduler.plan` builds it
     (the explain report probes the cache with the same key)."""
-    return tape_signature(tape, algorithm, cost_model,
+    return tape_signature(tape, algorithm, cost_model, topology=topology,
                           backends=lowering.key() if lowering else (),
                           cost_token=model_cache_token(cost_model),
                           partition_backend=partition_backend)
@@ -156,7 +157,7 @@ class Scheduler:
 
     def plan(self, tape: Sequence[Op], *, algorithm: str = "greedy",
              cost_model: str = "bohrium", node_budget: int = 100_000,
-             use_cache: bool = True,
+             use_cache: bool = True, topology: Tuple = (),
              lowering: Optional[LoweringPolicy] = None,
              partition_backend: str = "greedy",
              time_budget_s: Optional[float] = None) -> Schedule:
@@ -170,7 +171,9 @@ class Scheduler:
         decisions made for one backend stack never leak into another.  On
         a merge-cache hit both the partition AND the lowering decisions are
         replayed (``Schedule.result`` is ``None`` on a hit).
-        ``Schedule.stats`` carries per-stage timings.
+        ``Schedule.stats`` carries per-stage timings.  ``topology`` is
+        the executor's device/mesh key (``BlockExecutor.topology_key``),
+        so cached partitions are never reused across placements.
 
         ``partition_backend='ilp'`` solves the partition as an anytime
         integer program warm-started from greedy (``algorithms.partition``;
@@ -186,7 +189,7 @@ class Scheduler:
         cached = False
         if use_cache:
             key = merge_key(tape, algorithm, cost_model, lowering,
-                            partition_backend)
+                            partition_backend, topology)
             entry = self.cache.get(key)
             trace.instant("cache.merge", hit=entry is not None)
             if entry is None and self.plan_store is not None:

@@ -50,6 +50,8 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..cache import tape_io
+from ..dist import tape_has_sharding
+from ..dist.mesh import whole
 from ..executor import _read
 from ..lazy import LazyArray, Runtime
 from ..obs import trace
@@ -58,17 +60,11 @@ from .admission import AdmissionController, ServeRejected   # noqa: F401
 from .store import PlanStore
 
 
-def tape_has_sharding(tape) -> bool:
-    """Whether a tape carries placement annotations, which a batched
-    dispatch cannot map.  The port has no mesh and no annotations until
-    ROADMAP A10b ports them, so no tape does yet."""
-    return False
-
-
 def _host(buf, view) -> np.ndarray:
     """One array's value on the host, in memory of its own (one copy, from
-    the device or, on the CPU, out of the buffer)."""
-    return _read(buf, view).to("cpu", copy=True).numpy()
+    the device or, on the CPU, out of the buffer; a sharded buffer is
+    gathered first)."""
+    return _read(whole(buf), view).to("cpu", copy=True).numpy()
 
 
 class _Group:
@@ -178,7 +174,7 @@ class Server:
         if any(op.opcode == "sync" for op in tape):
             return False             # fn materialized mid-request
         if tape_has_sharding(tape):
-            return False
+            return False             # shard_map blocks are not vmap-safe
         live = set(sess.buffers)
         for op in tape:
             for v in (*op.in_views(), *op.out_views()):
@@ -196,9 +192,9 @@ class Server:
 
     def _signature(self, sess: Runtime, tape) -> Tuple:
         ex = sess.executor
-        return (ex.topology_key(),
-                merge_key(tape, sess.algorithm, sess.cost_model,
-                          ex.lowering_policy(), sess.partition_backend))
+        return merge_key(tape, sess.algorithm, sess.cost_model,
+                         ex.lowering_policy(), sess.partition_backend,
+                         ex.topology_key())
 
     def _submit_batched(self, sess: Runtime, arrs: Sequence[LazyArray]) -> List:
         tape, sess.tape = sess.tape, []
@@ -250,6 +246,7 @@ class Server:
         sched = rt.scheduler.plan(
             lead.tape, algorithm=sess.algorithm, cost_model=sess.cost_model,
             node_budget=sess.node_budget, use_cache=True,
+            topology=rt.executor.topology_key(),
             lowering=rt.executor.lowering_policy(),
             partition_backend=sess.partition_backend,
             time_budget_s=sess.time_budget_s)

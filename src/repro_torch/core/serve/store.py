@@ -50,8 +50,9 @@ from ..obs.metrics import MetricsRegistry
 from ..tuning.calibrate import current_epoch
 
 #: the envelope schema of the port's store; change it when the schema
-#: changes, and older files become stale misses
-SERVE_STORE_VERSION = "repro_torch_plan_v1"
+#: or the key changes, and older files become stale misses (v2: the key
+#: carries the mesh's topology and the placement digest)
+SERVE_STORE_VERSION = "repro_torch_plan_v2"
 
 
 class PlanStore:

@@ -16,7 +16,7 @@ dispatches on the card:
   ``dispatches``, so the floor's fitted price absorbs its op count);
 * ``hbm_s_per_byte``    — seconds per external device-memory byte;
 * ``fabric_s_per_byte`` — seconds per fabric byte (fitted only when
-  samples carry fabric bytes, which no backend of the port records yet).
+  samples carry fabric bytes: ``shard_map`` dispatches over NCCL).
 
 Each ``(backend, signature)`` key contributes its *minimum* observed wall
 time as one equation; the system is solved by ordinary least squares and

@@ -63,7 +63,7 @@ class ProfileSample:
     wall_s: float       # dispatch-to-materialized wall time
     dispatches: int     # executable dispatches the backend reported
     hbm_bytes: float    # external (block-boundary) bytes, the Def. 13 cost
-    fabric_bytes: float  # interconnect bytes (0 until the mesh is ported)
+    fabric_bytes: float  # unique-collective fabric bytes (shard_map, NCCL)
     n_ops: int          # work ops in the block (diagnostics only)
 
 
@@ -129,6 +129,16 @@ class Profile:
         return cls([ProfileSample(**s) for s in doc["samples"]])
 
 
+def fabric_measured(mesh) -> bool:
+    """Whether a mesh's collectives cross the fabric a ``fabric_bytes``
+    slope prices: NCCL over more than one rank (gloo stages through host
+    memory; one rank moves nothing)."""
+    if mesh is None or mesh.size() < 2:
+        return False
+    import torch.distributed as tdist
+    return tdist.get_backend(mesh.get_group()) == "nccl"
+
+
 class Profiler:
     """The executor-side timing hook (attach via ``BlockExecutor(profiler=)``
     or ``Runtime(profiler=)``).
@@ -142,8 +152,12 @@ class Profiler:
       (the quantity ``CostModel.dispatch_price`` prices in the lower stage);
     * ``hbm_bytes``    — ``BlockInfo.ext_size("bytes")``, the Def. 13
       external-access cost the partitioner minimizes;
-    * ``fabric_bytes`` — 0: no backend of the port moves bytes between
-      cards yet (the reference's ``shard_map`` backend, ROADMAP A10b).
+    * ``fabric_bytes`` — ``dist.reshard.block_comm_bytes`` for
+      ``shard_map`` dispatches whose collectives run over NCCL (on every
+      other backend COMM ops are local identity copies and move nothing).
+      Gloo's collectives go through host memory, not the fabric, so a gloo
+      mesh records 0 and installs no fabric slope: ``calibrated`` keeps
+      ``FABRIC_BW`` there.
     """
 
     def __init__(self, profile: Optional[Profile] = None):
@@ -159,6 +173,9 @@ class Profiler:
         work = [op for op in ops if not op.is_system()]
         info = BlockInfo.from_ops(ops)
         fabric = 0.0
+        if backend == "shard_map" and fabric_measured(ctx.mesh):
+            from ..dist.reshard import block_comm_bytes
+            fabric = block_comm_bytes(ops)
         sample = ProfileSample(
             backend=backend,
             sig=signature_digest(plan.signature),

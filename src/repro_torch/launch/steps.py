@@ -9,10 +9,11 @@ AdamW update with ``grad_scale = 1 / n_micro`` (the microbatch mean folded
 into the update, no whole-tree float32 copy).  The model rematerializes
 its layer groups when ``cfg.remat`` is set.
 
-What needs the mesh waits for it (ROADMAP A10b): the sharding pins of
-the accumulator, batch and activations, the partition specs of the
-parameters and moments, and the serve steps.  ``specs`` holds the
-parameters' and moments' shapes (``meta`` tensors) only.
+What needs the model on the mesh waits for it (ROADMAP A10b-iii): the
+sharding pins of the accumulator, batch and activations, the partition
+specs of the parameters and moments (the rules and ``params_specs`` are
+in ``repro_torch.distributed.sharding``), and the serve steps.  ``specs``
+holds the parameters' and moments' shapes (``meta`` tensors) only.
 """
 
 from __future__ import annotations

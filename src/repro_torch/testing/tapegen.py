@@ -11,8 +11,10 @@ is a *differential test*: every configuration must produce
 bitwise-identical results.  In ``exact=True`` mode the programs stay
 closed over low-granularity dyadic float64 data, so elementwise ops and
 reductions are exact and the answer does not depend on partition,
-tiling or summation order.  The reference's placement annotations
-(``sharded=True``) need the mesh, which is not ported yet (ROADMAP A10b).
+tiling or summation order.  ``sharded=True`` adds the reference's
+placement annotations: some whole-base arrays sharded over ``n_shards``
+and explicit placement casts, so the flush's resharding pass injects COMM
+ops.
 
 :class:`IterativeProgram` replays one seeded step recipe with a flush per
 step — the shape cross-flush loop fusion (``core/loop.py``) defers and
@@ -22,9 +24,13 @@ the reference's LM-shaped programs.
 Checks (each returns normally or raises ``AssertionError``):
 
 * ``check_graph`` — staged base-indexed ``build_graph`` produces identical
-  E_d/E_f to the O(V²) ``build_graph_reference`` oracle;
+  E_d/E_f to the O(V²) ``build_graph_reference`` oracle (sharded tapes are
+  run through ``insert_resharding`` first, exactly like a real flush);
 * ``check_exec``  — fused greedy torch and triton runs are bitwise
   identical to the unfused singleton torch floor;
+* ``check_dist``  — a COMM-inserting sharded program on a mesh of ranks
+  (``shard_map`` collectives) is bitwise identical to the same program on
+  one device; every rank of a process group calls it;
 * ``check_loop``  — loop-fused runs of an :class:`IterativeProgram` are
   bitwise identical to per-flush runs, on both stacks;
 * ``check_lm``    — the ``lm`` stack against the torch floor under the
@@ -66,24 +72,21 @@ class TapeProgram:
                 sizes below 64 are rounded up so both shapes exist).
     exact     : restrict to the dyadic/integer-valued opcode pool whose
                 results are bitwise partition-invariant (see module doc).
-    sharded   : the reference's placement annotations; the mesh is not
-                ported yet (ROADMAP A10b), so ``True`` raises
-                ``NotImplementedError``.
-    n_shards  : logical shard count (kept for the reference's signature).
+    sharded   : annotate some whole-base arrays as block-sharded over
+                ``n_shards`` logical shards and insert explicit placement
+                casts — the flush's resharding pass then injects COMM ops.
+    n_shards  : logical shard count (match the mesh size when executing on
+                a real mesh so the shard_map backend claims the blocks).
     """
 
     def __init__(self, seed: int, *, n_actions: int = 20, size: int = 64,
                  exact: bool = True, sharded: bool = False,
                  n_shards: int = 4):
-        if sharded:
-            raise NotImplementedError(
-                "sharded programs need the mesh, which is not ported yet "
-                "(ROADMAP A10b)")
         self.seed = int(seed)
         self.n_actions = int(n_actions)
         self.size = max(64, int(size) - int(size) % 8)
         self.exact = bool(exact)
-        self.sharded = False
+        self.sharded = bool(sharded)
         self.n_shards = int(n_shards)
 
     # -- the generator --------------------------------------------------
@@ -116,6 +119,11 @@ class TapeProgram:
 
         for kind in ("1d", "2d"):
             fresh(kind)
+        if self.sharded:
+            from ..core.dist import shard
+            for i, (a, kind, whole) in enumerate(pool):
+                if whole and rnd.random() < 0.8:
+                    shard(a, dim=0, n=self.n_shards)
         def pick(kind: Optional[str] = None):
             cands = [e for e in pool if kind is None or e[1] == kind]
             return cands[rnd.randrange(len(cands))] if cands else None
@@ -230,6 +238,17 @@ class TapeProgram:
                 m = a[:, 0:8]                  # opaque op: small matmul
                 r = bh.matmul(m.T.copy(), m.copy())
                 pool.append((r.reshape(64) % _MOD, "none", True))
+            elif act == 13 and self.sharded:
+                from ..core.dist import ShardSpec, reshard, spec_of
+                src = ent
+                if src[2]:
+                    s = spec_of(src[0].view.base)
+                    if s is None:
+                        spec = ShardSpec.for_dim(src[0].shape, 0, "dev",
+                                                 self.n_shards)
+                        pool.append((reshard(src[0], spec), src[1], True))
+                    else:
+                        pool.append((reshard(src[0], None), src[1], True))
             elif act == 14:                    # gather / take (indexed read)
                 # table = a 1-D program array; indices = another program
                 # array floored into [0, n) — selecting integer-valued
@@ -482,10 +501,15 @@ def _assert_bitwise(ref: Sequence[np.ndarray], got: Sequence[np.ndarray],
                 f"{r.reshape(-1)[bad]!r} vs {g.reshape(-1)[bad]!r}")
 
 
-def check_graph(seed: int, *, n_actions: int = 20, size: int = 64) -> None:
+def check_graph(seed: int, *, n_actions: int = 20, size: int = 64,
+                sharded: bool = False) -> None:
     """Staged graph builder == O(V²) reference oracle, edge for edge."""
     from ..core import build_graph, build_graph_reference
-    tape = TapeProgram(seed, n_actions=n_actions, size=size).record()
+    from ..core.dist import insert_resharding, tape_has_sharding
+    tape = TapeProgram(seed, n_actions=n_actions, size=size,
+                       sharded=sharded).record()
+    if tape_has_sharding(tape):
+        tape = insert_resharding(tape)
     a = build_graph(list(tape))
     b = build_graph_reference(list(tape))
     assert a.dep_out == b.dep_out, f"seed {seed}: E_d (out) differs"
@@ -504,6 +528,30 @@ def check_exec(seed: int, *, n_actions: int = 20, size: int = 64,
         got = prog.run(algorithm=algorithm, backend=backend, device=device)
         _assert_bitwise(ref, got,
                         f"seed {seed} [{algorithm}/{backend} vs singleton]")
+
+
+def check_dist(seed: int, *, n_actions: int = 20, size: int = 64,
+               n_dev: int = 0, device=None, backend="torch") -> None:
+    """Sharded COMM-inserting program: ``shard_map`` collectives on a mesh
+    of ``n_dev`` ranks (the world by default) == identity-copy COMM on one
+    device, bitwise; greedy under the ``comm`` model, on ``device`` (the
+    CUDA card unless given).  SPMD: every rank of the process group calls
+    it with the same arguments; with fewer than 2 ranks there is nothing to
+    compare.  Returns the mesh run's outputs (None without a mesh)."""
+    from ..core.dist import host_mesh
+    from ..core.dist.mesh import world_size
+    if n_dev <= 0:
+        n_dev = world_size()
+    if n_dev < 2:
+        return None                            # nothing to compare against
+    prog = TapeProgram(seed, n_actions=n_actions, size=size, exact=True,
+                       sharded=True, n_shards=n_dev)
+    ref = prog.run(algorithm="greedy", cost_model="comm", backend=backend,
+                   device=device)
+    got = prog.run(algorithm="greedy", cost_model="comm", backend=backend,
+                   device=device, mesh=host_mesh(n_dev, device=device))
+    _assert_bitwise(ref, got, f"seed {seed} [mesh({n_dev}) vs single-device]")
+    return got
 
 
 def check_loop(seed: int, *, n_actions: int = 6, size: int = 64,
@@ -703,8 +751,8 @@ def check_serve(seed: int, *, tenants: int = 4, requests: int = 2,
     return {"sessions": results, "served": out2}
 
 
-CHECKS = {"graph": check_graph, "exec": check_exec, "loop": check_loop,
-          "lm": check_lm, "serve": check_serve}
+CHECKS = {"graph": check_graph, "exec": check_exec, "dist": check_dist,
+          "loop": check_loop, "lm": check_lm, "serve": check_serve}
 
 
 def check_seed(seed: int, checks: Sequence[str] = ("graph", "exec"),
@@ -714,10 +762,14 @@ def check_seed(seed: int, checks: Sequence[str] = ("graph", "exec"),
     for name in checks:
         if name == "graph":
             check_graph(seed, n_actions=kw.get("n_actions", 20),
-                        size=kw.get("size", 64))
+                        size=kw.get("size", 64), sharded=bool(seed % 2))
         elif name == "exec":
             check_exec(seed, n_actions=kw.get("n_actions", 20),
                        size=kw.get("size", 64), device=device)
+        elif name == "dist":
+            check_dist(seed, n_actions=kw.get("n_actions", 20),
+                       size=kw.get("size", 64), n_dev=kw.get("n_dev", 0),
+                       device=device)
         elif name == "loop":
             check_loop(seed, n_actions=max(3, kw.get("n_actions", 20) // 3),
                        size=kw.get("size", 64), device=device)

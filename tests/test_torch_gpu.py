@@ -1968,3 +1968,43 @@ def test_checkpoint_restores_to_the_card(card, tmp_path):
     for (p, a), (_, b) in zip(_flatten(got), _flatten(tree)):
         assert a.device.type == "cuda" and a.dtype == b.dtype, p
         assert torch.equal(a, b), p
+
+
+def test_mesh_world_of_one_over_nccl(cuda):
+    """The mesh's production route on one card: a world of one over NCCL,
+    ``backend="triton"`` under ``comm``.  The reference's window, aligned
+    and reduction programs and three benchmark programs run bitwise to the
+    same runs without a mesh, B1 runs the blocks ``shard_map`` declines,
+    and a plan made under the mesh is keyed by its topology."""
+    import torch.distributed as tdist
+    from repro_torch.core import dist
+    from repro_torch.core import lazy as bh
+    from repro_torch.core.dist import host_mesh
+    from repro_torch.testing import mesh as tmesh
+    from repro_torch.testing.programs import BENCHMARKS
+    if tdist.is_initialized():
+        pytest.skip("a process group is already up")
+    mesh = host_mesh()
+    try:
+        assert mesh.device_type == "cuda"
+        assert tdist.get_backend(mesh.get_group()) == "nccl"
+        todo = {k: (lambda f=f: f(bh, dist, 1, 2 ** 16))
+                for k, f in tmesh.PROGRAMS.items()}
+        for k, args in (("black_scholes", (2, 4096)),
+                        ("game_of_life", (2, 64)),
+                        ("heat_equation", (2, 64))):
+            todo[k] = lambda f=BENCHMARKS[k], a=args: f(*a).numpy()
+        for name, fn in todo.items():
+            codegen.LAUNCHES["fused_block"] = 0
+            got = tmesh.run_once(fn, "cuda", True, backend="triton",
+                             cost_model="comm", mesh=mesh)
+            assert codegen.LAUNCHES["fused_block"] > 0, name
+            want = tmesh.run_once(fn, "cuda", True, backend="triton",
+                              cost_model="comm")
+            assert got["out"].tobytes() == want["out"].tobytes(), name
+            assert got["collectives"] == got["shard_map_blocks"] == 0
+        with bh.fresh_runtime(backend="triton", mesh=mesh) as rt:
+            assert rt.executor.topology_key() == (("dev", 1), "cuda")
+            assert rt.executor.backends == ("shard_map", "triton", "torch")
+    finally:
+        tdist.destroy_process_group()

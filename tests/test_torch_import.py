@@ -134,7 +134,21 @@ def _entry_points():
             + [f"--{k}={v}" for k, v in kw.items()]),
         "make_train_step": lambda **kw: _train_step(cfg, **kw),
         "train": _train,
+        "host_mesh": _host_mesh,
     }
+
+
+def _host_mesh(**kw):
+    """A mesh over a world of one (started here, then shut down)."""
+    import torch.distributed as tdist
+    from repro_torch.core.dist import host_mesh
+    started = not tdist.is_initialized()
+    try:
+        mesh = host_mesh(**kw)
+        assert mesh.device_type == "cpu" and mesh.size() == 1
+    finally:
+        if started and tdist.is_initialized():
+            tdist.destroy_process_group()
 
 
 def _train_step(cfg, **kw):
@@ -164,7 +178,7 @@ ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
                 "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
                 "LoweringContext", "init_cache", "init_params",
                 "reference_block", "Server", "Runtime.session", "serve",
-                "make_train_step", "train"]
+                "make_train_step", "train", "host_mesh"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -179,22 +193,28 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, name):
 
 
 def test_deferred_options_raise():
-    """What waits for the mesh (ROADMAP A10b) raises: its cost models are
-    unknown and sharded programs refuse to record.  Loop fusion (the
-    default) and the ILP partitioner are ported and run."""
+    """The mesh's options build and record: the ``comm`` model and
+    ``gpu_dist`` (the port's ``tpu_dist``), and sharded programs, whose
+    tapes carry placement annotations.  The TPU-named models stay unknown
+    (``tpu_fma`` is not ported, ROADMAP A10b-i).  Loop fusion (the default)
+    and the ILP partitioner run."""
     from repro_torch.core import lazy
     from repro_torch.core.cost import make_cost_model
+    from repro_torch.core.dist import tape_has_sharding
     from repro_torch.testing.tapegen import TapeProgram
     assert lazy.Runtime(device="cpu", loop_fusion=True)._loop is not None
     with lazy.fresh_runtime(device="cpu", partition_backend="ilp") as rt:
         x = lazy.ones(8) * 2.0
         assert x.numpy().tolist() == [2.0] * 8
         assert rt.history[-1]["ilp_status"] == "optimal"
-    for name in ("comm", "tpu_dist"):
+    assert make_cost_model("comm").name == "comm"
+    assert make_cost_model("comm").sparse_weights
+    assert make_cost_model("gpu_dist").name == "gpu_dist"
+    for name in ("tpu_dist", "tpu_fma"):
         with pytest.raises(ValueError, match="unknown cost model"):
             make_cost_model(name)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TapeProgram(0, sharded=True)
+    prog = TapeProgram(0, sharded=True)
+    assert prog.sharded and tape_has_sharding(prog.record())
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

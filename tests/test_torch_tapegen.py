@@ -65,9 +65,15 @@ def test_grammar_coverage():
 
 
 def test_sharded_programs_raise():
-    """The reference's sharded grammar needs the mesh (not ported)."""
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TapeProgram(0, sharded=True)
+    """The reference's sharded grammar records now that the mesh is ported
+    (it raised before): placement annotations on the tape, COMM ops after
+    the resharding pass, and the graph builders agree on the result."""
+    from repro_torch.core.dist import insert_resharding, tape_has_sharding
+    from repro_torch.core.ir import COMM_OPS
+    tape = TapeProgram(1, sharded=True).record()
+    assert tape_has_sharding(tape)
+    assert any(op.opcode in COMM_OPS for op in insert_resharding(tape))
+    check_graph(1, sharded=True)
 
 
 @pytest.mark.parametrize("seed", range(10))
@@ -113,8 +119,9 @@ def test_cli_sweep_smoke(capsys):
 
 def test_check_seed_names_unknown_checks():
     check_seed(1, ("graph",))
+    check_seed(1, ("dist",), device="cpu")    # one rank: nothing to compare
     with pytest.raises(ValueError, match="unknown check"):
-        check_seed(1, ("dist",), device="cpu")
+        check_seed(1, ("mesh",), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -373,14 +373,27 @@ def test_calibrated_is_monotone_under_fit():
 
 
 def test_calibrated_refuses_a_comm_block():
-    """The fabric term needs the resharding pass (ROADMAP A10b): a COMM op
-    raises instead of being priced at zero."""
+    """A COMM block is priced with the reference's fabric term (it raised
+    before the mesh was ported): ``gpu``'s price plus the block's unique
+    collective bytes times the fabric slope — ``1 / FABRIC_BW`` with no
+    fit, the fit's ``fabric_s_per_byte`` with one."""
+    from repro_torch.core.dist import ShardSpec, block_comm_bytes
     a = BaseArray(64, np.dtype(np.float64))
+    a.shard_spec = ShardSpec.for_dim((64,), 0, "dev", 4)
     o = BaseArray(64, np.dtype(np.float64))
     op = Op("comm_allgather", View.contiguous(o, (64,)),
             (View.contiguous(a, (64,)),), new_bases=frozenset({o}))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        make_cost_model("calibrated").block_cost(BlockInfo.from_op(op))
+    b = BlockInfo.from_op(op)
+    fabric = block_comm_bytes([op])
+    assert fabric == 3 * 64 * 8
+    gpu = make_cost_model("gpu").block_cost(b)
+    assert make_cost_model("calibrated", fit=None).block_cost(b) == \
+        pytest.approx(gpu + fabric / cost.FABRIC_BW, rel=1e-15)
+    fit = CalibratedFit(launch_s={}, hbm_slope_s={},
+                        hbm_s_per_byte=1.0 / cost.HBM_BW,
+                        fabric_s_per_byte=1e-9)
+    assert make_cost_model("calibrated", fit=fit).block_cost(b) == \
+        pytest.approx(gpu + fabric * 1e-9, rel=1e-15)
 
 
 def _tie_block():
