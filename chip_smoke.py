@@ -315,7 +315,33 @@ collectives and fabric bytes below unfused on the window program, then
 ``check_dist`` on ``MESH_SEEDS`` at ``MESH_SEED_SIZE`` elements (the torch
 floor).  Each run's line prints its warm wall, blocks per backend,
 ``shard_map`` blocks, collectives and interconnect bytes; (a)'s B1
-launches join the ``kernels`` line.
+launches join the ``kernels`` line.  (c) The model on the mesh
+(``launch/mesh.py``, ``launch/steps.py``'s ``make_train_step(cfg, mesh)``
+and ``make_serve_steps``; every parameter and moment a DTensor, kernels
+B3, B5, B6 and B7 on each rank's local shards through
+``models.layers.sharded_call``).  (c1) A world of one over NCCL
+(``make_host_mesh()``, (1, 1)): Qwen3-4B at full width and 36 layers
+from TRAIN's weights, batch and lr, ``MESH_TRAIN_STEPS`` steps: the
+first loss bitwise to TRAIN's first, the second within
+``TRAIN_REPLAY_RTOL`` of TRAIN's second, B3 launched 288 times a step
+and its first call held against its plain version; then Qwen3-4B at 36
+layers and Jamba-v0.1 and RWKV6-3B at 2 layers served through
+``make_serve_steps`` (``MESH_SERVE``), every logit within
+``FAMILY_RTOL`` of the mesh-less model's on the same tokens, B3, B5, B6
+and B7 counted and a first call of each held against its plain version.
+(c2) ``MESH_RANKS`` ranks on the one card at ``MESH_GRID``
+(``testing.mesh.spawn`` with ``pg_backend="hoststaged"``: every
+collective copies to host memory and runs gloo's, so its walls are not a
+fabric's): Qwen3-4B at full width and ``MESH_C2_LAYERS`` layers, a
+warm-up and a timed train step (``testing.mesh.model_suite``), every
+rank's loss within ``TRAIN_LOSS_RTOL`` of the one-rank run at the same
+depth and B3 launched layers x microbatches x 2 times a step, the serve
+steps within ``FAMILY_RTOL``; ``pipeline_apply`` of ``MESH_PIPE`` over
+(4, 1) against the stages composed in order; ``reshard_params`` through
+a checkpoint from (4, 1) to (2, 2), bitwise.  Each rank prints its step
+ms, peak memory and its collectives by kind (``CommDebugMode``) and
+bytes (the staged group's own count).  Part (c)'s launches join the
+``kernels`` line.
 
 Last it prints a ``kernels`` JSON line (B1-B7; B3's entry is its
 largest-bound case, since the FAMILY phase a served Gemma2-9B layer, and
@@ -529,6 +555,28 @@ MESH_REPS = 5
 MESH_RANKS = 4
 MESH_SEEDS = tuple(range(8))
 MESH_SEED_SIZE = 2 ** 20
+#: the MESH phase's part (c), the model on the mesh.  (c1) a world of one:
+#: Qwen3-4B trained as TRAIN trains it (its weights, batch and lr) for
+#: MESH_TRAIN_STEPS steps, then served (batch, prompt tokens, decode
+#: steps) at all 36 layers, and MESH_SERVED served at 2 layers the same
+#: way.  (c2) MESH_RANKS ranks on the one card at MESH_GRID over ("data",
+#: "model"), their collectives staged through the host: Qwen3-4B at full
+#: width and MESH_C2_LAYERS layers trained on batch x seq tokens in one
+#: microbatch (a warm-up step, then a timed one) and served (batch, prompt,
+#: decode steps); the pipeline of MESH_PIPE (d, microbatches, rows a
+#: microbatch; weights N(0, 1/d), a gain of about 1 a stage) over (4, 1)
+#: ("pod", "data"); the elastic re-shard of
+#: MESH_ELASTIC_LAYERS layers' groups through a checkpoint
+MESH_TRAIN_STEPS = 2
+MESH_SERVE = (2, 512, 8)
+MESH_SERVED = ("jamba-v0.1-52b", "rwkv6-3b")
+MESH_GRID = (2, 2)
+MESH_C2_LAYERS = 2
+MESH_C2_TRAIN = (4, 256)
+MESH_C2_SERVE = (2, 256, 4)
+MESH_PIPE = (2560, 8, 16)
+MESH_ELASTIC = ((4, 1), (2, 2))
+MESH_ELASTIC_LAYERS = 1
 SERVE_WINDOW_S, SERVE_MAX_BATCH = 0.002, 4
 
 
@@ -2356,13 +2404,13 @@ class MoeDrops:
     def __enter__(self):
         from repro_torch.models.layers import MOE_GROUP_TOKENS, moe_route
 
-        def spy(p, x, cfg):
+        def spy(p, x, cfg, **kw):
             if len(self.shares) < self.n:
                 s_g = min(x.shape[1], MOE_GROUP_TOKENS)
                 r = moe_route(p, x.reshape(-1, s_g, x.shape[-1]), cfg)
                 self.shares.append(float(1 - r["keep"].sum()
                                          / r["chosen"].sum()))
-            return self.orig(p, x, cfg)
+            return self.orig(p, x, cfg, **kw)
 
         self.T.moe = spy
         return self
@@ -3945,7 +3993,7 @@ def run_train(lazy, codegen) -> dict:
                              "bitwise to the floor")
     print(f"TRAIN phase: {time.perf_counter() - t_start:.1f}s", flush=True)
     return {"launches": launches, "row": row, "max_abs_err": max(held),
-            "b1_launches": tape["launches"]}
+            "b1_launches": tape["launches"], "losses": losses}
 
 
 def _mesh_line(label: str, run: dict, extra: str = "") -> None:
@@ -4062,15 +4110,327 @@ def _mesh_world_of_one(lazy, codegen) -> int:
     return b1
 
 
-def run_mesh(lazy, codegen) -> int:
+def _mesh_hold(rec_b3=None, rec_b5=None, rec_rw=()) -> dict:
+    """The first recorded call of each kernel on the mesh path (each rank's
+    local shards) against its plain version: name -> (err, share)."""
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    held = {}
+    if rec_b3 is not None and 0 in rec_b3.calls:
+        args, _, out = rec_b3.calls[0]
+        held["flash_attention"] = _b3_hold(args, out)
+    if rec_b5 is not None and 0 in rec_b5.calls:
+        args, kw, out = rec_b5.calls[0]
+        held["mamba_scan"] = _b5_hold(args, kw, out)
+    for name, rec, plain in rec_rw:
+        if 0 not in rec.calls:
+            continue
+        args, kw, out = rec.calls[0]
+        o, st = out
+        po, pst = plain(*args, state=kw["state"], return_state=True)
+        eo, so = _hold(o, po, BF16_RTOL if o.dtype == torch.bfloat16
+                       else 0.0, MODEL_TOL[name])
+        es, ss = _hold(st, pst, 0.0, MODEL_TOL[name])
+        held[name] = (max(eo, es), max(so, ss))
+    for name, (err, share) in held.items():
+        if not share <= 1.0:
+            raise AssertionError(f"MESH {name} on the mesh: {share:.3g}x "
+                                 "its allowance against the plain version")
+    return held
+
+
+def _mesh_serve_pair(cfg, sp, mesh, toks, n_dec):
+    """``make_serve_steps`` on ``mesh`` and the mesh-less model's eager
+    ``serve_prefill`` / ``serve_decode`` (what ``serve_requests`` replays
+    as graphs) on the same tokens: the mesh-less run picks each decode
+    token greedily and the mesh run is fed it.  Returns the largest
+    difference over the largest magnitude of every step's logits, whether
+    all were bitwise, and the mesh path's launches and wall seconds."""
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.launch.steps import make_serve_steps
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import mesh as tmesh
+    max_seq = toks.shape[1] + n_dec
+    prefill, decode, specs = make_serve_steps(cfg, mesh, max_seq,
+                                              toks.shape[0])
+    want, wc = T.serve_prefill(sp, toks, cfg, max_seq)
+    wants, tokens = [want], []
+    for _ in range(n_dec):
+        tokens.append(want[:, -1].argmax(-1)[:, None])
+        want, wc = T.serve_decode(sp, wc, tokens[-1], cfg)
+        wants.append(want)
+    del wc
+    dsp = shard_tree(sp, specs["params"], mesh)
+    tmesh.zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, gc = prefill(dsp, {"tokens": toks})
+    gots = [got.full_tensor()]
+    for tok in tokens:
+        got, gc = decode(dsp, gc, tok)
+        gots.append(got.full_tensor())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tmesh.kernel_launches()
+    rel = max(float((g - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(gots, wants))
+    same = all(torch.equal(g, w) for g, w in zip(gots, wants))
+    if not all(torch.isfinite(g).all() for g in gots):
+        raise AssertionError(f"MESH {cfg.name}: a served logit is not finite")
+    return rel, same, counts, wall
+
+
+def _mesh_model_world_of_one(train_losses) -> dict:
+    """Part (c1): the model on a world of one over NCCL (see the module
+    doc).  Returns each kernel's launches and the largest held error."""
+    import torch.distributed as tdist
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_scan import ops as rw_ops
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import OptState
+    from repro_torch.testing import mesh as tmesh
+    if tdist.is_initialized():
+        raise AssertionError("MESH (c1): a process group is already up")
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    launches = dict.fromkeys(tmesh.kernel_launches(), 0)
+    held = {}
+    try:
+        if tdist.get_backend(mesh.get_group(0)) != "nccl" or \
+                tuple(mesh.shape) != (1, 1):
+            raise AssertionError(f"MESH (c1): the host mesh is {mesh}")
+        cfg = _train_config()
+        step, specs = make_train_step(cfg, mesh, num_microbatches=TRAIN_MICRO,
+                                      peak_lr=TRAIN_LR, warmup=1,
+                                      total_steps=TRAIN_TOTAL)
+        params, opt = _train_state(cfg, 40)
+        params = shard_tree(params, specs["params"], mesh)
+        opt = OptState(opt.step, shard_tree(opt.m, specs["opt"].m, mesh),
+                       shard_tree(opt.v, specs["opt"].v, mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        losses, times, counts = [], [], []
+        with OpRecorder(fa_ops, "attention", {0}) as rec:
+            for s in range(MESH_TRAIN_STEPS):
+                tmesh.zero_launches()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                params, opt, m = step(params, opt, data.batch_at(s))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                counts.append(tmesh.kernel_launches()["flash_attention"])
+                losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches["flash_attention"] += sum(counts)
+        held.update(_mesh_hold(rec_b3=rec))
+        del params, opt, rec, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = 2 * cfg.n_layers * TRAIN_MICRO
+        rel = abs(losses[1] - train_losses[1]) / abs(train_losses[1])
+        print(f"MESH (c1) nccl-1 train {cfg.name} {cfg.n_layers} layers "
+              f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"batch={TRAIN_BATCH}x{TRAIN_SEQ} microbatches={TRAIN_MICRO}: "
+              f"step ms {[round(t, 1) for t in times]} (TRAIN's main path "
+              f"above without a mesh); losses {losses} against TRAIN's "
+              f"{train_losses[:MESH_TRAIN_STEPS]}: first bitwise="
+              f"{losses[0] == train_losses[0]}, second rel diff {rel:.3g} "
+              f"(tolerance {TRAIN_REPLAY_RTOL}); B3 launches a step {counts} "
+              f"(want {want}); B3's first call on the mesh against its plain "
+              f"version max_abs_err={held['flash_attention'][0]:.3g} "
+              f"allowance share={held['flash_attention'][1]:.3f}; peak "
+              f"{peak:.2f} GiB allocated", flush=True)
+        if losses[0] != train_losses[0] or not rel <= TRAIN_REPLAY_RTOL \
+                or counts != [want] * MESH_TRAIN_STEPS:
+            raise AssertionError("MESH (c1): the train step on the mesh "
+                                 "differs from TRAIN's")
+        batch, prompt, n_dec = MESH_SERVE
+        for name, layers in ((TRAIN_ARCH, None),) + tuple(
+                (n, 2) for n in MESH_SERVED):
+            from repro_torch.configs import get_config
+            c = get_config(name)
+            c = c if layers is None else c.scaled(n_layers=layers)
+            sp, _ = _family_weights(c, 43)
+            gen = torch.Generator(device="cuda").manual_seed(44)
+            toks = torch.randint(0, c.vocab_size, (batch, prompt),
+                                 generator=gen, device="cuda")
+            recs = [OpRecorder(fa_ops, "attention", {0}),
+                    OpRecorder(ms_ops, "mamba", {0}),
+                    OpRecorder(rw_ops, "rwkv6_chunked", {0}),
+                    OpRecorder(rw_ops, "rwkv6", {0})]
+            with contextlib.ExitStack() as stack:
+                for r in recs:
+                    stack.enter_context(r)
+                rel, same, n, wall = _mesh_serve_pair(c, sp, mesh, toks,
+                                                      n_dec)
+            part = _mesh_hold(recs[0], recs[1], (
+                ("rwkv6_chunked", recs[2], reference_rwkv6_chunked),
+                ("rwkv6_scan", recs[3], reference_rwkv6)))
+            for k, v in part.items():
+                held[k] = max(held.get(k, (0.0, 0.0)), v)
+            for k in launches:
+                launches[k] += n[k]
+            tol = FAMILY_RTOL[str(c.compute_dtype).removeprefix("torch.")]
+            print(f"MESH (c1) nccl-1 serve {c.name} {c.n_layers} layers "
+                  f"{batch}x{prompt} + {n_dec} decode steps through "
+                  f"make_serve_steps: logits vs the mesh-less model max "
+                  f"|diff|/max|logit| {rel:.3g} (tolerance {tol}), bitwise="
+                  f"{same}; launches {n}; held {part}; {wall * 1e3:.1f} ms "
+                  f"(eager)", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"MESH (c1) {c.name}: served logits "
+                                     "differ from the mesh-less model's")
+            del sp
+            gc.collect()
+            torch.cuda.empty_cache()
+        for k in ("mamba_scan", "rwkv6_scan", "rwkv6_chunked"):
+            if launches[k] == 0:
+                raise AssertionError(f"MESH (c1): {k} never launched")
+    finally:
+        tdist.destroy_process_group()
+    print(f"MESH (c1) {time.perf_counter() - t0:.1f}s", flush=True)
+    return {"launches": launches, "held": held}
+
+
+def _mesh_model_ranks() -> dict:
+    """Part (c2): the model on ``MESH_RANKS`` host-staged ranks of the one
+    card (see the module doc).  Returns each kernel's launches over the
+    ranks."""
+    import tempfile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.testing import mesh as tmesh
+    t0 = time.perf_counter()
+    cfg = _train_config(MESH_C2_LAYERS)
+    b, seq = MESH_C2_TRAIN
+    data = SyntheticLM(cfg, b, seq, seed=0)
+    batches = [data.batch_at(s) for s in range(2)]
+    train_kw = dict(num_microbatches=1, peak_lr=TRAIN_LR, warmup=1,
+                    total_steps=TRAIN_TOTAL)
+    sb, sprompt, sdec = MESH_C2_SERVE
+    rng = np.random.default_rng(45)
+    serve = {"tokens": rng.integers(0, cfg.vocab_size, (sb, sprompt)),
+             "decode": rng.integers(0, cfg.vocab_size, (sb, sdec))}
+    # the one-rank run at the same depth, on the same weights
+    step, _ = make_train_step(cfg, **train_kw)
+    params = tmesh._weights(cfg, 46, "cuda")
+    opt = adamw_init(params, state_dtype=cfg.opt_state_dtype)
+    want = []
+    for batch in batches:
+        params, opt, m = step(params, opt, batch)
+        want.append(float(m["loss"]))
+    del opt
+    sp = T.serving_params(tmesh._weights(cfg, 46, "cuda"), cfg)
+    del params
+    toks = torch.as_tensor(serve["tokens"], device="cuda")
+    max_seq = sprompt + sdec
+    logits, cache = T.serve_prefill(sp, toks, cfg, max_seq)
+    wlog = [logits.float().cpu().numpy()]
+    for j in range(sdec):
+        logits, cache = T.serve_decode(
+            sp, cache, torch.as_tensor(serve["decode"][:, j:j + 1],
+                                       device="cuda"), cfg)
+        wlog.append(logits.float().cpu().numpy())
+    del sp, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, m_pipe, rows = MESH_PIPE
+    (ROOT / "build").mkdir(exist_ok=True)
+    # four ranks share the card: their allocators grow segments in place
+    # rather than each holding fragments of its own
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ranks = tmesh.spawn(tmesh.run_suites, MESH_RANKS, device="cuda",
+                            pg_backend="hoststaged", jobs=[
+            ("model_suite", dict(cfg=cfg, weights=46, shape=MESH_GRID,
+                                 batches=batches, train_kw=train_kw,
+                                 serve=serve, keep_params=False)),
+            ("pipeline_suite", dict(shape=(MESH_RANKS, 1), d=d, m=m_pipe,
+                                    rows=rows, scale=d ** -0.5)),
+            ("elastic_suite", dict(
+                cfg=_train_config(MESH_ELASTIC_LAYERS), weights=47,
+                shapes=MESH_ELASTIC, directory=tmp, keys=("groups",),
+                keep_leaves=False))])
+    launches = dict.fromkeys(tmesh.kernel_launches(), 0)
+    tol = FAMILY_RTOL["bfloat16"]
+    n_b3 = 2 * MESH_C2_LAYERS
+    for r, (res, pipe, el) in enumerate(ranks):
+        rel = max(abs(g - w) / abs(w) for g, w in zip(res["losses"], want))
+        srel = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+                   for g, w in zip([res["prefill"]] + res["decode"], wlog))
+        b3 = [n["flash_attention"] for n in res["launches"]]
+        for n in res["launches"] + [res["serve_launches"]]:
+            for k in launches:
+                launches[k] += n[k]
+        comm = "; ".join(
+            f"{phase}: {res['comm'][phase]} staged "
+            f"{ {k: v for k, v in res['staged'][phase].items() if v[0]} }"
+            for phase in res["comm"])
+        print(f"MESH (c2) rank {r} of {MESH_RANKS} at {MESH_GRID} (host-"
+              f"staged) {cfg.name} {cfg.n_layers} layers {b}x{seq} one "
+              f"microbatch: step ms warm-up {res['step_ms'][0]:.1f} timed "
+              f"{res['step_ms'][1]:.1f}; losses {res['losses']} vs one "
+              f"rank {want} rel diff {rel:.3g} (tolerance {TRAIN_LOSS_RTOL}"
+              f"); B3 launches a step {b3} (want {n_b3}); serve {sb}x"
+              f"{sprompt} + {sdec} decode steps max |diff|/max|logit| "
+              f"{srel:.3g} (tolerance {tol}); peak {res['peak_gib']:.2f} GiB "
+              f"allocated; collectives by kind (CommDebugMode) and staged "
+              f"[calls, bytes] by phase: {comm}; pipeline {MESH_PIPE} over "
+              f"({MESH_RANKS}, 1) max |diff| {pipe['err']:.3g} wall "
+              f"{pipe['wall_s'] * 1e3:.1f} ms; elastic {MESH_ELASTIC} "
+              f"bitwise={el['bitwise']}", flush=True)
+        if not (rel <= TRAIN_LOSS_RTOL and b3 == [n_b3] * len(batches)
+                and srel <= tol and pipe["err"] <= 2e-5 and el["bitwise"]):
+            raise AssertionError(f"MESH (c2) rank {r}: outside its "
+                                 "tolerances")
+    print(f"MESH (c2) {time.perf_counter() - t0:.1f}s with the spawn",
+          flush=True)
+    return {"launches": launches}
+
+
+def _train_losses() -> list:
+    """TRAIN's main path's first ``MESH_TRAIN_STEPS`` losses (its weights,
+    batches and lr, no mesh), for part (c1) when the phase runs alone."""
+    from repro_torch.data import SyntheticLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_config()
+    params, opt = _train_state(cfg, 40)
+    step = _train_step(cfg)
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses = []
+    for s in range(MESH_TRAIN_STEPS):
+        params, opt, m = step(params, opt, data.batch_at(s))
+        losses.append(float(m["loss"]))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def run_mesh(lazy, codegen, train_losses=None) -> dict:
     """The MESH phase: (a) a world of one over NCCL in this process, every
     program under the mesh bitwise to the same run without one and its
     plans keyed by the topology; (b) ``MESH_RANKS`` ranks spawned on the
     one card over gloo (collectives staged through the host), the window,
     aligned and reduction programs at ``MESH_SIZE`` bitwise to the
     single-device run on each rank, fused collectives and bytes below
-    unfused, and ``check_dist`` on ``MESH_SEEDS``.  Returns B1's launches
-    in (a)'s mesh runs."""
+    unfused, and ``check_dist`` on ``MESH_SEEDS``; (c) the model on the
+    mesh, (c1) a world of one and (c2) ``MESH_RANKS`` host-staged ranks.
+    Returns B1's launches in (a)'s mesh runs and B3, B5, B6 and B7's in
+    (c), with the largest error of (c)'s held calls.  ``train_losses``:
+    TRAIN's first losses, which (c1) must reproduce (run again when the
+    phase runs alone)."""
     from repro_torch.testing import mesh as tmesh
     t0 = time.perf_counter()
     b1 = _mesh_world_of_one(lazy, codegen)
@@ -4098,7 +4458,14 @@ def run_mesh(lazy, codegen) -> int:
           f"check_dist seeds {MESH_SEEDS[0]}-{MESH_SEEDS[-1]} at "
           f"{MESH_SEED_SIZE} elements bitwise; phase (a) {t1 - t0:.1f}s, "
           f"(b) {t2 - t1:.1f}s with the spawn", flush=True)
-    return b1
+    one = _mesh_model_world_of_one(train_losses or _train_losses())
+    torch.cuda.empty_cache()
+    ranks = _mesh_model_ranks()
+    launches = {k: one["launches"][k] + ranks["launches"][k]
+                for k in one["launches"]}
+    print(f"MESH (c) launches on the mesh path: {launches}; phase "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"b1": b1, "launches": launches, "held": one["held"]}
 
 
 def _model_entry(name, route, source, replaces, res) -> dict:
@@ -4229,7 +4596,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches = run_serve(lazy, codegen)
     torch.cuda.empty_cache()
-    mesh_launches = run_mesh(lazy, codegen)
+    mesh = run_mesh(lazy, codegen, train["losses"])
+    for name, n in mesh["launches"].items():
+        model["launches"][name] += n
+    for name, (err, _) in mesh["held"].items():
+        for row in model["cases"][name]:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
     kernels = {"kernels": [{
         "name": "fused_block",
         "route": "triton",
@@ -4237,7 +4609,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
                      + loop["launches"] + a7_launches + serve_launches
-                     + train["b1_launches"] + mesh_launches),
+                     + train["b1_launches"] + mesh["b1"]),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],
         "plain_ms": overall["plain_ms"],

@@ -12,6 +12,12 @@
   path (in place of the reference's treedef string) and dtype; ``restore``
   puts every leaf on the device and dtype of the matching leaf of the
   tree it is given;
+* mesh-elastic: a DTensor leaf (the model on a mesh) is saved whole, its
+  full tensor gathered on every rank; rank 0 writes, blocking, and the
+  other ranks wait at a barrier until the checkpoint is published (every
+  rank calls ``save``, SPMD).  ``restore`` places each leaf as its
+  like-leaf is placed, on the like-leaf's mesh: a re-shard onto any mesh
+  (the reference's ``device_put`` against each like-leaf's sharding);
 * retention: keep the last ``keep`` checkpoints, delete older ones.
 
 A tree is nested dicts, lists, tuples and named tuples (``OptState``) over
@@ -62,10 +68,18 @@ def _rebuild(like, leaves: Iterator):
     return next(leaves)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _to_host(x) -> np.ndarray:
-    """A copy of ``x`` in host memory (bfloat16 as its 16 bits, int16)."""
+    """A copy of ``x`` in host memory (bfloat16 as its 16 bits, int16); a
+    DTensor's full tensor (a collective)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if _is_dtensor(x):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             x = x.view(torch.int16)
         return x.to("cpu", copy=True).numpy()
@@ -94,32 +108,41 @@ class CheckpointManager:
         paths = [p for p, _ in flat]
         dtypes = [_dtype_name(x) for _, x in flat]
         host_leaves = [_to_host(x) for _, x in flat]
-
-        def _write():
-            tmp = os.path.join(self.dir, f"step_{step}.tmp")
-            final = os.path.join(self.dir, f"step_{step}")
-            os.makedirs(tmp, exist_ok=True)
-            np.savez(os.path.join(tmp, "leaves.npz"),
-                     **{f"leaf_{i}": a for i, a in enumerate(host_leaves)})
-            with open(os.path.join(tmp, "meta.json"), "w") as f:
-                json.dump({"step": step, "n_leaves": len(host_leaves),
-                           "paths": paths, "dtypes": dtypes,
-                           "time": time.time()}, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.rename(tmp, final)         # atomic publish
-            self._gc()
+        if any(_is_dtensor(x) for _, x in flat):
+            # a tree on a mesh: every rank gathered it; one rank writes
+            import torch.distributed as tdist
+            try:
+                if tdist.get_rank() == 0:
+                    self._write(step, paths, dtypes, host_leaves)
+            finally:                  # a failed write raises on rank 0
+                tdist.barrier()       # without stranding the others
+            return
 
         if self.async_save and not blocking:
             def _run():
                 try:
-                    _write()
+                    self._write(step, paths, dtypes, host_leaves)
                 except BaseException as e:    # raised again by wait()
                     self._error = e
             self._thread = threading.Thread(target=_run, daemon=True)
             self._thread.start()
         else:
-            _write()
+            self._write(step, paths, dtypes, host_leaves)
+
+    def _write(self, step, paths, dtypes, host_leaves) -> None:
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "leaves.npz"),
+                 **{f"leaf_{i}": a for i, a in enumerate(host_leaves)})
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "n_leaves": len(host_leaves),
+                       "paths": paths, "dtypes": dtypes,
+                       "time": time.time()}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)         # atomic publish
+        self._gc()
 
     def wait(self) -> None:
         """Block until the save in flight (if any) is published; raises
@@ -140,7 +163,8 @@ class CheckpointManager:
         """Restore checkpoint ``step`` (the latest if None) into the
         structure of ``like``: each leaf a tensor on the device and in the
         dtype of ``like``'s leaf at the same key path (a non-tensor leaf
-        of ``like`` gives a CPU tensor of the saved dtype)."""
+        of ``like`` gives a CPU tensor of the saved dtype); where that leaf
+        is a DTensor, a DTensor on its mesh with its placements."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -160,7 +184,12 @@ class CheckpointManager:
             t = torch.from_numpy(h)
             if dtype == "bfloat16":
                 t = t.view(torch.bfloat16)
-            if isinstance(ref, torch.Tensor):
+            if _is_dtensor(ref):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(
+                    t.to(device=ref.device_mesh.device_type,
+                         dtype=ref.dtype), ref.device_mesh, ref.placements)
+            elif isinstance(ref, torch.Tensor):
                 t = t.to(device=ref.device, dtype=ref.dtype)
             out.append(t)
         return step, _rebuild(like, iter(out))

@@ -15,6 +15,10 @@ holding its contiguous chunk (:func:`as_sharded`); everything else is a
 whole tensor on every rank.  :func:`all_gather` is the one collective
 (``all_gather_into_tensor``); under gloo it stages a CUDA tensor through
 the host, as gloo gathers host memory only.
+
+:class:`HostStagedGroup` (backend :data:`HOST_STAGED`) does the same for
+every collective DTensor issues (the model on a mesh, ``launch/steps.py``)
+when several ranks share one card: NCCL refuses two ranks a device.
 """
 
 from __future__ import annotations
@@ -85,9 +89,203 @@ def topology_key(mesh) -> Tuple:
 
 def host_staged(mesh) -> bool:
     """Whether the mesh's collectives stage through the host: CUDA data
-    over gloo (the functional check of several ranks on one card)."""
-    return (mesh.device_type == "cuda"
-            and tdist.get_backend(mesh.get_group()) == "gloo")
+    over gloo or :data:`HOST_STAGED` (the functional check of several
+    ranks on one card)."""
+    return (mesh.device_type == "cuda" and tdist.get_backend(
+        mesh.get_all_groups()[0]) in ("gloo", HOST_STAGED))
+
+
+#: the backend name of :class:`HostStagedGroup`
+HOST_STAGED = "hoststaged"
+
+#: what this process's :class:`HostStagedGroup` collectives moved: kind ->
+#: ``[calls, bytes]``, the bytes of this rank's inputs (a measurement of
+#: the staged path, not of a fabric)
+STAGED = {}
+
+
+def _count(kind: str, tensors) -> None:
+    entry = STAGED.setdefault(kind, [0, 0])
+    entry[0] += 1
+    entry[1] += sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _done(result=None):
+    """A finished ``Work`` (the collective ran synchronously)."""
+    from torch._C._distributed_c10d import _create_work_from_future
+    fut = torch.futures.Future()
+    fut.set_result(result)
+    return _create_work_from_future(fut)
+
+
+class HostStagedGroup(tdist.ProcessGroup):
+    """A process group whose collectives copy CUDA tensors to host memory,
+    run gloo's collective there and copy the results back: several ranks
+    on one card, where NCCL refuses two ranks a device and gloo's own
+    collectives do not all take CUDA tensors.  DTensor's collectives (the
+    model on a mesh) reach it through the backend's name,
+    :data:`HOST_STAGED` (:func:`register_host_staged`).  Every collective
+    is synchronous; its walls are host copies and gloo, not a fabric."""
+
+    def __init__(self, store, rank: int, size: int, timeout):
+        super().__init__(rank, size)
+        self._gloo = tdist.ProcessGroupGloo(store, rank, size, timeout)
+
+    def getBackendName(self) -> str:
+        return HOST_STAGED
+
+    @property
+    def group_name(self) -> str:
+        return tdist.distributed_c10d._world.pg_names[self]
+
+    @staticmethod
+    def _host(ts):
+        return [t.detach().cpu() if t.is_cuda else t for t in ts]
+
+    @staticmethod
+    def _back(dsts, hosts) -> None:
+        for d, h in zip(dsts, hosts):
+            if d is not h:
+                d.copy_(h)
+
+    def allreduce(self, tensors, opts=None):
+        _count("all_reduce", tensors)
+        hosts = self._host(tensors)
+        self._gloo.allreduce(hosts, opts or tdist.AllreduceOptions()).wait()
+        self._back(tensors, hosts)
+        return _done(tensors)
+
+    def allreduce_coalesced(self, tensors, opts=None):
+        return self.allreduce(tensors)
+
+    def barrier(self, opts=None):
+        self._gloo.barrier(opts or tdist.BarrierOptions()).wait()
+        return _done()
+
+    def broadcast(self, tensors, opts=None):
+        _count("broadcast", tensors)
+        hosts = self._host(tensors)
+        self._gloo.broadcast(hosts, opts or tdist.BroadcastOptions()).wait()
+        self._back(tensors, hosts)
+        return _done(tensors)
+
+    def allgather(self, output_lists, inputs, opts=None):
+        _count("all_gather", inputs)
+        outs = [self._host(o) for o in output_lists]
+        self._gloo.allgather(outs, self._host(inputs)).wait()
+        for dsts, hosts in zip(output_lists, outs):
+            self._back(dsts, hosts)
+        return _done(output_lists)
+
+    def _allgather_base(self, output, input, opts=None):
+        self.allgather([list(output.chunk(self.size()))], [input])
+        return _done(output)
+
+    all_gather_single = _allgather_base
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._allgather_base(o, i)
+        return _done(outputs)
+
+    all_gather_single_coalesced = allgather_into_tensor_coalesced
+
+    def _reduce_scatter_base(self, output, input, opts=None):
+        """The sum over every rank of ``input``, this rank's chunk of it
+        kept (an all-reduce on the host, then a slice)."""
+        _count("reduce_scatter", [input])
+        whole = input.detach().cpu().clone()
+        red = tdist.AllreduceOptions()
+        if opts is not None:
+            red.reduceOp = opts.reduceOp
+        self._gloo.allreduce([whole], red).wait()
+        output.copy_(whole.chunk(self.size())[self.rank()])
+        return _done(output)
+
+    reduce_scatter_single = _reduce_scatter_base
+
+    def reduce_scatter(self, outputs, input_lists, opts=None):
+        for o, ins in zip(outputs, input_lists):
+            self._reduce_scatter_base(o, torch.cat([t.reshape(-1)
+                                                    for t in ins]), opts)
+        return _done(outputs)
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self._reduce_scatter_base(o, i, opts)
+        return _done(outputs)
+
+    reduce_scatter_single_coalesced = reduce_scatter_tensor_coalesced
+
+    def alltoall_base(self, output, input, output_splits, input_splits,
+                      opts=None):
+        _count("all_to_all", [input])
+        host_out = output.detach().cpu() if output.is_cuda else output
+        self._gloo.alltoall_base(host_out, input.detach().cpu(),
+                                 output_splits or [], input_splits or [],
+                                 tdist.AllToAllOptions()).wait()
+        self._back([output], [host_out])
+        return _done(output)
+
+    all_to_all_single = alltoall_base
+
+    def alltoall(self, outputs, inputs, opts=None):
+        _count("all_to_all", inputs)
+        host_out = self._host(outputs)
+        self._gloo.alltoall(host_out, self._host(inputs),
+                            tdist.AllToAllOptions()).wait()
+        self._back(outputs, host_out)
+        return _done(outputs)
+
+    def scatter(self, outputs, input_lists, opts=None):
+        _count("scatter", outputs)
+        host_out = self._host(outputs)
+        self._gloo.scatter(host_out, [self._host(i) for i in input_lists],
+                           opts or tdist.ScatterOptions()).wait()
+        self._back(outputs, host_out)
+        return _done(outputs)
+
+    def gather(self, output_lists, inputs, opts=None):
+        outs = [self._host(o) for o in output_lists]
+        self._gloo.gather(outs, self._host(inputs),
+                          opts or tdist.GatherOptions()).wait()
+        for dsts, hosts in zip(output_lists, outs):
+            self._back(dsts, hosts)
+        return _done(output_lists)
+
+    def send(self, tensors, dst: int, tag: int = 0):
+        _count("send", tensors)
+        # not waited for: a ring of sends (a pipeline's hop) completes only
+        # once every rank has posted its receive
+        return self._gloo.send(self._host(tensors), dst, tag)
+
+    def recv(self, tensors, src: int, tag: int = 0):
+        hosts = self._host(tensors)
+        return _Received(self._gloo.recv(hosts, src, tag), tensors, hosts)
+
+
+class _Received(tdist.Work):
+    """A staged receive: gloo's, then the host copies written back to the
+    CUDA tensors when it is waited for."""
+
+    def __init__(self, work, tensors, hosts):
+        super().__init__()
+        self._work, self._tensors, self._hosts = work, tensors, hosts
+
+    def wait(self, timeout=None) -> bool:
+        self._work.wait()
+        HostStagedGroup._back(self._tensors, self._hosts)
+        return True
+
+
+def register_host_staged() -> None:
+    """Make :data:`HOST_STAGED` a backend ``init_process_group`` takes
+    (once a process)."""
+    if HOST_STAGED.upper() in tdist.Backend._plugins:
+        return
+    tdist.Backend.register_backend(
+        HOST_STAGED, lambda store, rank, size, timeout: HostStagedGroup(
+            store, rank, size, timeout), devices=["cpu", "cuda"])
 
 
 def all_gather(local: torch.Tensor, mesh) -> torch.Tensor:

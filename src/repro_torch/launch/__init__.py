@@ -1,2 +1,3 @@
-"""Launchers: the port of ``repro/launch`` for one card (the model on the
-mesh, ``launch/mesh.py``, waits for ROADMAP A10b-iii)."""
+"""Launchers: the port of ``repro/launch``: the meshes (``mesh.py``), the
+train and serve steps with their partition specs (``steps.py``) and the
+train and serve entry points, on one card or on a ``DeviceMesh``."""

@@ -1,7 +1,7 @@
-"""Batched serving launcher on one card: prefill a batch of ragged requests,
-decode greedily, report per-phase timings — the port of
-``repro/launch/serve.py`` without its mesh (the model runs whole on one
-device).
+"""Batched serving launcher: prefill a batch of ragged requests, decode
+greedily, report per-phase timings — the port of ``repro/launch/serve.py``,
+on one card or, when a process group of more than one rank is up (as
+under ``torchrun``), on the host mesh of its ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         --requests 8 --new-tokens 16
@@ -23,6 +23,12 @@ full-size run calls :func:`serve_requests` with its own config and
 weights.  Every config of ``configs/`` is served: attention, MoE, Mamba
 (the SSM state carried from the prefill into every decode step) and RWKV6
 layers.
+
+On a mesh (``serve_requests(..., mesh=)``) the steps are
+``launch.steps.make_serve_steps``' prefill and decode, run eagerly (a
+DTensor's collectives are not captured in a CUDA graph), with the weights
+placed by ``RULES_SERVE`` and the caches by ``cache_specs``; every rank
+serves the same requests.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import torch
 from ..configs import ARCHS, get_config
 from ..core.cuda_graph import capture
 from ..core.device import resolve_device
+from ..distributed.sharding import shard_tree
+from ..launch.mesh import launcher_mesh
 from ..models.config import ModelConfig
 from ..models.layers import MOE_GROUP_TOKENS
 from ..models.transformer import (encode, init_params, serve_decode,
@@ -235,9 +243,38 @@ def _batch_rows(x, start: int, batch: int, shape, dtype, device):
     return out
 
 
+class _MeshSteps:
+    """:class:`PrefillStep` and :class:`DecodeStep`'s calls on a mesh:
+    ``make_serve_steps``' eager prefill and decode over the weights placed
+    by its specs, the greedy pick from the whole logits."""
+
+    def __init__(self, params, cfg: ModelConfig, mesh, max_seq: int,
+                 batch: int):
+        from .steps import make_serve_steps
+        self._prefill, self._decode, specs = make_serve_steps(
+            cfg, mesh, max_seq, batch)
+        self.params = shard_tree(params, specs["params"], mesh)
+        self.mesh, self.cfg = mesh, cfg
+
+    def encode(self, frames):
+        from .steps import _mesh_scope
+        with _mesh_scope(self.mesh):
+            return encode(self.params, frames, self.cfg)
+
+    def prefill(self, toks, max_seq, *, enc_out=None, patch_embeds=None):
+        inputs = {"tokens": torch.as_tensor(toks), "enc_out": enc_out,
+                  "patch_embeds": patch_embeds}
+        logits, caches = self._prefill(self.params, inputs)
+        return logits, _greedy(logits.full_tensor()), caches
+
+    def step(self, caches, token, *, enc_out=None):
+        logits, caches = self._decode(self.params, caches, token, enc_out)
+        return logits, _greedy(logits.full_tensor()), caches
+
+
 def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
                    max_prompt: int, new_tokens: int, graph=None,
-                   frames=None, patch_embeds=None):
+                   frames=None, patch_embeds=None, mesh=None):
     """Serve ``prompts`` (1-D int arrays, each at most ``max_prompt`` long)
     in batches of ``batch`` on the device ``params`` lie on: left-pad each
     batch to ``max_prompt``, prefill, then ``new_tokens - 1`` greedy decode
@@ -256,7 +293,9 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
     are cast once (:func:`serving_params`), which leaves every logit
     bitwise.  A MoE model routes the padded prompt in groups of
     ``min(S, 512)`` tokens, so ``max_prompt`` must be at most 512 or a
-    multiple of it."""
+    multiple of it.  With ``mesh`` (every rank calls it with the same
+    arguments) the steps run eagerly on the mesh (:class:`_MeshSteps`);
+    the times' ``prefill`` and ``step`` are then None."""
     validate_config(cfg)
     if cfg.moe is not None and max_prompt > MOE_GROUP_TOKENS \
             and max_prompt % MOE_GROUP_TOKENS:
@@ -266,10 +305,18 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
     params = serving_params(params, cfg)
     device = params["embed"].device
     cd = cfg.compute_dtype
-    prefill = PrefillStep(params, cfg, graph=graph)
-    step = DecodeStep(params, cfg, graph=graph)
     vlm = cfg.family == "vlm"
     max_seq = max_prompt + new_tokens + (cfg.n_patches if vlm else 0)
+    if mesh is None:
+        prefill = PrefillStep(params, cfg, graph=graph)
+        step = DecodeStep(params, cfg, graph=graph)
+
+        def run_encoder(fr):
+            return encode(params, fr, cfg)
+    else:
+        on_mesh = _MeshSteps(params, cfg, mesh, max_seq, batch)
+        prefill, step, run_encoder = (on_mesh.prefill, on_mesh.step,
+                                      on_mesh.encode)
     tokens, times = [], []
     for start in range(0, len(prompts), batch):
         group = prompts[start:start + batch]
@@ -285,7 +332,7 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
                              (cfg.n_patches, cfg.d_model), cd, device)
         _sync(device)
         t0 = time.perf_counter()
-        enc_out = None if fr is None else encode(params, fr, cfg)
+        enc_out = None if fr is None else run_encoder(fr)
         _, tok, cache = prefill(toks, max_seq, enc_out=enc_out,
                                 patch_embeds=pe)
         _sync(device)
@@ -300,7 +347,9 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
         gen = torch.cat(outs, dim=1).cpu().numpy()
         tokens.extend(gen[:len(group)])
         times.append({"batch": len(group), "prefill_s": prefill_s,
-                      "decode_s": steps, "prefill": prefill, "step": step})
+                      "decode_s": steps,
+                      "prefill": prefill if mesh is None else None,
+                      "step": step if mesh is None else None})
     return tokens, times
 
 
@@ -321,6 +370,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     validate_config(cfg)
     device = resolve_device(args.device)
+    mesh = launcher_mesh(device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     prompts = draw_prompts(args.seed, args.requests, args.max_prompt,
@@ -328,7 +378,7 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     tokens, times = serve_requests(cfg, params, prompts, batch=args.batch,
                                    max_prompt=args.max_prompt,
-                                   new_tokens=args.new_tokens)
+                                   new_tokens=args.new_tokens, mesh=mesh)
     for t in times:
         decode_s = sum(t["decode_s"])
         rate = args.new_tokens * t["batch"] / (t["prefill_s"] + decode_s)

@@ -1,14 +1,19 @@
-"""End-to-end training driver: the port of ``repro/launch/train.py`` on
-one device (the CUDA card unless ``--device`` names another).
+"""End-to-end training driver: the port of ``repro/launch/train.py``, on
+one device (the CUDA card unless ``--device`` names another) or, when a
+process group of more than one rank is up, on the host mesh of its ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --smoke --steps 50 --batch 8 --seq 128 [--device cpu]
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train ...
 
 Microbatched gradient accumulation in bfloat16, 8-bit AdamW, the cosine
 schedule, remat where the config sets it, async atomic checkpointing with
 restart-on-failure (``FaultTolerantLoop``), the straggler watchdog and
 deterministic step-indexed data.  Weights come from ``init_params`` with a
-``torch.Generator`` seeded ``--seed`` on the device.
+``torch.Generator`` seeded ``--seed`` on the device.  On a mesh (``(n,
+1)`` over ``("data", "model")``, ``launch/mesh.py``; ``torchrun``'s
+environment starts the group) every rank draws the same weights and
+places them by the train step's specs; checkpoints are written by rank 0.
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ from ..checkpoint.manager import CheckpointManager
 from ..configs import ARCHS, get_config
 from ..core.device import resolve_device
 from ..data.pipeline import SyntheticLM
+from ..distributed.sharding import shard_tree
+from ..launch.mesh import launcher_mesh
 from ..launch.steps import make_train_step
 from ..models.transformer import init_params, validate_config
-from ..optim.adamw import adamw_init
+from ..optim.adamw import OptState, adamw_init
 from ..runtime.fault import FaultTolerantLoop, StragglerWatchdog
 
 
@@ -55,17 +62,24 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     validate_config(cfg)
     device = resolve_device(args.device)
+    mesh = launcher_mesh(device)
+    where = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else device
     print(f"[train] arch={cfg.name} params≈{cfg.n_params()/1e6:.1f}M "
-          f"device={device}")
+          f"{'mesh' if mesh else 'device'}={where}")
 
-    train_step, _ = make_train_step(
-        cfg, num_microbatches=args.microbatches,
+    train_step, specs = make_train_step(
+        cfg, mesh, num_microbatches=args.microbatches,
         peak_lr=args.lr, warmup=min(20, args.steps // 5 + 1),
         total_steps=args.steps, opt_state_dtype=args.opt_state, device=device)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     opt_state = adamw_init(params, state_dtype=args.opt_state)
+    if mesh is not None:
+        params = shard_tree(params, specs["params"], mesh)
+        opt_state = OptState(
+            opt_state.step, shard_tree(opt_state.m, specs["opt"].m, mesh),
+            shard_tree(opt_state.v, specs["opt"].v, mesh))
     data = SyntheticLM(cfg, args.batch, args.seq, seed=args.seed)
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=2)

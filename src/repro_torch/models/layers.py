@@ -17,6 +17,15 @@ kernel B3 and every Mamba scan kernel B5; on the CPU the reference's own
 ``_dense_attn`` / ``_chunked_attn`` and the scan's plain version
 (``reference_mamba``).
 
+On a mesh (the model's parameters as DTensors, ``launch/steps.py``) the
+kernels' call sites (B3 in ``_attend``, B5 in ``mamba_mixer``, B6 and B7
+in ``rwkv_mixer``) run on each rank's local shards through ``local_map``
+(:func:`sharded_call`), the einsums as each rank's local einsum
+(:func:`einsum`), and the KV cache's write rank by rank; everything else
+is DTensor's own propagation.  The logical sharding axes of each layer's
+leaves (``RMSNORM_AXES``, :func:`attention_axes`, ``MLP_AXES``,
+:func:`moe_axes`, ``MAMBA_AXES``, ``RWKV_AXES``) are the reference's.
+
 On the CPU ``tests/test_torch_family_attention.py`` holds ``attention``
 feature by feature (ring caches included) and the MLP against the JAX
 package, ``tests/test_torch_family_moe_mamba.py`` ``moe`` and
@@ -63,6 +72,12 @@ def init_rmsnorm(d: int, dtype: torch.dtype, device) -> Params:
     return {"g": torch.zeros((d,), dtype=dtype, device=device)}
 
 
+#: the logical sharding axes of each layer's leaves, as the reference's
+#: ``init_*`` return them beside the parameters (the names
+#: ``distributed.sharding``'s rules map to mesh axes)
+RMSNORM_AXES = {"g": ("embed",)}
+
+
 def rmsnorm(p: Params, x: torch.Tensor, *, eps=1e-6,
             plus_one=True) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -98,6 +113,154 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Kernels on a mesh
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def sharded_call(fn, args, roles, out_roles):
+    """``fn(*args)`` on each rank's local shards, through ``local_map``:
+    how kernels B3, B5, B6 and B7 run on a mesh.  ``args`` are DTensors,
+    plain tensors (taken as replicated) or None; ``roles`` gives each
+    argument's ``(batch dim, channel dim)`` (heads or channels; either may
+    be None), ``out_roles`` each output's.  Each mesh dimension keeps the
+    first DTensor argument's sharding where it shards that argument's
+    batch or channel dim and every argument with that role divides evenly
+    over it (query and KV heads alike, so each rank's query heads read its
+    own KV heads); every other mesh dimension is replicated.  The
+    arguments are redistributed to that plan before the call, so ``fn``
+    sees whole rows of each of its heads or channels and the kernel the
+    local shapes it takes; the outputs come back as DTensors of the same
+    plan.  Returns one output or a tuple, as ``fn`` does."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lead = next(i for i, a in enumerate(args) if isinstance(a, DTensor))
+    mesh = args[lead].device_mesh
+    plan = []
+    for pl in args[lead].placements:
+        role = None
+        if isinstance(pl, Shard):
+            role = next((r for r in (0, 1) if roles[lead][r] == pl.dim), None)
+        plan.append(role)
+    for r in (0, 1):
+        ways = math.prod(mesh.size(i) for i, p in enumerate(plan) if p == r)
+        if any(a is not None and ro[r] is not None and a.shape[ro[r]] % ways
+               for a, ro in zip(args, roles)):
+            plan = [None if p == r else p for p in plan]
+
+    def placements(role):
+        return [Replicate() if p is None or role[p] is None
+                else Shard(role[p]) for p in plan]
+
+    def grad_placements(role):
+        # an argument without the sharded role gets each rank's partial
+        # sum of its gradient (B5's b and c over the channels, its a and d
+        # over the batch rows)
+        return [Replicate() if p is None else Partial() if role[p] is None
+                else Shard(role[p]) for p in plan]
+
+    ins, in_pl, grad_pl = [], [], []
+    for a, role in zip(args, roles):
+        if a is None:
+            ins.append(None)
+            in_pl.append(None)
+            grad_pl.append(None)
+            continue
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = placements(role)
+        if list(a.placements) != want:
+            a = a.redistribute(mesh, want)
+        ins.append(a)
+        in_pl.append(want)
+        grad_pl.append(grad_placements(role))
+    outs = [placements(role) for role in out_roles]
+    return local_map(fn, out_placements=outs[0] if len(outs) == 1
+                     else tuple(outs), in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=mesh)(*ins)
+
+
+def einsum(eq: str, *ops) -> torch.Tensor:
+    """``torch.einsum``; on a mesh (a DTensor operand) each rank's own
+    einsum over its local shards (:func:`_sharded_einsum`).  Plain tensors
+    take ``torch.einsum`` itself, so the one-card paths are unchanged."""
+    if any(_is_dtensor(o) for o in ops):
+        return _sharded_einsum(eq, ops)
+    return torch.einsum(eq, *ops)
+
+
+def _sharded_einsum(eq: str, ops) -> torch.Tensor:
+    """An einsum of DTensors (plain operands taken as replicated) as each
+    rank's local einsum, through ``local_map``.  Each mesh dimension
+    shards one index letter in every operand that has it (an operand
+    without it is replicated there) or none; the output is sharded on that
+    letter, or partial where the letter is contracted.  The letter is the
+    one some operand is already sharded on that costs the fewest elements
+    to redistribute (keeping an operand's partial sum where the others are
+    replicated), so the einsum never flattens a sharded dimension (which
+    DTensor's own decomposition refuses).  The gradients come back sharded
+    as their operands, or partial where an operand lacks the letter."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ins, out = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    mesh = next(o for o in ops if isinstance(o, DTensor)).device_mesh
+    ops = [o if isinstance(o, DTensor) else DTensor.from_local(
+        o, mesh, [Replicate()] * mesh.ndim, run_check=False) for o in ops]
+    size = {l: n for sub, o in zip(subs, ops) for l, n in zip(sub, o.shape)}
+    ways: Dict[str, int] = {}
+    targets = [[] for _ in ops]
+    grads = [[] for _ in ops]
+    out_pl = []
+    for md in range(mesh.ndim):
+        cur = [o.placements[md] for o in ops]
+        partial = [i for i, p in enumerate(cur) if p.is_partial()]
+        if len(partial) == 1 and all(p.is_replicate() for i, p in
+                                     enumerate(cur) if i != partial[0]):
+            for i in range(len(ops)):       # keep the one partial sum
+                targets[i].append(cur[i])
+                grads[i].append(Replicate() if i == partial[0]
+                                else Partial())
+            out_pl.append(Partial())
+            continue
+        n = mesh.size(md)
+        options = [sub[p.dim] for sub, p in zip(subs, cur) if p.is_shard()]
+        options = [l for l in dict.fromkeys(options)
+                   if size[l] % (ways.get(l, 1) * n) == 0] + [None]
+
+        def cost(letter):
+            want = [Shard(sub.index(letter)) if letter is not None
+                    and letter in sub else Replicate() for sub in subs]
+            return (sum(o.numel() for o, p, w in zip(ops, cur, want)
+                        if p != w), letter is None or letter not in out)
+
+        letter = min(options, key=cost)
+        if letter is not None:
+            ways[letter] = ways.get(letter, 1) * n
+        for i, sub in enumerate(subs):
+            has = letter is not None and letter in sub
+            targets[i].append(Shard(sub.index(letter)) if has
+                              else Replicate())
+            grads[i].append(Shard(sub.index(letter)) if has
+                            else Partial() if letter is not None
+                            else Replicate())
+        out_pl.append(Replicate() if letter is None
+                      else Shard(out.index(letter)) if letter in out
+                      else Partial())
+    ops = [o if list(o.placements) == t else o.redistribute(mesh, t)
+           for o, t in zip(ops, targets)]
+    return local_map(lambda *a: torch.einsum(eq, *a), out_placements=out_pl,
+                     in_placements=tuple(targets),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*ops)
+
+
+# ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
@@ -121,6 +284,17 @@ def init_attention(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
+def attention_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+          "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias:
+        ax.update({"bq": ("heads",), "bk": ("kv_heads",),
+                   "bv": ("kv_heads",)})
+    if cfg.qk_norm:
+        ax.update({"q_norm": (None,), "k_norm": (None,)})
+    return ax
+
+
 #: above this many queries the reference chunks the query axis
 #: (:func:`_chunked_attn`); on the card kernel B3 takes every length
 DENSE_ATTN_MAX_SEQ = 8192
@@ -137,9 +311,9 @@ def _mask(qpos, kpos, causal: bool, window: Optional[int]) -> torch.Tensor:
     mask = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
                       device=qpos.device)
     if causal:
-        mask &= kpos <= qpos
+        mask = mask & (kpos <= qpos)
     if window is not None:
-        mask &= kpos > qpos - window
+        mask = mask & (kpos > qpos - window)
     return mask
 
 
@@ -153,14 +327,14 @@ def _dense_attn(q, k, v, *, causal: bool, window: Optional[int],
     if kvh != h:
         k = torch.repeat_interleave(k, h // kvh, dim=2)
         v = torch.repeat_interleave(v, h // kvh, dim=2)
-    sc = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
+    sc = einsum("bshd,bthd->bhst", q.to(torch.float32),
                       k.to(torch.float32)) * scale
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
     mask = _mask(torch.arange(s, device=q.device)[:, None],
                  torch.arange(t, device=q.device)[None, :], causal, window)
     sc = torch.where(mask[None, None], sc, NEG_INF)
-    o = torch.einsum("bhst,bthd->bshd", _softmax(sc), v.to(torch.float32))
+    o = einsum("bhst,bthd->bshd", _softmax(sc), v.to(torch.float32))
     return o.to(q.dtype)
 
 
@@ -181,7 +355,7 @@ def _chunked_attn(q, k, v, *, causal: bool, window: Optional[int],
         qi = q[:, start:start + chunk]
         n = qi.shape[1]
         qg = qi.transpose(1, 2).reshape(b, kvh, group, n, d)
-        sc = torch.einsum("bkgqd,bktd->bkgqt", qg.to(torch.float32),
+        sc = einsum("bkgqd,bktd->bkgqt", qg.to(torch.float32),
                           kg) * scale
         if softcap is not None:
             sc = softcap * torch.tanh(sc / softcap)
@@ -189,7 +363,7 @@ def _chunked_attn(q, k, v, *, causal: bool, window: Optional[int],
         sc = torch.where(_mask(qpos, kpos, causal, window)[None, None, None],
                          sc, NEG_INF)
         p = torch.exp(sc - torch.amax(sc, dim=-1, keepdim=True))
-        o = torch.einsum("bkgqt,bktd->bkgqd", p, vg)
+        o = einsum("bkgqt,bktd->bkgqd", p, vg)
         o = o / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
         outs.append(o.reshape(b, h, n, d).transpose(1, 2))
     return torch.cat(outs, dim=1).to(q.dtype)
@@ -201,8 +375,13 @@ def _attend(q, k, v, *, causal: bool, window: Optional[int],
     keys and values: on the card kernel B3 (``flash_attention.ops``) over
     ``(B, H, S, hd)`` contiguous copies, at any length; on the CPU the
     reference's own arithmetic, :func:`_dense_attn` up to
-    :data:`DENSE_ATTN_MAX_SEQ` queries and :func:`_chunked_attn` above."""
+    :data:`DENSE_ATTN_MAX_SEQ` queries and :func:`_chunked_attn` above.
+    On a mesh (DTensor inputs) each rank runs it on its own batch rows and
+    heads (:func:`sharded_call`)."""
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if _is_dtensor(q):
+        return sharded_call(lambda *a: _attend(*a, **opts), (q, k, v),
+                            ((0, 2),) * 3, ((0, 2),))
     if q.device.type == "cpu":
         fn = _dense_attn if q.shape[1] <= DENSE_ATTN_MAX_SEQ \
             else _chunked_attn
@@ -210,6 +389,17 @@ def _attend(q, k, v, *, causal: bool, window: Optional[int],
     o = fa_ops.attention(*(z.transpose(1, 2).contiguous() for z in (q, k, v)),
                          causal, window, softcap, scale)
     return o.transpose(1, 2)
+
+
+def _cache_write(cache, at, new):
+    """``cache`` ``(B, T, Hkv, hd)`` with ``new`` written at positions
+    ``at``; on a mesh each rank writes its own rows and KV heads (DTensor
+    has no rule for ``index_copy``)."""
+    if _is_dtensor(cache):
+        return sharded_call(lambda c, a, n: c.index_copy(1, a, n),
+                            (cache, at, new), ((0, 2), (None, None), (0, 2)),
+                            ((0, 2),))
+    return cache.index_copy(1, at, new)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -232,13 +422,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     softcap = cfg.attn_softcap or None
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = torch.einsum("bsd,dh->bsh", x, p["wq"].to(x.dtype))
+    q = einsum("bsd,dh->bsh", x, p["wq"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
     q = q.reshape(b, s, h, hd)
     src = x if kv_src is None else kv_src.to(x.dtype)
-    k = torch.einsum("bsd,dh->bsh", src, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dh->bsh", src, p["wv"].to(x.dtype))
+    k = einsum("bsd,dh->bsh", src, p["wk"].to(x.dtype))
+    v = einsum("bsd,dh->bsh", src, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
@@ -267,8 +457,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             slot = torch.remainder(idx, t) if ring else idx
             at = (slot + torch.arange(s, device=x.device)).long()
-            ck = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
-            cv = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
+            ck = _cache_write(cache["k"], at, k.to(cache["k"].dtype))
+            cv = _cache_write(cache["v"], at, v.to(cache["v"].dtype))
         new_cache = {"k": ck, "v": cv, "idx": idx + s}
         if s > 1:
             # a prompt (idx == 0) attends over its own k/v
@@ -288,15 +478,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             # the device (no host copy, so the step can be captured)
             sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32,
                                  device=x.device)
-            sc = torch.einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
+            sc = einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
                               ck.to(torch.float32)) / sqrt_hd
             if softcap is not None:
                 sc = softcap * torch.tanh(sc / softcap)
             sc = torch.where(valid[None, None, None], sc, NEG_INF)
-            o = torch.einsum("bkgqt,btkd->bkgqd", _softmax(sc),
+            o = einsum("bkgqt,btkd->bkgqd", _softmax(sc),
                              cv.to(torch.float32))
             o = o.reshape(b, h, s, hd).transpose(1, 2).to(x.dtype)
-    out = torch.einsum("bsh,hd->bsd", o.reshape(b, s, h * hd),
+    out = einsum("bsh,hd->bsd", o.reshape(b, s, h * hd),
                        p["wo"].to(x.dtype))
     return out, new_cache
 
@@ -314,14 +504,18 @@ def init_mlp(gen: Optional[torch.Generator], cfg: ModelConfig,
             "w_down": _init(gen, (f, d), pd, device)}
 
 
+MLP_AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+            "w_down": ("ffn", "embed")}
+
+
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``act(x w_gate) · (x w_up)`` then ``w_down``: silu, or ``gelu`` as
     ``jax.nn.gelu`` computes it by default, the tanh approximation."""
-    t = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
+    t = einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
+    u = einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     g = t * torch.sigmoid(t) if cfg.act == "silu" else \
         torch.nn.functional.gelu(t, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", g * u, p["w_down"].to(x.dtype))
+    return einsum("bsf,fd->bsd", g * u, p["w_down"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +537,16 @@ def init_moe(gen: Optional[torch.Generator], cfg: ModelConfig,
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> Dict:
+    ax = {"router": ("embed", None),
+          "w_gate": ("expert", "embed", "expert_ffn"),
+          "w_up": ("expert", "embed", "expert_ffn"),
+          "w_down": ("expert", "expert_ffn", "embed")}
+    if cfg.moe.n_shared_experts:
+        ax["shared"] = dict(MLP_AXES)
+    return ax
+
+
 #: GShard-style routing group: expert capacity is set per group of this
 #: many tokens, so the dispatch tensor grows linearly with the sequence
 MOE_GROUP_TOKENS = 512
@@ -358,7 +562,7 @@ def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig) -> Dict:
     m = cfg.moe
     e, k = m.n_experts, m.top_k
     cap = int(m.capacity_factor * xg.shape[1] * k / e) + 1
-    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32),
+    logits = einsum("gsd,de->gse", xg.to(torch.float32),
                           p["router"].to(torch.float32))
     probs = _softmax(logits)
     gate_vals, idx = torch.topk(probs, k)                  # (g, s, k)
@@ -370,11 +574,11 @@ def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig) -> Dict:
     chosen = onehot.sum(2)                                 # (g, s, e) 0/1
     pos = torch.cumsum(chosen, dim=1) - chosen
     return {"logits": logits, "probs": probs, "chosen": chosen,
-            "gate": torch.einsum("gsk,gske->gse", gate_vals, onehot),
+            "gate": einsum("gsk,gske->gse", gate_vals, onehot),
             "keep": chosen * (pos < cap), "pos": pos, "cap": cap}
 
 
-def moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     """Returns ``(y, aux_loss)``: the reference's grouped dispatch and
     combine.  Tokens route within groups of ``min(s, 512)`` (``s`` must be
     a multiple of it); each expert takes at most ``int(capacity_factor ·
@@ -391,12 +595,21 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig):
     dispatch = (r["keep"][..., None] * (r["pos"][..., None] == slot)).to(
         x.dtype)                                           # (g, s, e, cap)
     combine = dispatch * r["gate"][..., None].to(x.dtype)
-    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)
-    t = torch.einsum("egcd,edf->egcf", xin, p["w_gate"].to(x.dtype))
+    if constrain is not None:
+        dispatch = constrain("moe_dispatch", dispatch)
+        combine = constrain("moe_dispatch", combine)
+    xin = einsum("gsec,gsd->egcd", dispatch, xg)
+    if constrain is not None:
+        # the dispatched tokens sharded over the experts, as the expert
+        # weights are: the weights are never gathered
+        xin = constrain("moe_expert", xin)
+    t = einsum("egcd,edf->egcf", xin, p["w_gate"].to(x.dtype))
     h = t * torch.sigmoid(t)
-    h = h * torch.einsum("egcd,edf->egcf", xin, p["w_up"].to(x.dtype))
-    out = torch.einsum("egcf,efd->egcd", h, p["w_down"].to(x.dtype))
-    y = torch.einsum("gsec,egcd->gsd", combine, out).reshape(b, s, d)
+    h = h * einsum("egcd,edf->egcf", xin, p["w_up"].to(x.dtype))
+    out = einsum("egcf,efd->egcd", h, p["w_down"].to(x.dtype))
+    if constrain is not None:
+        out = constrain("moe_expert", out)
+    y = einsum("gsec,egcd->gsd", combine, out).reshape(b, s, d)
     if "shared" in p:
         y = y + mlp(p["shared"], x, cfg)
     # aux losses: load balance (Switch) and the router's z-loss
@@ -434,6 +647,14 @@ def init_mamba(gen: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
+MAMBA_AXES = {"in_proj": ("embed", "mamba_inner"),
+              "conv_w": (None, "mamba_inner"), "conv_b": ("mamba_inner",),
+              "x_proj": ("mamba_inner", None),
+              "dt_proj": (None, "mamba_inner"),
+              "dt_bias": ("mamba_inner",), "a_log": ("mamba_inner", None),
+              "d": ("mamba_inner",), "out_proj": ("mamba_inner", "embed")}
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)`` (no linear cut-off, as
     ``F.softplus`` has)."""
@@ -453,7 +674,7 @@ def mamba_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     d_in = m.expand * d
     dtr = m.dt_rank or -(-d // 16)
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
+    xz = einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))
     xi, z = xz[..., :d_in], xz[..., d_in:]
     # the causal depthwise conv: the taps summed in order in the compute
     # dtype, then the bias, as the reference sums them
@@ -468,9 +689,9 @@ def mamba_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
         conv = conv + xpad[:, i:i + s] * p["conv_w"][i].to(xi.dtype)
     conv = conv + p["conv_b"].to(xi.dtype)
     xc = conv * torch.sigmoid(conv)
-    proj = torch.einsum("bsi,ie->bse", xc, p["x_proj"].to(xc.dtype))
+    proj = einsum("bsi,ie->bse", xc, p["x_proj"].to(xc.dtype))
     dt = _softplus(
-        torch.einsum("bsr,ri->bsi", proj[..., :dtr],
+        einsum("bsr,ri->bsi", proj[..., :dtr],
                      p["dt_proj"].to(xc.dtype)).to(torch.float32)
         + p["dt_bias"].to(torch.float32))
     bb = proj[..., dtr:dtr + m.d_state].to(torch.float32)
@@ -478,20 +699,31 @@ def mamba_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     a = -torch.exp(p["a_log"].to(torch.float32))
     d_skip = p["d"].to(torch.float32)
     ssm = None if state is None else state["ssm"]
-    # B5 takes inputs of one dtype, contiguous: xc widened exactly (y in
-    # float32, rounded once below, as reference_mamba rounds it)
-    out = ms_ops.mamba(xc.to(torch.float32), dt.contiguous(),
-                       bb.contiguous(), cc.contiguous(), a.contiguous(),
-                       d_skip.contiguous(), state=ssm,
-                       return_state=state is not None,
-                       out_state=ssm if in_place else None)
+
+    def scan(xc, dt, bb, cc, a, d_skip, ssm):
+        # B5 takes inputs of one dtype, contiguous: xc widened exactly (y
+        # in float32, rounded once below, as reference_mamba rounds it)
+        return ms_ops.mamba(xc.to(torch.float32), dt.contiguous(),
+                            bb.contiguous(), cc.contiguous(), a.contiguous(),
+                            d_skip.contiguous(), state=ssm,
+                            return_state=ssm is not None,
+                            out_state=ssm if in_place else None)
+
+    args = (xc, dt, bb, cc, a, d_skip, ssm)
+    if _is_dtensor(xc):     # on a mesh: each rank's rows and d_inner
+        out = sharded_call(scan, args, ((0, 2), (0, 2), (0, None),
+                                        (0, None), (None, 0), (None, 0),
+                                        (0, 1)),
+                           ((0, 2),) if ssm is None else ((0, 2), (0, 1)))
+    else:
+        out = scan(*args)
     y, new_ssm = out if state is not None else (out, None)
     new_state = None
     if state is not None:
         new_state = {"conv": xpad[:, -(m.d_conv - 1):].to(
             state["conv"].dtype), "ssm": new_ssm}
     y = y.to(x.dtype) * (z * torch.sigmoid(z))
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
+    out = einsum("bsi,id->bsd", y, p["out_proj"].to(x.dtype))
     return out, new_state
 
 
@@ -521,6 +753,14 @@ def init_rwkv(gen: Optional[torch.Generator], cfg: ModelConfig,
     }
 
 
+RWKV_AXES = {"mix": (None, "embed"), "wr": ("embed", "heads"),
+             "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+             "wg": ("embed", "heads"), "wo": ("heads", "embed"),
+             "w0": ("embed",), "w_a": ("embed", None),
+             "w_b": (None, "embed"), "u": ("heads", None),
+             "ln_g": ("embed",)}
+
+
 def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
                state: Optional[Dict] = None, in_place: bool = False):
     """Returns ``(out, new_state)``; ``state`` (prefill and decode) is
@@ -539,37 +779,51 @@ def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     mix = torch.sigmoid(p["mix"].to(torch.float32))
     xm = [x * m + prev * (1 - m) for m in (mix[i].to(x.dtype)
                                            for i in range(5))]
-    r = torch.einsum("bsd,de->bse", xm[0], p["wr"].to(x.dtype))
-    k = torch.einsum("bsd,de->bse", xm[1], p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,de->bse", xm[2], p["wv"].to(x.dtype))
+    r = einsum("bsd,de->bse", xm[0], p["wr"].to(x.dtype))
+    k = einsum("bsd,de->bse", xm[1], p["wk"].to(x.dtype))
+    v = einsum("bsd,de->bse", xm[2], p["wv"].to(x.dtype))
     # data-dependent decay (low-rank), in float32: (x w_a) w_b, the order
     # the reference's einsum contracts in
-    lo = torch.einsum("bsd,dl->bsl", xm[3].to(torch.float32),
+    lo = einsum("bsd,dl->bsl", xm[3].to(torch.float32),
                       p["w_a"].to(torch.float32))
-    wlog = p["w0"].to(torch.float32) + torch.einsum(
+    wlog = p["w0"].to(torch.float32) + einsum(
         "bsl,le->bse", lo, p["w_b"].to(torch.float32))
     w = torch.exp(-torch.exp(wlog))                     # (B,S,d) in (0,1)
-    gl = torch.einsum("bsd,de->bse", xm[4], p["wg"].to(x.dtype))
+    gl = einsum("bsd,de->bse", xm[4], p["wg"].to(x.dtype))
     g = gl * torch.sigmoid(gl)
-
-    def split(z):
-        return z.reshape(b, s, heads, n).transpose(1, 2).reshape(
-            b * heads, s, n)
 
     u = p["u"].to(torch.float32)
     wkv = None if state is None else state["wkv"]
-    o, st = _rwkv_heads(split(r), split(k), split(v), split(w), u, b, heads,
-                        state=wkv, return_state=state is not None,
-                        out_state=wkv if in_place else None)
+
+    def recurrence(r, k, v, w, u, wkv):
+        b, heads = r.shape[0], u.shape[0]       # this rank's, on a mesh
+
+        def split(z):
+            return z.reshape(b, s, heads, n).transpose(1, 2).reshape(
+                b * heads, s, n)
+
+        o, st = _rwkv_heads(split(r), split(k), split(v), split(w), u, b,
+                            heads, state=wkv, return_state=wkv is not None,
+                            out_state=wkv if in_place else None)
+        o = o.reshape(b, heads, s, n).transpose(1, 2).reshape(b, s, -1)
+        return o if st is None else (o, st)
+
+    args = (r, k, v, w, u, wkv)
+    if _is_dtensor(r):      # on a mesh: each rank's rows and heads
+        out = sharded_call(recurrence, args, ((0, 2),) * 4 + ((None, 0),
+                                                              (0, 1)),
+                           ((0, 2),) if wkv is None else ((0, 2), (0, 1)))
+    else:
+        out = recurrence(*args)
+    o, st = out if wkv is not None else (out, None)
     new_state = None
     if state is not None:
         new_state = {"last": x[:, -1].to(state["last"].dtype), "wkv": st}
-    o = o.reshape(b, heads, s, n).transpose(1, 2).reshape(b, s, d)
     # per-head group norm
     oh = o.reshape(b, s, heads, n).to(torch.float32)
     oh = oh * torch.rsqrt(torch.mean(oh * oh, dim=-1, keepdim=True) + 1e-6)
     o = (oh.reshape(b, s, d) * p["ln_g"].to(torch.float32)).to(x.dtype)
-    out = torch.einsum("bsd,de->bse", o * g, p["wo"].to(x.dtype))
+    out = einsum("bsd,de->bse", o * g, p["wo"].to(x.dtype))
     return out, new_state
 
 

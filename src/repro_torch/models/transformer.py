@@ -22,6 +22,12 @@ tied embeddings) and, for an encoder, ``encoder`` (stacked over its
 layers) and ``enc_norm``.  Layers run in a Python loop over that axis
 (the reference's ``lax.scan``).
 
+On a mesh the leaves are DTensors placed by their logical axes
+(:func:`param_axes`, :func:`abstract_params`); :func:`forward` and
+:func:`lm_loss` take the reference's ``constrain`` hook and
+:func:`serve_prefill` its ``pin_cache`` (``launch/steps.py`` passes them);
+without them nothing changes.
+
 Entry points: :func:`forward` (logits for a whole sequence),
 :func:`serve_prefill` (prompt → last-position logits and a filled cache:
 KV caches for attention, the conv inputs and SSM state for Mamba, the
@@ -41,9 +47,11 @@ import torch.utils.checkpoint
 
 from ..core.device import resolve_device
 from .config import ModelConfig
-from .layers import (attention, init_attention, init_mamba, init_mlp,
-                     init_moe, init_rmsnorm, init_rwkv, mamba_mixer, mlp,
-                     moe, rmsnorm, rwkv_mixer)
+from .layers import (MAMBA_AXES, MLP_AXES, RMSNORM_AXES, RWKV_AXES,
+                     _is_dtensor, attention, attention_axes, einsum,
+                     init_attention, init_mamba,
+                     init_mlp, init_moe, init_rmsnorm, init_rwkv,
+                     mamba_mixer, mlp, moe, moe_axes, rmsnorm, rwkv_mixer)
 
 Params = Dict[str, Any]
 
@@ -144,12 +152,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _build(cfg, generator, device)
 
 
-def abstract_params(cfg: ModelConfig) -> Params:
-    """The :func:`init_params` tree as ``meta`` tensors: shapes and dtypes,
-    no memory and no generator (the reference's ``abstract_params``
-    without its sharding axes)."""
+def _layer_axes(cfg: ModelConfig, mixer: str, ffn: str,
+                cross: bool = False) -> Params:
+    ax = {"norm1": RMSNORM_AXES,
+          "mixer": {"mamba": MAMBA_AXES, "rwkv": RWKV_AXES}.get(
+              mixer) or attention_axes(cfg)}
+    if cross:
+        ax["cross"] = attention_axes(cfg)
+        ax["norm_cross"] = RMSNORM_AXES
+    ax["norm2"] = RMSNORM_AXES
+    ax["ffn"] = moe_axes(cfg) if ffn == "moe" else MLP_AXES
+    return ax
+
+
+def _stacked(tree) -> Params:
+    """Each leaf's axes behind the leading ``"layers"`` axis of a stack."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical sharding axes of each leaf of :func:`init_params`' tree
+    (a tuple of names a leaf), as the reference's ``init_params`` returns
+    them beside the parameters."""
+    unit, _ = cfg.scan_groups()
+    cross = cfg.n_encoder_layers > 0
+    axes: Params = {"groups": _stacked({
+        f"l{i}": _layer_axes(cfg, mixer, ffn, cross=cross)
+        for i, (mixer, ffn) in enumerate(unit)})}
+    axes["embed"] = ("vocab_table", "embed_table")
+    axes["final_norm"] = RMSNORM_AXES
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.n_encoder_layers:
+        axes["encoder"] = _stacked(_layer_axes(cfg, "attn", "mlp"))
+        axes["enc_norm"] = RMSNORM_AXES
+    return axes
+
+
+def abstract_params(cfg: ModelConfig) -> Tuple[Params, Params]:
+    """``(shapes, axes)``: the :func:`init_params` tree as ``meta``
+    tensors (shapes and dtypes, no memory and no generator) and its
+    logical sharding axes (:func:`param_axes`), as the reference's
+    ``abstract_params`` returns them."""
     validate_config(cfg)
-    return _build(cfg, None, torch.device("meta"))
+    return _build(cfg, None, torch.device("meta")), param_axes(cfg)
 
 
 def params_from_numpy(tree, device=None) -> Params:
@@ -204,9 +252,10 @@ def serving_params(params, cfg: ModelConfig) -> Params:
 
 def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
                  positions, cache=None, enc_out=None, causal: bool = True,
-                 in_place: bool = False):
+                 in_place: bool = False, constrain=None):
     """One layer; returns ``(x, new_cache, aux)``: ``aux`` the MoE
-    router's loss, or None for a dense MLP."""
+    router's loss, or None for a dense MLP.  ``constrain`` goes to the MoE
+    layer (:func:`forward`)."""
     h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
     if mixer == "rwkv":
         a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
@@ -226,7 +275,7 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
         x = x + c
     h = rmsnorm(lp["norm2"], x, plus_one=cfg.norm_plus_one)
     if ffn == "moe":
-        f, aux = moe(lp["ffn"], h, cfg)
+        f, aux = moe(lp["ffn"], h, cfg, constrain=constrain)
         return x + f, new_cache, aux
     return x + mlp(lp["ffn"], h, cfg), new_cache, None
 
@@ -252,7 +301,7 @@ def _remat(enabled: bool, fn, *args):
 
 
 def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
-                enc_out=None, in_place: bool = False):
+                enc_out=None, in_place: bool = False, constrain=None):
     """The layers in order over the stacked groups.  ``caches`` is stacked
     over the group axis (or None).  Returns ``(x, new_caches, aux)``, aux
     the float32 sum of the MoE layers' router losses (zero without any);
@@ -261,17 +310,23 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
     layer's ssm state by the layer itself) and ``caches`` is returned.
     Without caches and with ``cfg.remat`` each group's body is
     rematerialized in the backward pass (:func:`_remat`), so only the
-    group-boundary activations stay alive."""
+    group-boundary activations stay alive.  ``constrain`` pins each
+    group's input and output (``"activation"``) and goes to the layers."""
     unit, n_groups = cfg.scan_groups()
     groups = _unstack(params["groups"], n_groups)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if caches is None:
         def group(x, aux, gp):
+            if constrain is not None:
+                x = constrain("activation", x)
             for i, (mixer, ffn) in enumerate(unit):
                 x, _, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
-                                       positions=positions, enc_out=enc_out)
+                                       positions=positions, enc_out=enc_out,
+                                       constrain=constrain)
                 if a is not None:
                     aux = aux + a
+            if constrain is not None:
+                x = constrain("activation", x)
             return x, aux
 
         for gp in groups:
@@ -279,11 +334,14 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
         return x, None, aux
     new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
     for g, gp in enumerate(groups):
+        if constrain is not None:
+            x = constrain("activation", x)
         for i, (mixer, ffn) in enumerate(unit):
             c = _index(caches[f"l{i}"], g)
             x, nc, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
                                     positions=positions, cache=c,
-                                    enc_out=enc_out, in_place=in_place)
+                                    enc_out=enc_out, in_place=in_place,
+                                    constrain=constrain)
             if a is not None:
                 aux = aux + a
             if nc is None:
@@ -294,6 +352,8 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
             for key, dst in c.items():
                 if nc[key].data_ptr() != dst.data_ptr():  # not written yet
                     dst.copy_(nc[key])
+        if constrain is not None:
+            x = constrain("activation", x)
     if in_place:
         return x, caches, aux
     return x, {k: _stack(v) for k, v in new.items()}, aux
@@ -320,7 +380,13 @@ def _input(params, x, cfg: ModelConfig):
 
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig, patch_embeds=None):
-    x = params["embed"].to(cfg.compute_dtype)[tokens]
+    table = params["embed"].to(cfg.compute_dtype)
+    if _is_dtensor(table):
+        # DTensor's row-gather rule (the table's d_model sharded: each
+        # rank gathers its columns); the same rows as the index below
+        x = torch.nn.functional.embedding(tokens, table)
+    else:
+        x = table[tokens]
     if cfg.norm_plus_one:           # gemma convention
         # the scale rounded to the compute dtype, as a host scalar: no copy
         # to the device, so a decode step can be captured in a CUDA graph
@@ -330,9 +396,17 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig, patch_embeds=None):
     return x
 
 
-def _unembed(params, x, cfg: ModelConfig):
+def _unembed(params, x, cfg: ModelConfig, constrain=None):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).to(torch.float32)
+    if cfg.tie_embeddings and constrain is not None:
+        # the table keeps its vocab dim whole for the token gather; the
+        # unembedding takes it vocab-sharded, so the logits come out so
+        w = constrain("unembed_w", w)
+    logits = einsum("bsd,dv->bsv", x, w.to(x.dtype)).to(torch.float32)
+    if constrain is not None:
+        # the (B, S, V) float32 logits stay vocab-sharded: the loss runs
+        # on the shards
+        logits = constrain("logits", logits)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -357,21 +431,29 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, frames=None,
-            patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            patch_embeds=None,
+            constrain=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/eval logits ``(B, S, vocab)`` and the auxiliary loss (the
     MoE layers' router losses summed, float32; zero without MoE layers).
     ``frames``: the encoder's input; ``patch_embeds``: ``(B, n_patches,
-    d)`` prefixed to the tokens and dropped from the logits."""
+    d)`` prefixed to the tokens and dropped from the logits.
+    ``constrain``: an optional ``(tag, x) -> x`` sharding hook, called at
+    the reference's sites: ``"activation"`` (the embedded input and each
+    layer group's input and output), ``"moe_dispatch"`` and
+    ``"moe_expert"`` (in :func:`~.layers.moe`), ``"unembed_w"`` (a tied
+    table) and ``"logits"``."""
     validate_config(cfg)
     enc_out = None if frames is None else encode(params, frames, cfg)
     x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    if constrain is not None:
+        x = constrain("activation", x)
     x, _, aux = _run_groups(params, x, cfg, positions=positions,
-                            enc_out=enc_out)
+                            enc_out=enc_out, constrain=constrain)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     if patch_embeds is not None:
         x = x[:, patch_embeds.shape[1]:]
-    return _unembed(params, x, cfg), aux
+    return _unembed(params, x, cfg, constrain=constrain), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -417,12 +499,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
-                  frames=None, patch_embeds=None, enc_out=None):
+                  frames=None, patch_embeds=None, enc_out=None,
+                  pin_cache=None):
     """Run the prompt, returning ``(last-position logits, filled cache)``.
     ``frames`` go through the encoder first, unless the caller passes its
     output as ``enc_out`` (the launcher encodes once a batch and hands the
     result to every decode step too); ``patch_embeds`` prefix the tokens
-    (``max_seq`` counts them)."""
+    (``max_seq`` counts them).  ``pin_cache``: an optional tree-aware
+    sharding hook that places the zero caches and the filled ones in
+    their serving layout (``launch/steps.py``)."""
     validate_config(cfg)
     if enc_out is None and frames is not None:
         enc_out = encode(params, frames, cfg)
@@ -430,10 +515,14 @@ def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
     b, s = x.shape[0], x.shape[1]
     caches = init_cache(cfg, b, max_seq, dtype=cfg.compute_dtype,
                         device=x.device)
+    if pin_cache is not None:
+        caches = pin_cache(caches)
     positions = torch.arange(s, device=x.device)[None]
     x, new_caches, _ = _run_groups(params, x, cfg, positions=positions,
                                    caches=caches, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
+    if pin_cache is not None:
+        new_caches = pin_cache(new_caches)
     return _unembed(params, x[:, -1:], cfg), new_caches
 
 
@@ -470,17 +559,27 @@ def _first_idx(caches, device) -> torch.Tensor:
 # Loss
 # ---------------------------------------------------------------------------
 
-def lm_loss(params, batch, cfg: ModelConfig, *, z_coef: float = 1e-4):
+def lm_loss(params, batch, cfg: ModelConfig, *, z_coef: float = 1e-4,
+            constrain=None):
     """Next-token cross entropy plus the logit z-loss and the MoE routers'
     auxiliary loss (:func:`forward`'s).  ``batch`` holds ``tokens``,
     ``labels`` (negative labels are masked out) and optionally ``frames``
-    and ``patch_embeds``.  Returns ``(loss, {"nll", "aux"})``."""
+    and ``patch_embeds``.  Returns ``(loss, {"nll", "aux"})``.
+    ``constrain`` is :func:`forward`'s; with it the label's log-probability
+    is the reference's one-hot reduction, shard-local over vocab-sharded
+    logits (the same value as the gather: one term, the rest zeros)."""
     logits, aux = forward(params, batch["tokens"], cfg,
                           frames=batch.get("frames"),
-                          patch_embeds=batch.get("patch_embeds"))
+                          patch_embeds=batch.get("patch_embeds"),
+                          constrain=constrain)
     labels = _tokens(params, batch["labels"])
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    if constrain is None:
+        ll = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    else:
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        onehot = vocab == labels.clamp_min(0)[..., None]
+        ll = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
     mask = (labels >= 0).to(torch.float32)
     count = torch.clamp_min(mask.sum(), 1.0)
     nll = torch.sum((logz - ll) * mask) / count

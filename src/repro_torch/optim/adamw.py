@@ -99,32 +99,67 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _zeros(p, shape, dtype, drop=(), move=None, fill=0.0):
+    """``fill`` in ``shape`` on ``p``'s device; for a DTensor ``p`` a
+    DTensor on its mesh, each rank holding its shard, placed as ``p`` is
+    but for its dims in ``drop`` (replicated: the moment reduces them) and
+    those ``move`` renumbers (a factored column moment's last dim)."""
+    if not _is_dtensor(p):
+        return torch.full(shape, fill, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, full
+    placements = []
+    for pl in p.placements:
+        if pl.is_shard() and pl.dim in drop:
+            pl = Replicate()
+        elif pl.is_shard() and move and pl.dim in move:
+            pl = Shard(move[pl.dim])
+        placements.append(pl)
+    return full(shape, fill, dtype=dtype, device_mesh=p.device_mesh,
+                placements=placements)
+
+
 def adamw_init(params, *, state_dtype: str = "int8") -> OptState:
     """Zero moments on the parameters' device: ``"int8"`` quantizes a
     leaf with ``ndim >= 2`` and at least :data:`QBLOCK` elements (float32
     otherwise), ``"bf16"`` keeps ``ndim >= 2`` leaves in bfloat16,
     ``"factored"`` also factors the second moment of a leaf whose last two
     dims are at least 64, ``"f32"`` keeps float32.  On ``meta`` parameters
-    the moments' shapes and dtypes only."""
+    the moments' shapes and dtypes only; on DTensor parameters (the model
+    on a mesh) DTensor moments placed as ``launch.steps.opt_state_specs``
+    places them, each rank allocating only its shard."""
     if state_dtype not in ("int8", "f32", "bf16", "factored"):
         raise ValueError(f"unknown optimizer state dtype {state_dtype!r}")
 
     def zero_like(p):
         if state_dtype in ("bf16", "factored") and p.ndim >= 2:
-            return torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return _zeros(p, p.shape, torch.bfloat16)
         if state_dtype == "int8" and p.ndim >= 2 and p.numel() >= QBLOCK:
-            return _quantize(z)
-        return z
+            if _is_dtensor(p):
+                # _quantize of zeros, each rank its shard: zero codes and
+                # the floor 1e-20 as every row's scale
+                return {"q": _zeros(p, p.shape, torch.int8),
+                        "scale": _zeros(p, p.shape[:-1] + (1,),
+                                        torch.float32, drop=(p.ndim - 1,),
+                                        fill=1e-20)}
+            return _quantize(torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device))
+        return _zeros(p, p.shape, torch.float32)
 
     def zero_v(p):
         if state_dtype == "factored" and p.ndim >= 2 and \
                 p.shape[-1] >= 64 and p.shape[-2] >= 64:
             # Adafactor-style rank-1 second moment: O(n+m) instead of O(nm)
-            return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                       device=p.device),
-                    "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                       dtype=torch.float32, device=p.device)}
+            n = p.ndim
+            return {"row": _zeros(p, p.shape[:-1], torch.float32,
+                                  drop=(n - 1,)),
+                    "col": _zeros(p, p.shape[:-2] + p.shape[-1:],
+                                  torch.float32, drop=(n - 2,),
+                                  move={n - 1: n - 2})}
         return zero_like(p)
 
     device = next(iter(_leaves(params))).device

@@ -1,4 +1,4 @@
-"""Step-level fault tolerance: the port of ``repro/runtime`` (the
-elastic re-mesh waits for the model on the mesh, ROADMAP A10b-iii)."""
+"""Step-level fault tolerance and the elastic re-mesh
+(``elastic.reshard_params``): the port of ``repro/runtime``."""
 
 from .fault import FaultTolerantLoop, StragglerWatchdog       # noqa: F401

@@ -179,7 +179,7 @@ def test_abstract_params_match_reference(arch):
     """Every leaf's path, shape and dtype, the experts' stacks and the
     Mamba leaves included, at the published sizes (no memory)."""
     cfg = PC.get_config(arch)
-    got = PT.abstract_params(cfg)
+    got, _ = PT.abstract_params(cfg)
     _same_shapes(got, T.abstract_params(RC.get_config(arch))[0])
     names = {p[-1] for p, _ in _port_leaves(got)}
     assert ("router" in names) == (arch in MOE)

@@ -2008,3 +2008,99 @@ def test_mesh_world_of_one_over_nccl(cuda):
             assert rt.executor.backends == ("shard_map", "triton", "torch")
     finally:
         tdist.destroy_process_group()
+
+
+#: the model on a 1 x 1 mesh: each kernel's arch (a small width whose heads
+#: and channels the kernels take) and the op its model call site calls
+MESH_KERNELS = {
+    "flash_attention": ("qwen3-4b", "flash_attention.ops", "attention"),
+    "mamba_scan": ("jamba-v0.1-52b", "mamba_scan.ops", "mamba"),
+    "rwkv6_chunked": ("rwkv6-3b", "rwkv6_scan.ops", "rwkv6_chunked"),
+    "rwkv6_scan": ("rwkv6-3b", "rwkv6_scan.ops", "rwkv6"),
+}
+
+
+def _mesh_config(arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).scaled(dtype="float32", vocab_size=512,
+                                  d_model=256, d_ff=512)
+    if arch == "qwen3-4b":
+        return cfg.scaled(n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64)
+    return cfg.scaled(n_layers=2)
+
+
+@pytest.mark.parametrize("kernel", list(MESH_KERNELS))
+def test_kernel_through_its_local_call_on_a_one_by_one_mesh(card, kernel):
+    """The model on a world of one over NCCL (``make_host_mesh()``, (1,
+    1)): ``make_serve_steps``' prefill and two decode steps run each kernel
+    through its call site's ``local_map`` (``models.layers.sharded_call``)
+    on DTensor inputs; the kernel launches there, its first call is held
+    against its plain version on the recorded inputs, and the logits are
+    bitwise the mesh-less model's."""
+    import importlib
+    import torch.distributed as tdist
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_serve_steps
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import mesh as tmesh
+    if tdist.is_initialized():
+        pytest.skip("a process group is already up")
+    arch, module, name = MESH_KERNELS[kernel]
+    ops = importlib.import_module(f"repro_torch.kernels.{module}")
+    cfg = _mesh_config(arch)
+    mesh = make_host_mesh()
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = T.init_params(cfg, gen, "cuda")
+        tmesh.draw_gains(params, gen, cfg.norm_plus_one)
+        sp = T.serving_params(params, cfg)
+        prefill, decode, specs = make_serve_steps(cfg, mesh, 70, 2)
+        dsp = shard_tree(sp, specs["params"], mesh)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                             device="cuda")
+        calls, real = [], getattr(ops, name)
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            if not calls:
+                calls.append(([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw), out))
+            return out
+
+        tmesh.zero_launches()
+        setattr(ops, name, spy)
+        try:
+            got, cache = prefill(dsp, {"tokens": toks})
+            gots = [got]
+            for _ in range(2):
+                tok = got.full_tensor()[:, -1].argmax(-1)[:, None]
+                got, cache = decode(dsp, cache, tok)
+                gots.append(got)
+        finally:
+            setattr(ops, name, real)
+        assert tmesh.kernel_launches()[kernel] > 0
+        assert all(type(g).__name__ == "DTensor" for g in gots)
+        args, kw, out = calls[0]
+        assert not any(type(a).__name__ == "DTensor" for a in args)
+        if kernel == "flash_attention":
+            _hold(out, reference_attention(*args[:3], causal=args[3],
+                                           window=args[4], softcap=args[5],
+                                           scale=args[6]), "attention")
+        else:
+            plain = {"mamba_scan": reference_mamba,
+                     "rwkv6_chunked": reference_rwkv6_chunked,
+                     "rwkv6_scan": reference_rwkv6}[kernel]
+            n_in = 6 if kernel == "mamba_scan" else 5
+            want = plain(*args[:n_in], state=kw.get("state"),
+                         return_state=True)
+            for g, w in zip(out, want):
+                _hold(g, w, "scan")
+        want, wc = T.serve_prefill(sp, toks, cfg, 70)
+        assert torch.equal(gots[0].full_tensor(), want)
+    finally:
+        tdist.destroy_process_group()

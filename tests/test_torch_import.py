@@ -57,7 +57,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                 "configs.jamba_v01_52b", "optim", "optim.adamw",
                 "optim.schedule", "optim.fused", "data", "data.pipeline",
                 "checkpoint", "checkpoint.manager", "runtime",
-                "runtime.fault", "launch.steps", "launch.train"):
+                "runtime.fault", "launch.steps", "launch.train",
+                "launch.mesh", "runtime.elastic", "distributed.pipeline"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
@@ -135,6 +136,7 @@ def _entry_points():
         "make_train_step": lambda **kw: _train_step(cfg, **kw),
         "train": _train,
         "host_mesh": _host_mesh,
+        "make_host_mesh": _make_host_mesh,
     }
 
 
@@ -146,6 +148,21 @@ def _host_mesh(**kw):
     try:
         mesh = host_mesh(**kw)
         assert mesh.device_type == "cpu" and mesh.size() == 1
+    finally:
+        if started and tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def _make_host_mesh(**kw):
+    """The launchers' ``(world, 1)`` mesh over a world of one (started
+    here, then shut down)."""
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_host_mesh
+    started = not tdist.is_initialized()
+    try:
+        mesh = make_host_mesh(**kw)
+        assert mesh.device_type == "cpu" and tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
     finally:
         if started and tdist.is_initialized():
             tdist.destroy_process_group()
@@ -178,7 +195,7 @@ ENTRY_POINTS = ["fused_block_fn", "build_fused_kernel", "build_block_kernel",
                 "build_rowblock_kernel", "make_block_fn", "BlockExecutor",
                 "LoweringContext", "init_cache", "init_params",
                 "reference_block", "Server", "Runtime.session", "serve",
-                "make_train_step", "train", "host_mesh"]
+                "make_train_step", "train", "host_mesh", "make_host_mesh"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
