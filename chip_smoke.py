@@ -343,6 +343,26 @@ ms, peak memory and its collectives by kind (``CommDebugMode``) and
 bytes (the staged group's own count).  Part (c)'s launches join the
 ``kernels`` line.
 
+Then the multi-pod dry run (``run_dryrun``, the ``DRYRUN`` lines;
+``launch/dryrun.py``).  Its traces of fake CUDA tensors run in
+subprocesses (this process holds NCCL's group), ``DRYRUN_WORKERS`` at a
+time at a lower priority, started when the script starts and collected
+here; each must leave the card's ``memory_allocated`` at 0.  (a) The
+cells of ``DRYRUN_CELLS`` through the CLI over the fake group of 256 or
+512 ranks at published widths and full depth: per cell its arguments
+and peak temporaries in GiB against the card's memory, FLOPs, dot FLOPs,
+kernel calls, collectives by kind and the trace's seconds.  (b) TRAIN's
+cell (Qwen3-4B, 36 layers, ``TRAIN_BATCH`` x ``TRAIN_SEQ``,
+``TRAIN_MICRO`` microbatches, int8 moments) traced on a fake (1, 1) mesh
+against MESH (c1)'s real first step: the argument bytes must equal the
+parameters', moments' and batch's, ``flops_per_device`` must equal
+``FlopCounterMode`` over that step, and the trace's temporaries must be
+within ``DRYRUN_TEMP_RTOL`` of (c1)'s ``max_memory_allocated`` less its
+parameters and moments.  (c) MESH (c2)'s train cell traced over a fake
+(2, 2) group: its counts of the reference's collective kinds must equal
+(c2)'s ``CommDebugMode`` counts of its first step; its result bytes are
+printed beside (c2)'s staged input bytes.
+
 Last it prints a ``kernels`` JSON line (B1-B7; B3's entry is its
 largest-bound case, since the FAMILY phase a served Gemma2-9B layer, and
 B5's since the MOE phase a served Jamba-v0.1 prefill layer with its
@@ -367,6 +387,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate (data sheet)
 #: peak non-tensor-core operation rates of an H100 SXM by type.  The data
@@ -577,6 +598,19 @@ MESH_C2_SERVE = (2, 256, 4)
 MESH_PIPE = (2560, 8, 16)
 MESH_ELASTIC = ((4, 1), (2, 2))
 MESH_ELASTIC_LAYERS = 1
+
+#: the DRYRUN phase (``launch/dryrun.py``): part (a)'s production cells,
+#: (arch, shape, mesh), the last one skipped by ``cell_enabled``
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", "single"),
+                ("qwen3-4b", "prefill_32k", "single"),
+                ("qwen3-4b", "decode_32k", "single"),
+                ("qwen3-4b", "train_4k", "multi"),
+                ("rwkv6-3b", "long_500k", "single"),
+                ("qwen3-4b", "long_500k", "single"))
+#: dry-run subprocesses at a time, beside the earlier phases
+DRYRUN_WORKERS = 3
+#: part (b): the trace's temporaries against the card's, relative
+DRYRUN_TEMP_RTOL = 0.25
 SERVE_WINDOW_S, SERVE_MAX_BATCH = 0.002, 4
 
 
@@ -1136,22 +1170,17 @@ def run_lm(lazy, codegen, rowblock) -> dict:
 
 def _attention_work(q, k, causal, window, softcap):
     """Bytes (q, k, v read once, o written once) and operations of one
-    attention call: 2·D multiply-adds (QKᵀ and PV) per unmasked (query,
-    key) pair — bfloat16 on the tensor cores; float32 on the faster route
-    that keeps float32 accuracy, three TF32 tensor-core passes or the CUDA
-    cores' FMAs (``TC_TF32_MACS_PER_S``) — and the softmax's elementwise
-    work per pair (max, subtract, exp, sum; the softcap's divide, tanh and
-    multiply) in float32."""
-    b, hq, sq, d = q.shape
-    sk = k.shape[2]
-    qp = np.arange(sq)
-    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
-    lo = np.maximum(0, qp - window + 1) if window is not None else 0
-    per_row = hi - lo
-    pairs = int(np.where(per_row > 0, per_row, sk).sum()) * b * hq
+    attention call: B3's count (``flash_attention.kernel.attention_ops``),
+    its multiply-adds typed by the route that takes them (bfloat16 on the
+    tensor cores; float32 on the faster route that keeps float32
+    accuracy, three TF32 tensor-core passes or the CUDA cores' FMAs,
+    ``TC_TF32_MACS_PER_S``) and the softmax's elementwise work in
+    float32."""
+    from repro_torch.kernels.flash_attention.kernel import attention_ops
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    macs = 2 * d * pairs
-    elem = (4 + (3 if softcap is not None else 0)) * pairs
+    ops = attention_ops(tuple(q.shape), tuple(k.shape), causal, window,
+                        softcap)
+    macs, elem = ops["macs"], ops["float32"]
     if q.dtype == torch.bfloat16:
         return nbytes, {"tensor_bf16": macs, "float32": elem}
     if 3 * macs / TC_TF32_MACS_PER_S < macs / PEAK_OPS_PER_S["float32"]:
@@ -1181,14 +1210,6 @@ def _bound(nbytes, ops):
         "operations"
 
 
-def mamba_ops(bsz, t, d_inner, d_state) -> dict:
-    """B5's operations: per (token, channel, state) one exponential and 4
-    float32 operations (dt·A', dx·B, the state's FMA, h·C's FMA); per
-    (token, channel) dt·x and D·x."""
-    return {"float32": bsz * t * d_inner * (4 * d_state + 2),
-            "exp2": bsz * t * d_inner * d_state}
-
-
 def _model_cases(gen):
     """The cases of the model-kernel phase: op, inputs, work and library
     yardstick, at the widths of the repo's configs."""
@@ -1196,10 +1217,13 @@ def _model_cases(gen):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.mamba_scan import ops as ms
+    from repro_torch.kernels.mamba_scan.kernel import mamba_ops
     from repro_torch.kernels.mamba_scan.ref import reference_mamba
     from repro_torch.kernels.rmsnorm import ops as rn
     from repro_torch.kernels.rmsnorm.ref import reference_add_rmsnorm
     from repro_torch.kernels.rwkv6_scan import ops as rw
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_ops
+    from repro_torch.kernels.rwkv6_scan.kernel_chunked import chunked_ops
     from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
                                                     reference_rwkv6_chunked)
 
@@ -1301,17 +1325,17 @@ def _model_cases(gen):
         args=(*ins, 64), run=lambda a: rw.rwkv6(*a),
         plain=lambda a: reference_rwkv6(*a[:5]),
         work=((5 * bh * t * n + n) * 4,
-              {"float32": bh * t * (3 * n * n + 3 * n)}),
+              rwkv6_ops(bh, t, n)),
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
     # B7 on B6's inputs: the same function, in chunks of 32 tokens; the
-    # bound counts the route B7 takes (_chunked_ops)
+    # bound counts the route B7 takes (chunked_ops)
     cases.append(dict(
         kernel="rwkv6_chunked", label="RWKV6-3B BH 8x40 T2048 N64 f32, "
         "B6's inputs", args=(*ins, 32), run=lambda a: rw.rwkv6_chunked(*a),
         plain=lambda a: reference_rwkv6_chunked(*a[:5]),
         work=((5 * bh * t * n + n) * 4,
-              _chunked_ops(bh, t, n)),
+              chunked_ops(bh, t, n)),
         library=("none: no PyTorch call computes the RWKV6 recurrence", None),
         plain_reps=3))
     return cases
@@ -1554,7 +1578,9 @@ def _rwkv_work(args, kw, chunked: bool = False) -> tuple:
     """Bytes (r, k, v, w, u and the states read once, o and the final state
     written once) and operations of one recorded RWKV6 op call: B6's
     float32 3 N² + 3 N per step and row, or B7's route
-    (:func:`_chunked_ops`)."""
+    (``kernel_chunked.chunked_ops``)."""
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_ops
+    from repro_torch.kernels.rwkv6_scan.kernel_chunked import chunked_ops
     r, k, v, w, u = args
     bh, t, n = r.shape
     state = kw.get("state")
@@ -1563,23 +1589,8 @@ def _rwkv_work(args, kw, chunked: bool = False) -> tuple:
     nbytes += 4 * bh * n * n * ((state is not None) + bool(
         kw.get("return_state")))
     if chunked:
-        return nbytes, _chunked_ops(bh, t, n, kw.get("chunk", 32))
-    return nbytes, {"float32": bh * t * (3 * n * n + 3 * n)}
-
-
-def _chunked_ops(bh, t, n, chunk=32) -> dict:
-    """B7's operations on the route it takes: per row and chunk of m steps
-    the four products' multiply-adds — ``k̃ᵀV`` (N² m), ``r̃S`` (m N²),
-    the scores ``r̃k̃ᵀ`` and their product with V (N·m(m-1)/2 each, the
-    strictly causal pairs) — on the FP64 tensor cores
-    (``TC_F64_MACS_PER_S``), and on the CUDA cores 5 float32 operations an
-    element (Cum's product, ``r̃``, ``k̃``'s division, the bonus's two)
-    and 2 a state element a chunk (the update's add and multiply)."""
-    c = max(1, min(chunk, t))
-    lengths = [c] * (t // c) + ([t % c] if t % c else [])
-    macs = sum(2 * n * n * m + 2 * (m * (m - 1) // 2) * n for m in lengths)
-    return {"tensor_f64": bh * macs,
-            "float32": 5 * bh * t * n + 2 * bh * len(lengths) * n * n}
+        return nbytes, chunked_ops(bh, t, n, kw.get("chunk", 32))
+    return nbytes, rwkv6_ops(bh, t, n)
 
 
 def run_rwkv() -> dict:
@@ -2439,7 +2450,8 @@ def _b5_timing(label, args, kw, err) -> dict:
     CUDA graph (32 calls in one graph for a decode token, whose launch is
     a few microseconds), the plain version, and the bound — the bytes of
     x, dt, B, C, A, D and y and of the float32 state read and written
-    (``mamba_ops`` for the operations).  A ``kernels`` line row."""
+    (``mamba_scan.kernel.mamba_ops`` for the operations).  A ``kernels``
+    line row."""
     from repro_torch.kernels.mamba_scan import kernel as ms_k
     from repro_torch.kernels.mamba_scan.ref import reference_mamba
     x, dt, b, c, a, d = args[:6]
@@ -2448,7 +2460,7 @@ def _b5_timing(label, args, kw, err) -> dict:
     ds = b.shape[-1]
     nbytes = (3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) \
         * x.element_size() + 2 * bsz * di * ds * 4
-    ops = mamba_ops(bsz, t, di, ds)
+    ops = ms_k.mamba_ops(bsz, t, di, ds)
     bound_ms, bound_by = _bound(nbytes, ops)
 
     def run():
@@ -4218,17 +4230,40 @@ def _mesh_model_world_of_one(train_losses) -> dict:
         torch.cuda.reset_peak_memory_stats()
         data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
         losses, times, counts = [], [], []
+        # what DRYRUN (b) holds its trace to: the first step's arguments
+        # and FLOPs (FlopCounterMode over the step: a (1, 1) mesh's global
+        # operations are its local ones) and the steps' peak.  The batch
+        # in the dtype of the model's input spec, int32 (SyntheticLM's
+        # tokens are int64, as the reference's; the model reads either as
+        # int64, so the losses do not move)
+        def batch_at(s):
+            return {k: v.astype(np.int32) for k, v in
+                    data.batch_at(s).items()}
+
+        batch = batch_at(0)
+        c1 = {"card_arg_bytes": _tree_bytes((params, opt))}
+        c1["arg_bytes"] = c1["card_arg_bytes"] + _tree_bytes(batch)
         with OpRecorder(fa_ops, "attention", {0}) as rec:
             for s in range(MESH_TRAIN_STEPS):
                 tmesh.zero_launches()
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                params, opt, m = step(params, opt, data.batch_at(s))
+                flop_counter = FlopCounterMode(display=False) if s == 0 \
+                    else contextlib.nullcontext()
+                with flop_counter:
+                    params, opt, m = step(params, opt, batch)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t1) * 1e3)
                 counts.append(tmesh.kernel_launches()["flash_attention"])
                 losses.append(float(m["loss"]))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                if s == 0:
+                    c1["flops"] = flop_counter.get_total_flops()
+                batch = batch_at(s + 1)
+        c1["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # the recorder's clones of B3's first call, which the step itself
+        # does not hold
+        c1["kept_bytes"] = _tree_bytes(list(rec.calls.values()))
+        peak = c1["peak_bytes"] / 2 ** 30
         launches["flash_attention"] += sum(counts)
         held.update(_mesh_hold(rec_b3=rec))
         del params, opt, rec, step
@@ -4247,7 +4282,8 @@ def _mesh_model_world_of_one(train_losses) -> dict:
               f"(want {want}); B3's first call on the mesh against its plain "
               f"version max_abs_err={held['flash_attention'][0]:.3g} "
               f"allowance share={held['flash_attention'][1]:.3f}; peak "
-              f"{peak:.2f} GiB allocated", flush=True)
+              f"{peak:.2f} GiB allocated; the first step (timed under "
+              f"FlopCounterMode) {c1['flops']:.6g} FLOPs", flush=True)
         if losses[0] != train_losses[0] or not rel <= TRAIN_REPLAY_RTOL \
                 or counts != [want] * MESH_TRAIN_STEPS:
             raise AssertionError("MESH (c1): the train step on the mesh "
@@ -4297,7 +4333,7 @@ def _mesh_model_world_of_one(train_losses) -> dict:
     finally:
         tdist.destroy_process_group()
     print(f"MESH (c1) {time.perf_counter() - t0:.1f}s", flush=True)
-    return {"launches": launches, "held": held}
+    return {"launches": launches, "held": held, "c1": c1}
 
 
 def _mesh_model_ranks() -> dict:
@@ -4396,7 +4432,8 @@ def _mesh_model_ranks() -> dict:
                                  "tolerances")
     print(f"MESH (c2) {time.perf_counter() - t0:.1f}s with the spawn",
           flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "comm": ranks[0][0]["comm"],
+            "staged": ranks[0][0]["staged"]}
 
 
 def _train_losses() -> list:
@@ -4465,7 +4502,208 @@ def run_mesh(lazy, codegen, train_losses=None) -> dict:
                 for k in one["launches"]}
     print(f"MESH (c) launches on the mesh path: {launches}; phase "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    return {"b1": b1, "launches": launches, "held": one["held"]}
+    return {"b1": b1, "launches": launches, "held": one["held"],
+            "c1": one["c1"], "c2": {"comm": ranks["comm"],
+                                    "staged": ranks["staged"]}}
+
+
+def _tree_bytes(tree) -> int:
+    """The bytes of the tensors (a DTensor's local shard) and numpy arrays
+    in nested dicts, lists and tuples."""
+    if isinstance(tree, np.ndarray):
+        return tree.nbytes
+    if isinstance(tree, torch.Tensor):
+        t = tree.to_local() if hasattr(tree, "to_local") else tree
+        return t.numel() * t.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0
+
+
+def dryrun_job(job: dict, out: str) -> None:
+    """One DRYRUN trace, in a subprocess that sees no card (see
+    :func:`start_dryruns`): ``job["part"]`` is ``"a"`` (a production cell
+    through the CLI, ``job["cell"]``), ``"b"`` (TRAIN's cell on a fake
+    (1, 1) mesh) or ``"c"`` (MESH (c2)'s train cell over a fake (2, 2)
+    group).  Writes the record, the wall and the card's
+    ``memory_allocated`` after the trace to ``out`` as JSON."""
+    import tempfile
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if job["part"] == "a":
+        arch, shape, mesh_kind = job["cell"]
+        with tempfile.TemporaryDirectory() as tmp:
+            D.main(["--arch", arch, "--shape", shape, "--mesh", mesh_kind,
+                    "--out", tmp])
+            with open(os.path.join(
+                    tmp, f"{arch}__{shape}__{mesh_kind}.json")) as f:
+                rec = json.load(f)
+    else:
+        grid = (1, 1) if job["part"] == "b" else MESH_GRID
+        if job["part"] == "b":
+            cfg, (b, seq), micro = _train_config(), (TRAIN_BATCH,
+                                                     TRAIN_SEQ), TRAIN_MICRO
+        else:
+            cfg, (b, seq), micro = _train_config(MESH_C2_LAYERS), \
+                MESH_C2_TRAIN, 1
+        with D.fake_group(int(np.prod(grid))):
+            mesh = DeviceMesh("cuda", torch.arange(int(np.prod(grid)))
+                              .reshape(grid), mesh_dim_names=("data",
+                                                              "model"))
+            rec = D.run_cell(cfg, ShapeSpec(f"train_{job['part']}", seq, b,
+                                            "train"),
+                             "x".join(map(str, grid)), out_dir=None,
+                             mesh=mesh, device="cuda",
+                             train_kw=dict(num_microbatches=micro))
+    res = {"rec": rec, "wall_s": time.perf_counter() - t0,
+           "memory_allocated": torch.cuda.memory_allocated()}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def start_dryruns():
+    """Start the DRYRUN phase's traces (:func:`dryrun_job`), each in a
+    subprocess of its own (this process holds NCCL's group) at a lower
+    priority,
+    ``DRYRUN_WORKERS`` at a time, beside the earlier phases: part (b)'s
+    first, then (c)'s and (a)'s cells.  Returns ``(started, {name:
+    future})``; each future gives the job's result or raises."""
+    import concurrent.futures
+    import shutil
+    logs = ROOT / "build" / "dryrun"
+    logs.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"), str(ROOT)])}
+    nice = [shutil.which("nice"), "-n", "10"] if shutil.which("nice") \
+        else []
+    jobs = {"b": {"part": "b"}, "c": {"part": "c"}}
+    for cell in DRYRUN_CELLS:
+        jobs["/".join(cell)] = {"part": "a", "cell": list(cell)}
+
+    def run(name, job):
+        out = logs / f"{name.replace('/', '__')}.json"
+        out.unlink(missing_ok=True)
+        code = ("import json, sys, chip_smoke; chip_smoke.dryrun_job("
+                "json.loads(sys.argv[1]), sys.argv[2])")
+        proc = subprocess.run(
+            nice + [sys.executable, "-c", code, json.dumps(job), str(out)],
+            env=env, capture_output=True, text=True, timeout=1000,
+            cwd=ROOT)
+        (logs / f"{name.replace('/', '__')}.log").write_text(
+            proc.stdout + proc.stderr)
+        if proc.returncode != 0 or not out.exists():
+            raise RuntimeError(f"DRYRUN {name}: exit {proc.returncode}:\n"
+                               f"{proc.stderr[-3000:]}")
+        return json.loads(out.read_text())
+
+    pool = concurrent.futures.ThreadPoolExecutor(DRYRUN_WORKERS)
+    futures = {name: pool.submit(run, name, job)
+               for name, job in jobs.items()}
+    pool.shutdown(wait=False)
+    return time.perf_counter(), futures
+
+
+def _gib(n) -> str:
+    return f"{n / 2 ** 30:.3f}"
+
+
+def _kinds(rec) -> dict:
+    """A record's collectives that moved anything: kind -> [count,
+    bytes]."""
+    col = rec["collectives"]
+    return {k: [col["counts"][k], col[k]] for k in col["counts"]
+            if col["counts"][k]}
+
+
+def run_dryrun(dry, mesh) -> None:
+    """The DRYRUN phase (see the module doc): collects the traces started
+    by :func:`start_dryruns` and holds (b) against MESH (c1) and (c)
+    against MESH (c2)."""
+    from repro_torch.launch.dryrun import KINDS, _collective_kind
+    t0 = time.perf_counter()
+    started, futures = dry
+    res = {name: f.result() for name, f in futures.items()}
+    waited = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, r in res.items():
+        if r["memory_allocated"]:
+            raise AssertionError(f"DRYRUN {name}: the trace allocated "
+                                 f"{r['memory_allocated']} bytes on the card")
+    for cell in DRYRUN_CELLS:
+        r = res["/".join(cell)]
+        rec = r["rec"]
+        if "skipped" in rec:
+            print(f"DRYRUN (a) {'/'.join(cell)} skipped: {rec['skipped']}",
+                  flush=True)
+            continue
+        mem = rec["memory"]
+        fit = mem["argument_size_in_bytes"] + mem["temp_peak_bytes"]
+        print(f"DRYRUN (a) {'/'.join(cell)} over {rec['n_devices']} fake "
+              f"ranks, fake {rec['device']} tensors: arguments "
+              f"{_gib(mem['argument_size_in_bytes'])} GiB + peak "
+              f"temporaries {_gib(mem['temp_peak_bytes'])} GiB = "
+              f"{_gib(fit)} GiB against the card's {_gib(total)} GiB "
+              f"(fits {fit <= total}); flops_per_device "
+              f"{rec['flops_per_device']:.6g}, dot "
+              f"{rec['dot_flops_per_device']:.6g}, kernels "
+              f"{rec['kernel_flops_per_device']:.6g} "
+              f"in calls {rec['kernel_calls']}; collectives [count, result "
+              f"bytes] {_kinds(rec)}; t_trace_s {rec['t_trace_s']:.1f} "
+              f"(job {r['wall_s']:.1f}s; the card's memory_allocated "
+              f"after it {r['memory_allocated']})", flush=True)
+    # (b) against MESH (c1)'s real first step
+    c1, rec = mesh["c1"], res["b"]["rec"]
+    mem = rec["memory"]
+    real_temp = c1["peak_bytes"] - c1["card_arg_bytes"] - c1["kept_bytes"]
+    ratio = mem["temp_peak_bytes"] / real_temp
+    print(f"DRYRUN (b) {rec['arch']} {TRAIN_BATCH}x{TRAIN_SEQ} "
+          f"microbatches={TRAIN_MICRO} on a fake (1, 1) mesh against MESH "
+          f"(c1)'s first step: argument bytes {mem['argument_size_in_bytes']}"
+          f" vs {c1['arg_bytes']} (equal "
+          f"{mem['argument_size_in_bytes'] == c1['arg_bytes']}); "
+          f"flops_per_device {rec['flops_per_device']} vs FlopCounterMode "
+          f"{c1['flops']} (equal {rec['flops_per_device'] == c1['flops']});"
+          f" temporaries {_gib(mem['temp_peak_bytes'])} GiB vs (c1)'s "
+          f"max_memory_allocated less its parameters, moments and the "
+          f"recorder's clones {_gib(real_temp)} GiB: ratio {ratio:.4f} "
+          f"(within {DRYRUN_TEMP_RTOL}); t_trace_s {rec['t_trace_s']:.1f}",
+          flush=True)
+    if mem["argument_size_in_bytes"] != c1["arg_bytes"] \
+            or rec["flops_per_device"] != c1["flops"] \
+            or not abs(ratio - 1) <= DRYRUN_TEMP_RTOL:
+        raise AssertionError("DRYRUN (b): the trace differs from MESH (c1)")
+    # (c) against MESH (c2)'s first step on rank 0
+    rec = res["c"]["rec"]
+    want, other = {}, {}
+    for name, n in mesh["c2"]["comm"]["train_step_0"].items():
+        kind = _collective_kind(name)
+        into = want if kind in KINDS else other
+        into[kind] = into.get(kind, 0) + n
+    got = {k: n for k, n in rec["collectives"]["counts"].items()
+           if n and k in KINDS}
+    staged = mesh["c2"]["staged"]["train_step_0"]
+    print(f"DRYRUN (c) {rec['arch']} {rec['global_batch']}x"
+          f"{rec['seq_len']} {_train_config(MESH_C2_LAYERS).n_layers} layers "
+          f"over a fake {MESH_GRID} group against MESH (c2) rank 0's first "
+          f"step: counts {got} vs CommDebugMode's {want} (equal "
+          f"{got == want}; (c2)'s others {other}: its whole batch placed "
+          f"in the step); result bytes "
+          f"{ {k: rec['collectives'][k] for k in got} } vs (c2)'s staged "
+          f"[calls, input bytes] {staged}; t_trace_s "
+          f"{rec['t_trace_s']:.1f}", flush=True)
+    if got != want:
+        raise AssertionError("DRYRUN (c): the collectives differ from MESH "
+                             "(c2)'s")
+    print(f"DRYRUN phase {time.perf_counter() - t0:.1f}s (waited "
+          f"{waited:.1f}s for jobs started {t0 - started:.1f}s before; the "
+          f"jobs' walls { {k: round(r['wall_s'], 1) for k, r in res.items()} }"
+          ")", flush=True)
 
 
 def _model_entry(name, route, source, replaces, res) -> dict:
@@ -4492,6 +4730,7 @@ def main() -> int:
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    dry = start_dryruns()
     programs = dict(BENCHMARKS, quickstart=quickstart)
     launches = 0
     worst = 0.0
@@ -4597,6 +4836,7 @@ def main() -> int:
     serve_launches = run_serve(lazy, codegen)
     torch.cuda.empty_cache()
     mesh = run_mesh(lazy, codegen, train["losses"])
+    run_dryrun(dry, mesh)
     for name, n in mesh["launches"].items():
         model["launches"][name] += n
     for name, (err, _) in mesh["held"].items():

@@ -10,8 +10,15 @@ in the float32 accumulators, GQA, causal and sliding-window masks and
 logit soft-capping, ragged edges masked by index with no padding copies.
 It is built by :mod:`..cuda_build` at first use.
 
-On CPU tensors :func:`flash_attention` runs the plain version
-(``ref.py``); on CUDA tensors it launches the kernel or raises.
+It runs as the custom operator ``torch.ops.repro_torch.flash_attention``
+(:func:`attention_op`), whose implementation the dispatcher picks by the
+tensors' device: the kernel on CUDA tensors (it launches or raises), the
+plain version (``ref.py``) on CPU tensors, and on fake or ``meta`` tensors
+a fake one that makes the output's shape, dtype and strides and, on fake
+CUDA tensors, refuses what the kernel refuses, so a trace of the card's
+step passes through it (``launch/dryrun.py``).  Its operation count
+(:func:`attention_ops`) is both its FLOP formula for
+``torch.utils.flop_counter`` and the work ``chip_smoke.py``'s bound reads.
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from ...core.device import kernel_device
+from ...core.device import op_device
 from .. import cuda_build
 from .ref import reference_attention
 
@@ -48,25 +57,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {tuple(v.shape)}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-    ins = {"q": q, "k": k, "v": v}
-    device = kernel_device(ins, "flash_attention")
-    if device is None:
-        return reference_attention(q, k, v, **opts)
-    cuda_build.require(ins, DTYPES, "flash_attention")
-    return _launch(q, k, v, device, **opts)
+    op_device({"q": q, "k": k, "v": v}, "flash_attention")
+    return attention_op(q, k, v, bool(causal),
+                        None if window is None else int(window),
+                        None if softcap is None else float(softcap),
+                        float(scale))
 
 
-def _launch(q, k, v, device, *, causal, window, softcap, scale):
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} (the kernel is "
-                         f"built for {HEAD_DIMS})")
-    if sk == 0:
+def _refuse(q, k, v, softcap) -> None:
+    """Raise for what the kernel does not take (on the card and in a fake
+    trace of it): inputs not contiguous or not of one dtype of
+    :data:`DTYPES`, a head dim outside :data:`HEAD_DIMS`, no keys, a
+    softcap that is not positive."""
+    cuda_build.require({"q": q, "k": k, "v": v}, DTYPES, "flash_attention")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {q.shape[3]} (the "
+                         f"kernel is built for {HEAD_DIMS})")
+    if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap {softcap} (must be > 0)")
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: Optional[int], softcap: Optional[float],
+                 scale: float) -> torch.Tensor:
+    """The operator; on CPU tensors the plain version."""
+    return reference_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale).contiguous()
+
+
+@attention_op.register_kernel("cuda")
+def _launch(q, k, v, causal, window, softcap, scale):
+    _refuse(q, k, v, softcap)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
@@ -80,6 +107,46 @@ def _launch(q, k, v, device, *, causal, window, softcap, scale):
          cuda_build.DTYPE_CODES[q.dtype], b, hq, hkv, sq, sk, d, float(scale),
          int(bool(causal)), int(window is not None),
          0 if window is None else int(window), int(softcap is not None),
-         0.0 if softcap is None else float(softcap)], device)
+         0.0 if softcap is None else float(softcap)], q.device)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@attention_op.register_fake
+def _fake(q, k, v, causal, window, softcap, scale):
+    if q.device.type == "cuda":
+        _refuse(q, k, v, softcap)
+    return q.new_empty(q.shape)
+
+
+def attention_pairs(sq: int, sk: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """The (query, key) pairs the kernel computes for one (batch, head):
+    each query's unmasked keys, or all ``sk`` keys for a query with none
+    (the kernel visits every key there)."""
+    qp = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, qp + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, qp - window + 1) if window is not None else 0
+    per_row = hi - lo
+    return int(np.where(per_row > 0, per_row, sk).sum())
+
+
+def attention_ops(q_shape, k_shape, causal: bool, window: Optional[int],
+                  softcap: Optional[float]) -> dict:
+    """The operations of one call: ``macs``, its 2·D multiply-adds per
+    computed (query, key) pair (QKᵀ and PV, on the tensor cores), and
+    ``float32``, the softmax's elementwise work per pair (max, subtract,
+    exp, sum; the softcap's divide, tanh and multiply)."""
+    b, hq, sq, d = q_shape
+    pairs = attention_pairs(sq, k_shape[2], causal, window) * b * hq
+    return {"macs": 2 * d * pairs,
+            "float32": (4 + (3 if softcap is not None else 0)) * pairs}
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def attention_flops(q_shape, k_shape, v_shape, causal, window, softcap,
+                    scale, *, out_shape=None, **kw) -> int:
+    """FLOPs of one call: two a multiply-add (as ``FlopCounterMode`` counts
+    a matmul's), one an elementwise operation."""
+    ops = attention_ops(q_shape, k_shape, causal, window, softcap)
+    return 2 * ops["macs"] + ops["float32"]

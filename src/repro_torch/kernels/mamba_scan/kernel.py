@@ -13,16 +13,26 @@ given one and its final value may be written out, over the initial one
 in place if asked (``out_state=state``, as a served decode step's static
 cache has it).  It is built by :mod:`..cuda_build` at first use.
 
-On CPU tensors :func:`mamba_scan` runs the plain version
-(``ref.py:reference_mamba``; ``ref.py:route_mamba`` emulates the kernel's
-roundings); on CUDA tensors it launches the kernel or raises.
+It runs as two custom operators, ``torch.ops.repro_torch.mamba_scan``
+(:func:`scan_op`) and its in-place form ``mamba_scan_`` (:func:`scan_op_`,
+which writes the final state into ``out_state``), whose implementation the
+dispatcher picks by the tensors' device: the kernel on CUDA tensors (it
+launches or raises), the plain version (``ref.py:reference_mamba``;
+``ref.py:route_mamba`` emulates the kernel's roundings) on CPU tensors,
+and on fake or ``meta`` tensors a fake one that makes the outputs' shapes,
+dtypes and strides and, on fake CUDA tensors, refuses what the kernel
+refuses.  Its operation count (:func:`mamba_ops`) is both its FLOP formula
+and the work ``chip_smoke.py``'s bound reads.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional, Tuple
 
-from ...core.device import kernel_device
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from ...core.device import op_device
 from .. import cuda_build
 from .ref import reference_mamba
 
@@ -74,31 +84,44 @@ def mamba_scan(x, dt, b, c, a, d, *, chunk: int = 64, state=None,
             f"{None if out_state is None else tuple(out_state.shape)}")
     if chunk < 1:
         raise ValueError(f"chunk {chunk}")
-    return_state = return_state or out_state is not None
     ins = {"x": x, "dt": dt, "b": b, "c": c, "a": a, "d": d}
     states = {k: v for k, v in (("state", state), ("out_state", out_state))
               if v is not None}
-    device = kernel_device({**ins, **states}, "mamba_scan")
-    if device is None:
-        out = reference_mamba(x, dt, b, c, a, d, state=state,
-                              return_state=return_state)
-        if out_state is None:
-            return out
-        return out[0], out_state.copy_(out[1])
-    cuda_build.require(ins, DTYPES, "mamba_scan")
+    op_device({**ins, **states}, "mamba_scan")
+    if out_state is not None:
+        return scan_op_(x, dt, b, c, a, d, state, out_state), out_state
+    y, h = scan_op(x, dt, b, c, a, d, state, return_state)
+    return (y, h) if return_state else y
+
+
+def _refuse(x, dt, b, c, a, d, state, out_state) -> None:
+    """Raise for what the kernel does not take (on the card and in a fake
+    trace of it): inputs not contiguous or not of one dtype of
+    :data:`DTYPES`, states that are not float32 and contiguous, a
+    ``d_state`` above :data:`MAX_STATE`."""
+    cuda_build.require({"x": x, "dt": dt, "b": b, "c": c, "a": a, "d": d},
+                       DTYPES, "mamba_scan")
+    states = {k: v for k, v in (("state", state), ("out_state", out_state))
+              if v is not None}
     if states:
         cuda_build.require(states, (torch.float32,), "mamba_scan")
+    layout(b.shape[-1])
+
+
+def _launch(x, dt, b, c, a, d, state, h_out):
+    """Launch the kernel: y returned, the final state written into
+    ``h_out`` when it is not None."""
+    _refuse(x, dt, b, c, a, d, state, h_out)
+    bsz, t, d_inner = x.shape
+    d_state = b.shape[-1]
     lanes, spl = layout(d_state)
     y = torch.empty_like(x)
-    h_out = out_state
-    if h_out is None and return_state:
-        h_out = torch.empty(hs, dtype=torch.float32, device=x.device)
     if y.numel() == 0:            # no step to take: h_T is h_0
         if h_out is not None and state is not None:
             h_out.copy_(state)
         elif h_out is not None:
             h_out.zero_()
-        return (y, h_out) if return_state else y
+        return y
     cuda_build.launch(
         "repro_mamba_scan_fwd", "pppppppppiiiiiiip",
         [x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -106,6 +129,87 @@ def mamba_scan(x, dt, b, c, a, d, *, chunk: int = 64, state=None,
          None if state is None else state.data_ptr(),
          None if h_out is None else h_out.data_ptr(), y.data_ptr(),
          cuda_build.DTYPE_CODES[x.dtype], bsz, t, d_inner, d_state, lanes,
-         spl], device)
+         spl], x.device)
     LAUNCHES["mamba_scan"] += 1
-    return (y, h_out) if return_state else y
+    return y
+
+
+def _plain(x, dt, b, c, a, d, state):
+    """The plain version's y (contiguous) and final state (never one of
+    the inputs' tensors)."""
+    y, h = reference_mamba(x, dt, b, c, a, d, state=state, return_state=True)
+    if state is not None and h is state:      # no step: h_T is h_0
+        h = h.clone()
+    return y.contiguous(), h
+
+
+@torch.library.custom_op("repro_torch::mamba_scan", mutates_args=(),
+                         device_types="cpu")
+def scan_op(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+            state: Optional[torch.Tensor],
+            return_state: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator: ``(y, final state)``, the state an empty ``(0,)``
+    tensor unless ``return_state``; on CPU tensors the plain version."""
+    y, h = _plain(x, dt, b, c, a, d, state)
+    return y, h if return_state else h.new_empty((0,))
+
+
+@scan_op.register_kernel("cuda")
+def _scan_cuda(x, dt, b, c, a, d, state, return_state):
+    h_out = torch.empty((x.shape[0], x.shape[2], b.shape[-1]),
+                        dtype=torch.float32, device=x.device) \
+        if return_state else None
+    y = _launch(x, dt, b, c, a, d, state, h_out)
+    return y, h_out if return_state else y.new_empty((0,), dtype=torch.float32)
+
+
+@scan_op.register_fake
+def _scan_fake(x, dt, b, c, a, d, state, return_state):
+    if x.device.type == "cuda":
+        _refuse(x, dt, b, c, a, d, state, None)
+    hs = (x.shape[0], x.shape[2], b.shape[-1]) if return_state else (0,)
+    return x.new_empty(x.shape), x.new_empty(hs, dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_",
+                         mutates_args=("out_state",), device_types="cpu")
+def scan_op_(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+             state: Optional[torch.Tensor],
+             out_state: torch.Tensor) -> torch.Tensor:
+    """The in-place operator: y, the final state written into
+    ``out_state`` (which may be ``state``); on CPU tensors the plain
+    version."""
+    y, h = _plain(x, dt, b, c, a, d, state)
+    out_state.copy_(h)
+    return y
+
+
+@scan_op_.register_kernel("cuda")
+def _scan_cuda_(x, dt, b, c, a, d, state, out_state):
+    return _launch(x, dt, b, c, a, d, state, out_state)
+
+
+@scan_op_.register_fake
+def _scan_fake_(x, dt, b, c, a, d, state, out_state):
+    if x.device.type == "cuda":
+        _refuse(x, dt, b, c, a, d, state, out_state)
+    return x.new_empty(x.shape)
+
+
+def mamba_ops(bsz, t, d_inner, d_state) -> dict:
+    """B5's operations: per (token, channel, state) one exponential and 4
+    float32 operations (dt·A', dx·B, the state's FMA, h·C's FMA); per
+    (token, channel) dt·x and D·x."""
+    return {"float32": bsz * t * d_inner * (4 * d_state + 2),
+            "exp2": bsz * t * d_inner * d_state}
+
+
+@register_flop_formula([torch.ops.repro_torch.mamba_scan,
+                        torch.ops.repro_torch.mamba_scan_])
+def scan_flops(x_shape, dt_shape, b_shape, *args, out_shape=None,
+               **kw) -> int:
+    """FLOPs of one call: :func:`mamba_ops`' operations, one each."""
+    bsz, t, d_inner = x_shape
+    return sum(mamba_ops(bsz, t, d_inner, b_shape[-1]).values())

@@ -11,15 +11,25 @@ may overwrite the initial one in place (``out_state=state``), as the
 decode graph's static cache has it.  It is built by :mod:`..cuda_build`
 at first use.
 
-On CPU tensors :func:`rwkv6_scan` runs the plain version (``ref.py``); on
-CUDA tensors it launches the kernel or raises.
+It runs as two custom operators, ``torch.ops.repro_torch.rwkv6_scan``
+(:func:`scan_op`) and its in-place form ``rwkv6_scan_`` (:func:`scan_op_`,
+which writes the final state into ``out_state``), whose implementation the
+dispatcher picks by the tensors' device: the kernel on CUDA tensors (it
+launches or raises), the plain version (``ref.py``) on CPU tensors, and on
+fake or ``meta`` tensors a fake one that makes the outputs' shapes, dtypes
+and strides and, on fake CUDA tensors, refuses what the kernel refuses.
+Its operation count (:func:`rwkv6_ops`) is both its FLOP formula and the
+work ``chip_smoke.py``'s bound reads.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Optional, Tuple
 
-from ...core.device import kernel_device
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from ...core.device import op_device
 from .. import cuda_build
 from .ref import reference_rwkv6
 
@@ -34,8 +44,7 @@ LAUNCHES = {"rwkv6_scan": 0}
 def check_inputs(r, k, v, w, u, state, what: str):
     """Raise unless r, k, v, w are one ``(BH, T, N)`` shape, ``u`` is
     ``(N,)`` or ``(H, N)`` with ``H`` dividing ``BH``, and ``state`` is
-    None or ``(BH, N, N)``.  Returns the kernel's device (None on the CPU:
-    the caller runs its plain version)."""
+    None or ``(BH, N, N)``, all on one device."""
     bh, t, n = r.shape
     h = 1 if u.dim() == 1 else u.shape[0]
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape \
@@ -48,47 +57,71 @@ def check_inputs(r, k, v, w, u, state, what: str):
     ins = {"r": r, "k": k, "v": v, "w": w, "u": u}
     if state is not None:
         ins["state"] = state
-    return kernel_device(ins, what)
+    op_device(ins, what)
 
 
-def launch_args(r, k, v, w, u, state, return_state: bool, what: str,
-                s_out=None):
-    """What both RWKV6 launchers take, on CUDA tensors: r, k, v contiguous
-    and of one dtype among :data:`DTYPES` (the output's too); w and u in
-    float32 (a bf16 w or u is widened, which is exact); the optional state
-    float32.  ``s_out``, when given, is the ``(BH, N, N)`` float32 tensor
-    the final state goes to (else one is made when ``return_state``).
-    Returns ``(o, final state or None, [pointers of r, k, v, w,
-    u, state in, state out, o], H, keep)``; ``keep`` holds the widened
-    tensors alive until the launch."""
+def refuse(r, k, v, w, u, state, what: str, s_out=None) -> None:
+    """Raise for what both RWKV6 kernels do not take (on the card and in a
+    fake trace of them): r, k, v not contiguous or not of one dtype of
+    :data:`DTYPES`, a head size outside :data:`HEAD_DIMS`, w or u of
+    another dtype, a state or ``s_out`` that is not float32 and contiguous
+    or of the wrong shape."""
     cuda_build.require({"r": r, "k": k, "v": v}, DTYPES, what)
     n = r.shape[2]
     if n not in HEAD_DIMS:
         raise ValueError(f"{what}: head size {n} (the kernel is built for "
                          f"{HEAD_DIMS})")
-    keep = []
     for name, z in (("w", w), ("u", u)):
         if z.dtype not in DTYPES:
             raise TypeError(f"{what}: {name} is {z.dtype}, the kernel takes "
                             f"float32 (or bf16, widened)")
-        keep.append(z.to(torch.float32).contiguous())
     if state is not None:
         cuda_build.require({"state": state}, (torch.float32,), what)
-    wf, uf = keep
-    o = torch.empty_like(r)
     if s_out is not None:
         cuda_build.require({"out_state": s_out}, (torch.float32,), what)
         if s_out.shape != (r.shape[0], n, n) or s_out.device != r.device:
             raise ValueError(f"{what}: out_state {tuple(s_out.shape)} on "
                              f"{s_out.device}, want {(r.shape[0], n, n)} on "
                              f"{r.device}")
-    elif return_state:
+
+
+def launch_args(r, k, v, w, u, state, return_state: bool, what: str,
+                s_out=None):
+    """What both RWKV6 launchers take, on CUDA tensors (:func:`refuse`
+    first): r, k, v contiguous and of one dtype among :data:`DTYPES` (the
+    output's too); w and u in float32 (a bf16 w or u is widened, which is
+    exact); the optional state float32.  ``s_out``, when given, is the
+    ``(BH, N, N)`` float32 tensor the final state goes to (else one is
+    made when ``return_state``).  Returns ``(o, final state or None,
+    [pointers of r, k, v, w, u, state in, state out, o], H, keep)``;
+    ``keep`` holds the widened tensors alive until the launch."""
+    refuse(r, k, v, w, u, state, what, s_out)
+    n = r.shape[2]
+    keep = [z.to(torch.float32).contiguous() for z in (w, u)]
+    wf, uf = keep
+    o = torch.empty_like(r)
+    if s_out is None and return_state:
         s_out = torch.empty((r.shape[0], n, n), dtype=torch.float32,
                             device=r.device)
     ptrs = [r.data_ptr(), k.data_ptr(), v.data_ptr(), wf.data_ptr(),
             uf.data_ptr(), None if state is None else state.data_ptr(),
             None if s_out is None else s_out.data_ptr(), o.data_ptr()]
     return o, s_out, ptrs, 1 if u.dim() == 1 else u.shape[0], keep
+
+
+def fresh_state(s, state):
+    """The plain version's final state ``s``, cloned where it is the
+    initial one (no step taken): an operator's output is never one of its
+    inputs."""
+    return s.clone() if state is not None and s is state else s
+
+
+def fake_outputs(r, return_state: bool):
+    """The outputs' stand-ins: o as r, the state ``(BH, N, N)`` float32 or
+    an empty ``(0,)`` one."""
+    n = r.shape[2]
+    hs = (r.shape[0], n, n) if return_state else (0,)
+    return r.new_empty(r.shape), r.new_empty(hs, dtype=torch.float32)
 
 
 def rwkv6_scan(r, k, v, w, u, *, chunk: int = 64, state=None,
@@ -102,23 +135,87 @@ def rwkv6_scan(r, k, v, w, u, *, chunk: int = 64, state=None,
     it, as the TPU kernel asserts.  ``out_state``: a float32 ``(BH, N,
     N)`` tensor the final state is written into and returned as (it may be
     ``state`` itself, updated in place); implies ``return_state``."""
-    device = check_inputs(r, k, v, w, u, state, "rwkv6_scan")
-    bh, t, n = r.shape
+    check_inputs(r, k, v, w, u, state, "rwkv6_scan")
+    t = r.shape[1]
     assert t % chunk == 0 or t < chunk, (t, chunk)
-    return_state = return_state or out_state is not None
-    if device is None:
-        out = reference_rwkv6(r, k, v, w, u, state=state,
-                              return_state=return_state)
-        if out_state is None:
-            return out
-        return out[0], out_state.copy_(out[1])
+    if out_state is not None:
+        op_device({"r": r, "out_state": out_state}, "rwkv6_scan")
+        return scan_op_(r, k, v, w, u, state, out_state), out_state
+    o, s = scan_op(r, k, v, w, u, state, return_state)
+    return (o, s) if return_state else o
+
+
+def _launch(r, k, v, w, u, state, return_state, s_out=None):
     o, s_out, ptrs, h, _keep = launch_args(r, k, v, w, u, state,
-                                           return_state, "rwkv6_scan",
-                                           out_state)
-    if bh == 0:                        # no block to launch
-        return (o, s_out) if return_state else o
-    cuda_build.launch(
-        "repro_rwkv6_scan_fwd", "ppppppppiiiiip",
-        [*ptrs, cuda_build.DTYPE_CODES[r.dtype], bh, t, n, h], device)
-    LAUNCHES["rwkv6_scan"] += 1
-    return (o, s_out) if return_state else o
+                                           return_state, "rwkv6_scan", s_out)
+    bh, t, n = r.shape
+    if bh:                             # else no block to launch
+        cuda_build.launch(
+            "repro_rwkv6_scan_fwd", "ppppppppiiiiip",
+            [*ptrs, cuda_build.DTYPE_CODES[r.dtype], bh, t, n, h], r.device)
+        LAUNCHES["rwkv6_scan"] += 1
+    return o, s_out
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan", mutates_args=(),
+                         device_types="cpu")
+def scan_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state: Optional[torch.Tensor],
+            return_state: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator: ``(o, final state)``, the state an empty ``(0,)``
+    tensor unless ``return_state``; on CPU tensors the plain version."""
+    o, s = reference_rwkv6(r, k, v, w, u, state=state, return_state=True)
+    s = fresh_state(s, state) if return_state else s.new_empty((0,))
+    return o.contiguous(), s
+
+
+@scan_op.register_kernel("cuda")
+def _scan_cuda(r, k, v, w, u, state, return_state):
+    o, s = _launch(r, k, v, w, u, state, return_state)
+    return o, s if return_state else o.new_empty((0,), dtype=torch.float32)
+
+
+@scan_op.register_fake
+def _scan_fake(r, k, v, w, u, state, return_state):
+    if r.device.type == "cuda":
+        refuse(r, k, v, w, u, state, "rwkv6_scan")
+    return fake_outputs(r, return_state)
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan_",
+                         mutates_args=("out_state",), device_types="cpu")
+def scan_op_(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state: Optional[torch.Tensor],
+             out_state: torch.Tensor) -> torch.Tensor:
+    """The in-place operator: o, the final state written into
+    ``out_state`` (which may be ``state``); on CPU tensors the plain
+    version."""
+    o, s = reference_rwkv6(r, k, v, w, u, state=state, return_state=True)
+    out_state.copy_(s)
+    return o.contiguous()
+
+
+@scan_op_.register_kernel("cuda")
+def _scan_cuda_(r, k, v, w, u, state, out_state):
+    return _launch(r, k, v, w, u, state, True, out_state)[0]
+
+
+@scan_op_.register_fake
+def _scan_fake_(r, k, v, w, u, state, out_state):
+    if r.device.type == "cuda":
+        refuse(r, k, v, w, u, state, "rwkv6_scan", out_state)
+    return r.new_empty(r.shape)
+
+
+def rwkv6_ops(bh, t, n) -> dict:
+    """B6's operations: per step and row ``sum_i r_i S_ij``, ``k_i v_j``
+    and ``w_i S_ij + k_i v_j`` (3 N²) and the bonus ``(sum_i r_i u_i k_i)
+    v_j`` (3 N), in float32."""
+    return {"float32": bh * t * (3 * n * n + 3 * n)}
+
+
+@register_flop_formula([torch.ops.repro_torch.rwkv6_scan,
+                        torch.ops.repro_torch.rwkv6_scan_])
+def scan_flops(r_shape, *args, out_shape=None, **kw) -> int:
+    """FLOPs of one call: :func:`rwkv6_ops`' operations, one each."""
+    return sum(rwkv6_ops(*r_shape).values())

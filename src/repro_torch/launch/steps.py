@@ -242,6 +242,11 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
     pspecs = params_specs(pshapes, axes, RULES_TRAIN, sized)
 
     def reshard(x, n_micro, bm):
+        if n_micro > 1 and mesh is not None and _is_dtensor(x):
+            # a batch already placed over the data axes (a dry run's):
+            # whole first, so microbatch i is rows [i·bm, (i+1)·bm) of the
+            # batch, as from a whole batch
+            x = _place(x, P(*([None] * x.ndim)), mesh)
         mb = x.reshape(n_micro, bm, *x.shape[1:])
         if mesh is None:
             return mb
@@ -328,6 +333,11 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
     ospecs = opt_state_specs(oshapes, pspecs, sized)
     return train_step, {"params": pspecs, "opt": ospecs, "pshapes": pshapes,
                         "oshapes": oshapes, "axes": axes}
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def _zeros(like, dtype):

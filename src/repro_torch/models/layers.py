@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.device import on_card_route
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.mamba_scan import ops as ms_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
@@ -372,23 +373,94 @@ def _chunked_attn(q, k, v, *, causal: bool, window: Optional[int],
 def _attend(q, k, v, *, causal: bool, window: Optional[int],
             softcap: Optional[float], scale: float) -> torch.Tensor:
     """Attention of ``(B, S, H, hd)`` queries over ``(B, T, Hkv, hd)``
-    keys and values: on the card kernel B3 (``flash_attention.ops``) over
-    ``(B, H, S, hd)`` contiguous copies, at any length; on the CPU the
-    reference's own arithmetic, :func:`_dense_attn` up to
-    :data:`DENSE_ATTN_MAX_SEQ` queries and :func:`_chunked_attn` above.
+    keys and values: on the card (and inside ``core.device.card_route``)
+    kernel B3 (``flash_attention.ops``) over ``(B, H, S, hd)`` contiguous
+    copies, at any length; on the CPU the reference's own arithmetic,
+    :func:`_dense_attn` up to :data:`DENSE_ATTN_MAX_SEQ` queries and
+    :func:`_chunked_attn` above.
     On a mesh (DTensor inputs) each rank runs it on its own batch rows and
     heads (:func:`sharded_call`)."""
     opts = dict(causal=causal, window=window, softcap=softcap, scale=scale)
     if _is_dtensor(q):
         return sharded_call(lambda *a: _attend(*a, **opts), (q, k, v),
                             ((0, 2),) * 3, ((0, 2),))
-    if q.device.type == "cpu":
+    if not on_card_route(q.device):
         fn = _dense_attn if q.shape[1] <= DENSE_ATTN_MAX_SEQ \
             else _chunked_attn
         return fn(q, k, v, **opts)
     o = fa_ops.attention(*(z.transpose(1, 2).contiguous() for z in (q, k, v)),
                          causal, window, softcap, scale)
     return o.transpose(1, 2)
+
+
+def _split(x: torch.Tensor, dim: int, *shape) -> torch.Tensor:
+    """``x`` reshaped to ``shape``, which splits its dim ``dim`` in two
+    (heads into (heads, head dim), or into (kv heads, group)).  On a mesh
+    a ``dim`` sharded over more ways than the first part divides
+    (Whisper's 6 heads or Gemma2-9B's 8 kv heads on a 16-way model axis)
+    is gathered whole first: DTensor cannot split a shard's part across
+    ranks."""
+    if _is_dtensor(x) and shape[dim] % math.prod(
+            x.device_mesh.size(i) for i, p in enumerate(x.placements)
+            if p.is_shard(dim)):
+        x = _whole(x, dim)
+    return x.reshape(*shape)
+
+
+def _whole(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with its dim ``dim`` whole on every rank: on a mesh a DTensor
+    sharded there is gathered; any other tensor as it is."""
+    if not _is_dtensor(x) or not any(p.is_shard(dim) for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_shard(dim)
+                                          else p for p in x.placements])
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums reduced (on a mesh a DTensor that is
+    ``Partial`` on some mesh dim is all-reduced there), so that a bias can
+    be added once: torch 2.11's DTensor cannot turn the bias into partial
+    sums."""
+    if not _is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
+class _GatherGrad(torch.autograd.Function):
+    """The identity, whose backward gathers the gradient's dim ``dim``
+    whole (:func:`_whole`)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.dim), None
+
+
+def _gather_grad(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``; on a mesh its gradient comes back with dim ``dim`` whole: a
+    tensor regrouped from rows and sequence (the MoE layer's output) whose
+    gradient a sequence-parallel activation would shard on the sequence,
+    which torch 2.11's DTensor cannot regroup."""
+    return _GatherGrad.apply(x, dim) if _is_dtensor(x) else x
+
+
+def _per_row(fn, x: torch.Tensor, channel: Optional[int] = None):
+    """``fn(x)``; on a mesh ``fn`` of each rank's batch rows (dim 0) with
+    every other dim whole but ``channel`` (kept as it is sharded), through
+    :func:`sharded_call`: an op along the sequence (RWKV6's token shift, a
+    ring cache's roll: torch 2.11's DTensor has no rule for either) or one
+    that regroups rows and a sharded sequence (the MoE layer's routing
+    groups), which it cannot place."""
+    if _is_dtensor(x):
+        return sharded_call(fn, (x,), ((0, channel),), ((0, channel),))
+    return fn(x)
 
 
 def _cache_write(cache, at, new):
@@ -424,16 +496,16 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=x.device)[None, :]
     q = einsum("bsd,dh->bsh", x, p["wq"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-    q = q.reshape(b, s, h, hd)
+        q = _summed(q) + p["bq"].to(x.dtype)
+    q = _split(q, 2, b, s, h, hd)
     src = x if kv_src is None else kv_src.to(x.dtype)
     k = einsum("bsd,dh->bsh", src, p["wk"].to(x.dtype))
     v = einsum("bsd,dh->bsh", src, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    k = k.reshape(b, src.shape[1], kvh, hd)
-    v = v.reshape(b, src.shape[1], kvh, hd)
+        k = _summed(k) + p["bk"].to(x.dtype)
+        v = _summed(v) + p["bv"].to(x.dtype)
+    k = _split(k, 2, b, src.shape[1], kvh, hd)
+    v = _split(v, 2, b, src.shape[1], kvh, hd)
     if cfg.qk_norm:
         q = rmsnorm({"g": p["q_norm"]}, q, plus_one=True)
         k = rmsnorm({"g": p["k_norm"]}, k, plus_one=True)
@@ -452,8 +524,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         if ring and s >= t:
             # the prompt's last `window` tokens at slot position % window
             # (a roll of the tail slice)
-            ck = torch.roll(k[:, s - t:].to(cache["k"].dtype), s % t, dims=1)
-            cv = torch.roll(v[:, s - t:].to(cache["v"].dtype), s % t, dims=1)
+            def roll(z):
+                return torch.roll(z, s % t, dims=1)
+
+            ck = _per_row(roll, k[:, s - t:].to(cache["k"].dtype), 2)
+            cv = _per_row(roll, v[:, s - t:].to(cache["v"].dtype), 2)
         else:
             slot = torch.remainder(idx, t) if ring else idx
             at = (slot + torch.arange(s, device=x.device)).long()
@@ -472,7 +547,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             else:
                 qpos = idx + torch.arange(s, device=x.device)[:, None]
                 valid = _mask(qpos, kpos, True, window)
-            qg = q.transpose(1, 2).reshape(b, kvh, h // kvh, s, hd)
+            qg = _split(q.transpose(1, 2), 1, b, kvh, h // kvh, s, hd)
             # a correctly rounded divide, as jnp's (a CUDA divide by a host
             # scalar multiplies by its reciprocal), by a tensor filled on
             # the device (no host copy, so the step can be captured)
@@ -589,7 +664,11 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     b, s, d = x.shape
     s_g = min(s, MOE_GROUP_TOKENS)
     assert s % s_g == 0, (s, s_g)
-    xg = x.reshape(b * (s // s_g), s_g, d)
+    if _is_dtensor(x) and any(p.is_shard(1) for p in x.placements):
+        # a sequence-parallel activation: grouped on each rank's rows
+        xg = _per_row(lambda z: z.reshape(-1, s_g, d), x)
+    else:
+        xg = x.reshape(b * (s // s_g), s_g, d)
     r = moe_route(p, xg, cfg)
     slot = torch.arange(r["cap"], device=x.device)
     dispatch = (r["keep"][..., None] * (r["pos"][..., None] == slot)).to(
@@ -609,7 +688,8 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     out = einsum("egcf,efd->egcd", h, p["w_down"].to(x.dtype))
     if constrain is not None:
         out = constrain("moe_expert", out)
-    y = einsum("gsec,egcd->gsd", combine, out).reshape(b, s, d)
+    y = _gather_grad(einsum("gsec,egcd->gsd", combine, out).reshape(
+        b, s, d), 1)
     if "shared" in p:
         y = y + mlp(p["shared"], x, cfg)
     # aux losses: load balance (Switch) and the router's z-loss
@@ -772,7 +852,8 @@ def rwkv_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
     n = cfg.rwkv.head_dim
     heads = d // n
     if state is None:
-        prev = torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
+        prev = _per_row(lambda z: torch.nn.functional.pad(
+            z, (0, 0, 1, 0))[:, :-1], x, 2)
     else:
         prev = torch.cat([state["last"][:, None].to(x.dtype), x[:, :-1]],
                          dim=1)

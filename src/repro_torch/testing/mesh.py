@@ -251,7 +251,8 @@ def zero_launches() -> None:
 
 def model_suite(cfg, weights, *, device="cpu", shape=(2, 2),
                 batches=(), train_kw=None, serve=None,
-                keep_params: bool = True) -> dict:
+                keep_params: bool = True,
+                place_inputs: bool = False) -> dict:
     """The model on a ``shape`` mesh over ``("data", "model")`` (every
     rank runs this, SPMD): ``make_train_step(cfg, mesh, **train_kw)`` over
     ``batches`` (numpy dicts) from ``weights`` (a numpy tree or a seed),
@@ -262,7 +263,10 @@ def model_suite(cfg, weights, *, device="cpu", shape=(2, 2),
     wall ms and kernel launches, the serve logits (whole, numpy), each
     phase's collectives (``CommDebugMode``: kind -> count), peak device
     memory and, with ``keep_params``, the trained parameters whole (key
-    path -> numpy)."""
+    path -> numpy).  ``place_inputs``: the prompt's inputs placed over
+    the data axes first (as a dry run's are), else whole on every rank.
+    A phase's collectives are its steps' own (the logits are gathered
+    whole after)."""
     import torch
     import torch.distributed as tdist
     from torch.distributed.device_mesh import DeviceMesh
@@ -336,6 +340,10 @@ def model_suite(cfg, weights, *, device="cpu", shape=(2, 2),
         for k in ("frames", "patch_embeds"):
             if serve.get(k) is not None:
                 inputs[k] = torch.as_tensor(serve[k]).to(device)
+        if place_inputs:
+            from ..launch.steps import _place, batch_specs_tree
+            inputs = {k: _place(v, spec, mesh) for (k, v), spec in zip(
+                inputs.items(), batch_specs_tree(inputs, mesh).values())}
         zero_launches()
         staged = {k: tuple(v) for k, v in STAGED.items()}
         with CommDebugMode() as cm:
@@ -347,14 +355,15 @@ def model_suite(cfg, weights, *, device="cpu", shape=(2, 2),
             from ..launch.steps import _mesh_scope
             with _mesh_scope(mesh):
                 enc_out = T.encode(sp, inputs["frames"], cfg)
-        out["decode"] = []
+        steps = []
         staged = {k: tuple(v) for k, v in STAGED.items()}
         with CommDebugMode() as cm:
             for j in range(n_dec):
                 tok = torch.as_tensor(serve["decode"][:, j:j + 1])
                 logits, cache = decode(sp, cache, tok, enc_out)
-                out["decode"].append(_whole(logits))
+                steps.append(logits)
         comm("decode", cm, staged)
+        out["decode"] = [_whole(x) for x in steps]
         out["serve_launches"] = kernel_launches()
     if device == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30

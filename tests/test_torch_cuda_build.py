@@ -100,7 +100,12 @@ def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
 @pytest.mark.parametrize("call", ["attention", "rmsnorm", "mamba", "rwkv6"])
 def test_kernel_wrappers_run_on_cuda_or_cpu_only(call):
     """A tensor on any other device is refused, not computed somewhere
-    else."""
+    else.  B4 (``rmsnorm``) refuses ``meta`` tensors; B3, B5 and B6 are
+    custom operators whose fake implementation serves ``meta`` tensors
+    with outputs on ``meta`` (shapes only, nothing computed), and which
+    refuse every device type but the CPU, CUDA and ``meta``."""
+    from types import SimpleNamespace
+    from repro_torch.core.device import op_device
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan
     from repro_torch.kernels.rmsnorm.kernel import fused_add_rmsnorm
@@ -118,8 +123,15 @@ def test_kernel_wrappers_run_on_cuda_or_cpu_only(call):
         "rwkv6": lambda: rwkv6_scan(*(meta(2, 8, 32) for _ in range(4)),
                                     meta(32)),
     }
-    with pytest.raises(RuntimeError, match="kernel for device meta"):
-        fns[call]()
+    if call == "rmsnorm":
+        with pytest.raises(RuntimeError, match="kernel for device meta"):
+            fns[call]()
+        return
+    out = fns[call]()
+    assert out.device.type == "meta"
+    other = SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(RuntimeError, match="kernel for device xpu"):
+        op_device({"a": other}, call)
 
 
 def test_cuda_inputs_must_be_contiguous_and_of_one_dtype():

@@ -2104,3 +2104,98 @@ def test_kernel_through_its_local_call_on_a_one_by_one_mesh(card, kernel):
         assert torch.equal(gots[0].full_tensor(), want)
     finally:
         tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# B3, B5, B6 and B7 as custom operators: what a dry run's fake trace of the
+# card's step passes through (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+def _op_case(name, dev):
+    """``(operator, positional arguments, plain outputs)`` on CUDA inputs
+    at the existing tests' shapes; the state an in-place form writes (its
+    last argument, the plain version's last output) is a tensor of its
+    own (``opcheck`` runs the operator several times)."""
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
+                                                    reference_rwkv6_chunked)
+    ops = torch.ops.repro_torch
+    rng = np.random.default_rng(len(name))
+    if name.startswith("flash_attention"):
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        q = _randn(rng, (2, 4, 100, 64), dtype, dev)
+        k, v = (_randn(rng, (2, 2, 100, 64), dtype, dev) for _ in range(2))
+        args = (q, k, v, True, 48, 50.0, 0.125)
+        return ops.flash_attention, args, (reference_attention(
+            q, k, v, causal=True, window=48, softcap=50.0, scale=0.125),)
+    if name.startswith("mamba_scan"):
+        ins = _mamba_inputs(rng, 2, 40, 64, 16, torch.float32, dev)
+        h0 = _randn(rng, (2, 64, 16), torch.float32, dev, 0.5)
+        want = reference_mamba(*ins, state=h0, return_state=True)
+        if name.endswith("_"):
+            return ops.mamba_scan_, (*ins, h0, torch.empty_like(h0)), want
+        return ops.mamba_scan, (*ins, h0, True), want
+    r, k, v, w, u, s0 = _rwkv_model_inputs(rng, 8, 1 if name.endswith("_")
+                                           else 64, 64, torch.float32, dev,
+                                           heads=2)
+    if name == "rwkv6_chunked":
+        return ops.rwkv6_chunked, (r, k, v, w, u, s0, 32, True), \
+            reference_rwkv6_chunked(r, k, v, w, u, state=s0,
+                                    return_state=True)
+    want = reference_rwkv6(r, k, v, w, u, state=s0, return_state=True)
+    if name.endswith("_"):
+        return ops.rwkv6_scan_, (r, k, v, w, u, s0, torch.empty_like(s0)), \
+            want
+    return ops.rwkv6_scan, (r, k, v, w, u, s0, True), want
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bf16",
+                                  "mamba_scan", "mamba_scan_", "rwkv6_scan",
+                                  "rwkv6_scan_", "rwkv6_chunked"])
+def test_custom_op_on_the_card_is_the_kernel(card, name):
+    """Each operator on CUDA tensors launches its kernel once a call (the
+    dispatcher's CUDA implementation, no fallback), within the existing
+    tolerances of its plain version; ``torch.library.opcheck`` passes."""
+    from repro_torch.testing import mesh as tmesh
+    op, args, want = _op_case(name, card)
+    kernel = name.removesuffix("_bf16").rstrip("_")
+    before = tmesh.kernel_launches()[kernel]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert tmesh.kernel_launches()[kernel] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    if name.endswith("_"):              # the state written in place
+        got += (args[-1],)
+    kind = "attention" if kernel == "flash_attention" else "scan"
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _hold(g, w, kind)
+    torch.library.opcheck(op, args)
+
+
+def test_fake_cuda_trace_of_a_layer_allocates_nothing(card):
+    """A dry-run trace of one Qwen3-4B layer's train step over a fake
+    (2, 2) group on fake CUDA tensors: B3 called (forward and the remat
+    recompute), nothing launched and nothing allocated on the card."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.testing import mesh as tmesh
+    if tdist.is_initialized():
+        pytest.skip("a process group is already up")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    launches = tmesh.kernel_launches()
+    cfg = get_config("qwen3-4b").scaled(n_layers=1)
+    with D.fake_group(4):
+        mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        rec = D.run_cell(cfg, ShapeSpec("t", 512, 4, "train"), "2x2",
+                         out_dir=None, mesh=mesh, device="cuda",
+                         train_kw=dict(num_microbatches=1))
+    assert rec["kernel_calls"] == {"flash_attention": 2}
+    assert rec["device"] == "cuda" and rec["flops_per_device"] > 0
+    assert torch.cuda.memory_allocated() == before
+    assert tmesh.kernel_launches() == launches

@@ -58,7 +58,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                 "optim.schedule", "optim.fused", "data", "data.pipeline",
                 "checkpoint", "checkpoint.manager", "runtime",
                 "runtime.fault", "launch.steps", "launch.train",
-                "launch.mesh", "runtime.elastic", "distributed.pipeline"):
+                "launch.mesh", "runtime.elastic", "distributed.pipeline",
+                "launch.dryrun"):
         assert f"repro_torch.{mod}" in modules
     # neither JAX nor the JAX package, nor Triton (a kernel imports it when
     # it launches), nor the CUDA library (built and loaded at first launch)
@@ -207,6 +208,30 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     call(device="cpu")
+
+
+def test_dry_run_entry_point_needs_no_card(monkeypatch, tmp_path):
+    """The dry run's entry points (``launch.dryrun.main`` and ``run_cell``)
+    trace fake tensors: they run without a card, the CLI on fake CUDA
+    tensors where PyTorch has CUDA and on the card's route on fake CPU
+    tensors where it has not, ``run_cell`` on the device asked for."""
+    import json
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dryrun.main(["--arch", "qwen3-4b", "--shape", "long_500k",
+                 "--out", str(tmp_path)])
+    rec = json.loads((tmp_path / "qwen3-4b__long_500k__single.json")
+                     .read_text())
+    assert "skipped" in rec
+    cfg = get_config("qwen3-4b", smoke=True).scaled(n_layers=1)
+    with dryrun.fake_group(1):
+        mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        rec = dryrun.run_cell(cfg, ShapeSpec("t", 16, 2, "train"), "1x1",
+                              out_dir=None, mesh=mesh, device="cpu")
+    assert rec["device"] == "cpu" and rec["flops_per_device"] > 0
 
 
 def test_deferred_options_raise():

@@ -168,7 +168,7 @@ def main(argv=None) -> int:
     ins = _inputs()
     bsz, t, di, ds = SHAPE
     nbytes = (3 * bsz * t * di + 2 * bsz * t * ds + di * ds + di) * 4
-    bound_ms, bound_by = cs._bound(nbytes, cs.mamba_ops(bsz, t, di, ds))
+    bound_ms, bound_by = cs._bound(nbytes, mk.mamba_ops(bsz, t, di, ds))
     plain = reference_mamba(*ins)
     out = {"label": args.label, "src": args.src or str(ROOT / "src"),
            "bound_ms": bound_ms, "bound_by": bound_by, "rows": []}
