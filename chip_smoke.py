@@ -266,6 +266,28 @@ flush's plan resident in the merge cache and every work block's replayed
 winner to be the backend the executor ran. B1's launches in these phases
 are counted from 0 in each and join the ``kernels`` line.
 
+Then B1's contracting form (``run_fma``, the ``FMA`` lines): every program
+at ``CHIP_SIZES`` under ``cost_model="gpu_fma"``, triton backend, loop
+fusion off, where every B1 kernel must be the contracting form (one
+``tl.fma`` a multiply→add pair).  (a) The result is held against the
+PROGRAM phase's floor result: within the pairs' allowance, the sum over
+the run's launches of each contracting kernel's ``u · max(|a·b| + 2·|a·b
++ c|)`` over its pairs on its first call's inputs (``FMA_UNIT``: 2⁻⁵³
+float64, 2⁻²⁴ float32; absolute, as a contraction under cancellation may
+change every relative digit), and for the programs outside ``EXACT``
+within ``TOL`` plus that allowance; an exact program past it is held by
+``TOL`` and named (amplified).  Each contracting kernel is held the same
+way against its plain version on its first call's inputs.  (b) Each
+program's contracted pairs — the model's ``_fma_pairs`` over its distinct
+claimed blocks, the generator's analysis, the kernels' plans and the
+``tl.fma`` calls in their sources — must be equal.  (c) Every distinct
+block with a pair is timed in both forms (``kernel_ms``: bitwise,
+contracting, contracting, bitwise) and the per-pair saving printed, its
+median (clamped at 0) the ``gpu_fma`` model's ``FMA_BONUS_S``.  (d) The
+programs whose flush tapes ``gpu_fma`` at that bonus partitions otherwise
+than ``gpu`` are counted.  B1's launches on the phase's main path join the
+``kernels`` line.
+
 The MODEL phase ends with B3's repeat check (``b3_repeat``, ROADMAP C21):
 its Qwen1.5-4B case and the case's bf16 split-P form ``B3_REPEATS`` times
 each on the same inputs, every output bitwise to the first and within the
@@ -390,6 +412,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device-memory rate (data sheet)
+#: the FMA phase: the unit roundoff of a contracted pair's dtype
+FMA_UNIT = {"float64": 2.0 ** -53, "float32": 2.0 ** -24}
 #: peak non-tensor-core operation rates of an H100 SXM by type.  The data
 #: sheet's FP64 34 and FP32 67 TFLOP/s count an FMA as two operations; the
 #: kernels launch with FMA contraction off, so one operation issues per
@@ -747,7 +771,7 @@ def run_program(name: str, args, fn, codegen, lazy) -> dict:
     if "error" in st["triton_fallbacks"]:
         raise AssertionError(f"{name}: a block was declined with 'error'")
     return {"stats": st, "warm_s": warm_s, "err": err, "exact": exact,
-            "draws": draws}
+            "draws": draws, "floor": out["torch"][0]}
 
 
 def block_bound(kernel, module) -> dict:
@@ -3226,6 +3250,223 @@ def run_a7(launch_s=None) -> int:
     return launches
 
 
+def _pair_allowance(kernel, bufs_and_salts) -> float:
+    """How far B1's contracting form may move a block's outputs from its
+    bitwise form, on the block's own inputs: over its pairs (``plan.fma``)
+    ``u · max(|a·b| + 2·|a·b + c|)`` — the product's rounding, which the
+    fused form skips, and the add's rounding in each form — with ``u`` the
+    pair dtype's unit (``FMA_UNIT``).  Absolute: under cancellation a
+    contraction may change every relative digit of ``a·b + c``."""
+    total = 0.0
+    plan = kernel.plan
+
+    def seen(k, a, b, c):
+        nonlocal total
+        u = FMA_UNIT[np.dtype(plan.nodes[plan.fma[k][1]].out_dtype).name]
+        a, b, c = (torch.as_tensor(z, dtype=torch.float64,
+                                   device=kernel.device) for z in (a, b, c))
+        prod = a * b
+        total += u * float((prod.abs() + 2 * (prod + c).abs()).max())
+
+    kernel.plain(*bufs_and_salts, pairs=seen)
+    return total
+
+
+def _fma_run(lazy, fn, args):
+    """One run of ``fn(*args)`` under ``gpu_fma`` with the triton backend
+    (loop fusion off): its result, each flush's tape and every claimed
+    block ``(signature, ops)``."""
+    tapes, blocks = [], []
+    with lazy.fresh_runtime(backend="triton", cost_model="gpu_fma",
+                            loop_fusion=False) as rt:
+        if not rt.lowering_policy().ctx.contract_fma:
+            raise AssertionError("FMA: gpu_fma's context does not contract")
+        plan, run = rt.scheduler.plan, rt.executor.run_schedule
+
+        def spy_plan(tape, **kw):
+            tapes.append(list(tape))
+            return plan(tape, **kw)
+
+        def spy_run(schedule, buffers):
+            for p in schedule.blocks:
+                if p.has_work and p.lowering is not None \
+                        and p.lowering.backend == "triton":
+                    blocks.append((p.signature, [schedule.tape[i]
+                                                 for i in p.op_indices]))
+            return run(schedule, buffers)
+
+        rt.scheduler.plan, rt.executor.run_schedule = spy_plan, spy_run
+        res = np.asarray(fn(*args))
+        torch.cuda.synchronize()
+    return res, tapes, blocks
+
+
+def _has_pair(tape) -> bool:
+    """Whether any ``add`` of ``tape`` reads a view a ``mul`` wrote: the
+    only tapes ``gpu_fma`` can plan otherwise than ``gpu``."""
+    from repro_torch.core.blocks import view_key
+    muls = {view_key(op.out) for op in tape if op.opcode == "mul"}
+    return any(view_key(v) in muls for op in tape if op.opcode == "add"
+               for v in op.in_views())
+
+
+def run_fma(lazy, codegen, programs, floors=None) -> dict:
+    """The FMA phase (module docstring): B1's contracting form under the
+    ``gpu_fma`` cost model.  ``floors`` maps a program to its result on
+    the torch floor (the PROGRAM phase's first run: a fresh runtime's
+    draws, as the phase's own run makes them; run here when None).  Returns
+    B1's launches on the phase's main path and the per-pair saving.  Runs
+    alone (~90 s on an H100): ``PYTHONPATH=src python3 -c "import
+    chip_smoke as c; from repro_torch.core import lazy; from
+    repro_torch.kernels.fused_block import codegen; from
+    repro_torch.testing.programs import BENCHMARKS, quickstart;
+    c.run_fma(lazy, codegen, dict(BENCHMARKS, quickstart=quickstart))"``."""
+    from repro_torch.core import cost
+    from repro_torch.core.algorithms import partition
+    from repro_torch.core.blocks import BlockInfo
+    from repro_torch.core.cache import tape_signature
+    from repro_torch.testing.programs import CHIP_SIZES
+    t_phase = time.perf_counter()
+    model = cost.make_cost_model("gpu_fma")
+    launches, timed, amplified, tapes_of = 0, [], [], {}
+    for name, fn in programs.items():
+        args = CHIP_SIZES[name]
+        t0 = time.perf_counter()
+        with BlockRecorder(codegen.FusedBlockKernel) as rec:
+            codegen.LAUNCHES["fused_block"] = 0
+            res, tapes, blocks = _fma_run(lazy, fn, args)
+            n_launch = codegen.LAUNCHES["fused_block"]
+        launches += n_launch
+        tapes_of[name] = tapes
+        if floors is not None and name in floors:
+            floor = floors[name]
+        else:
+            with lazy.fresh_runtime(backend="torch", loop_fusion=False):
+                floor = np.asarray(fn(*args))
+        if not np.all(np.isfinite(res)):
+            raise AssertionError(f"FMA {name}: non-finite result")
+        kernels = [k for k, _, _ in rec.calls.values()]
+        if not all(k.contract_fma for k in kernels):
+            raise AssertionError(f"FMA {name}: a B1 kernel of the bitwise "
+                                 f"form ran under gpu_fma")
+        # (b) the contracted pairs: kernels, sources, analysis and model
+        distinct = dict(blocks)
+        model_pairs = sum(model._fma_pairs(BlockInfo.from_ops(ops))
+                          for ops in distinct.values())
+        plan_pairs = sum(len(codegen._analyze(ops).fma)
+                         for ops in distinct.values())
+        kernel_pairs = sum(len(k.plan.fma) for k in kernels)
+        source_pairs = sum(codegen.triton_source(k.plan, False, True)[0]
+                           .count("tl.fma(") for k in kernels)
+        if not model_pairs == plan_pairs == kernel_pairs == source_pairs:
+            raise AssertionError(
+                f"FMA {name}: pairs model {model_pairs}, analysis "
+                f"{plan_pairs}, kernels {kernel_pairs}, sources "
+                f"{source_pairs}")
+        # (a) each contracting kernel against its plain version, and the
+        # result against the floor, within the pairs' allowance
+        allowance, block_err = 0.0, 0.0
+        for key, (k, bufs_and_salts, _) in rec.calls.items():
+            if not k.plan.fma:
+                continue
+            a_k = _pair_allowance(k, bufs_and_salts)
+            allowance += rec.counts[key] * a_k
+            got = k(*bufs_and_salts)
+            want = k.plain(*bufs_and_salts)
+            err = max(max_err(g.cpu().numpy(), w.cpu().numpy())
+                      for g, w in zip(got, want))
+            block_err = max(block_err, err)
+            what = f"FMA {name} block {k.plan.domain}: kernel vs plain"
+            if name not in EXACT:
+                # reductions and libdevice differ from the plain version
+                # in the bitwise form too (the PROGRAM phase's TOL)
+                for g, w in zip(got, want):
+                    np.testing.assert_allclose(
+                        g.cpu().numpy(), w.cpu().numpy(), rtol=TOL["rtol"],
+                        atol=TOL["atol"] + a_k, err_msg=what)
+            elif err > a_k:
+                for g, w in zip(got, want):
+                    check_close(g.cpu().numpy(), w.cpu().numpy(),
+                                f"{what} past its pair allowance {a_k:.3g}",
+                                False)
+                amplified.append(f"{name} block {k.plan.domain}")
+            timed.append((name, k, bufs_and_salts))
+        err = max_err(res, floor)
+        if name not in EXACT:
+            # the reductions sum in another order than the floor's
+            np.testing.assert_allclose(
+                res, floor, rtol=TOL["rtol"], atol=TOL["atol"] + allowance,
+                err_msg=f"FMA {name}: gpu_fma vs the floor")
+            held = "TOL plus the pairs' allowance"
+        elif err <= allowance:
+            held = "the pairs' allowance"
+        else:
+            check_close(res, floor, f"FMA {name}: gpu_fma vs the floor past "
+                        f"the pairs' allowance {allowance:.3g}", False)
+            held = "its own tolerance TOL (amplified)"
+            amplified.append(name)
+        print(f"FMA {name} args={args}: blocks={len(blocks)} distinct="
+              f"{len(distinct)} contracting kernels with pairs="
+              f"{sum(1 for k in kernels if k.plan.fma)} pairs (model "
+              f"_fma_pairs = analysis = kernels = tl.fma in sources)="
+              f"{model_pairs} launches={n_launch}; vs the floor max_abs_err="
+              f"{err:.3g} allowance={allowance:.3g} held by {held}; kernels "
+              f"vs plain max_abs_err={block_err:.3g} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        del res, floor
+        torch.cuda.empty_cache()
+    if launches == 0:
+        raise AssertionError("FMA: no fused-block kernel launched")
+    # (c) both forms of every distinct block with a pair, in one call
+    savings = []
+    for name, k, bufs_and_salts in timed:
+        *bufs, salts = bufs_and_salts
+        store = dict(zip(k.plan.inputs, bufs))
+        twin = codegen.FusedBlockKernel(k.plan, k.seed, k.device)
+        ms = [kernel_ms(kk, store, salts, k.device)
+              for kk in (twin, k, k, twin)]
+        plain_ms, fma_ms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        per_pair_s = (plain_ms - fma_ms) / len(k.plan.fma) * 1e-3
+        savings.append(per_pair_s)
+        bound = block_bound(k, codegen)
+        print(f"FMA timing {name} block {k.plan.domain} pairs="
+              f"{len(k.plan.fma)}: bitwise kernel_ms={plain_ms:.4f} "
+              f"contracting kernel_ms={fma_ms:.4f} (runs "
+              f"{', '.join(f'{x:.4f}' for x in ms)}) bound_ms="
+              f"{bound['bound_ms']:.4f} ({bound['bound_by']}); saving a "
+              f"pair {per_pair_s * 1e6:.4f} us", flush=True)
+    if not savings:
+        raise AssertionError("FMA: no block with a pair was timed")
+    median = statistics.median(savings)
+    bonus = max(0.0, median)
+    # (d) the programs whose partitions the measured bonus changes
+    gpu = cost.make_cost_model("gpu")
+    fma = cost.make_cost_model("gpu_fma", fma_bonus_s=bonus)
+    differ, t0 = [], time.perf_counter()
+    for name, tapes in tapes_of.items():
+        seen = set()
+        for tape in tapes:
+            sig = tape_signature(tape, "greedy", "gpu")
+            if sig in seen or not _has_pair(tape):
+                continue
+            seen.add(sig)
+            if partition(tape, cost_model=gpu).op_blocks() != \
+                    partition(tape, cost_model=fma).op_blocks():
+                differ.append(name)
+                break
+    print(f"FMA saving a contracted pair over {len(savings)} blocks: median "
+          f"{median * 1e6:.4f} us, range [{min(savings) * 1e6:.4f}, "
+          f"{max(savings) * 1e6:.4f}] us -> FMA_BONUS_S = {bonus:.6g} s "
+          f"(clamped at 0; core/cost.py holds {cost.FMA_BONUS_S:.6g}); "
+          f"partitions differing between gpu_fma at that bonus and gpu: "
+          f"{len(differ)}/{len(programs)} programs {differ} "
+          f"({time.perf_counter() - t0:.1f}s); amplified past the pairs' "
+          f"allowance, held by TOL: {amplified}", flush=True)
+    print(f"FMA phase: B1 launches {launches}, "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return {"launches": launches, "bonus_s": bonus}
+
+
 def _shared_request(lazy, data):
     """The load's coalescable structure: one tape for every tenant."""
     def fn():
@@ -4736,6 +4977,7 @@ def main() -> int:
     worst = 0.0
     overall = None
     b1_loss = []
+    floors = {}
     for name, fn in programs.items():
         args = CHIP_SIZES[name]
         t0 = time.perf_counter()
@@ -4752,6 +4994,7 @@ def main() -> int:
             raise AssertionError(f"{name}: {loss['launches']} recorded calls "
                                  f"for {n_launch} launches")
         b1_loss.append(loss)
+        floors[name] = res["floor"]
         worst = max(worst, blk["max_abs_err"])
         if overall is None or blk["bound_ms"] > overall["bound_ms"]:
             overall = blk
@@ -4833,6 +5076,9 @@ def main() -> int:
           f"{launch_s * 1e6:.2f} us", flush=True)
     a7_launches = run_a7(launch_s)
     torch.cuda.empty_cache()
+    fma = run_fma(lazy, codegen, programs, floors)
+    del floors
+    torch.cuda.empty_cache()
     serve_launches = run_serve(lazy, codegen)
     torch.cuda.empty_cache()
     mesh = run_mesh(lazy, codegen, train["losses"])
@@ -4848,7 +5094,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/fused_block/codegen.py",
         "replaces": "src/repro/kernels/fused_block/codegen.py:475",
         "launches": (launches + lm["launches"]["fused_block"]
-                     + loop["launches"] + a7_launches + serve_launches
+                     + loop["launches"] + a7_launches + fma["launches"]
+                     + serve_launches
                      + train["b1_launches"] + mesh["b1"]),
         "max_abs_err": max(worst, lm["b1"]["max_abs_err"]),
         "ms": overall["ms"],

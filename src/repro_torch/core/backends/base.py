@@ -48,7 +48,9 @@ class LoweringContext:
     the RNG seed, the device the block's buffers live on (the CUDA card
     unless given) and, for sharded lowerings, the device mesh (``mesh``, a
     1-D ``DeviceMesh``; ``None`` on a single-device executor), its
-    ``axis`` and its rank count ``n_dev``.  It carries no buffers: backends
+    ``axis`` and its rank count ``n_dev``, and ``contract_fma``: whether
+    B1 builds its contracting form (a runtime under the ``gpu_fma`` cost
+    model; ``cost.contracts_fma``).  It carries no buffers: backends
     build functions, the executor owns the store."""
 
     seed: int = 0
@@ -56,6 +58,7 @@ class LoweringContext:
     mesh: object = None
     axis: Optional[str] = None
     n_dev: int = 1
+    contract_fma: bool = False
 
 
 @dataclass(frozen=True)

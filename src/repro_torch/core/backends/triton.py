@@ -13,12 +13,14 @@ On CPU tensors the built function evaluates the block's plan with plain
 torch ops; on a CUDA tensor it launches the kernel or raises.  It donates:
 the executor grants each call the input buffers it may overwrite, and the
 kernel stores a rewritten base into its own storage when no read of that
-base is shifted against the write (``codegen.output_buffers``).
+base is shifted against the write (``codegen.output_buffers``).  Under a
+context with ``contract_fma`` (a ``gpu_fma`` runtime) it builds B1's
+contracting form, cached apart from the bitwise one.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 from .base import LoweringBackend, LoweringContext, codegen_lower_reason
 
@@ -33,6 +35,11 @@ class TritonBackend(LoweringBackend):
     def build(self, ops: Sequence, plan, ctx: LoweringContext):
         from ...kernels.fused_block.codegen import build_block_kernel
         fn, ins, outs = build_block_kernel(ops, seed=ctx.seed,
-                                           device=ctx.device)
+                                           device=ctx.device,
+                                           contract_fma=ctx.contract_fma)
         assert tuple(ins) == plan.inputs and tuple(outs) == plan.outputs
         return fn
+
+    def cache_token(self, ops: Sequence, plan, ctx: LoweringContext) -> Tuple:
+        # the contracting form is another kernel for the same signature
+        return ("contract_fma",) if ctx.contract_fma else ()

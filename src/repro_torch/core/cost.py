@@ -11,8 +11,9 @@ Every model exposes
 All models are monotone: ``merge_saving >= 0`` always.  The paper models
 are copies of ``repro.core.cost``; ``gpu`` takes the place of the
 reference's ``tpu`` model with the same structure and H100 constants,
-``gpu_dist`` of its ``tpu_dist``, ``comm`` is the reference's
-communication-aware model over the sharded IR (``core/dist``), and
+``gpu_dist`` of its ``tpu_dist``, ``gpu_fma`` of its ``tpu_fma``,
+``comm`` is the reference's communication-aware model over the sharded
+IR (``core/dist``), and
 ``calibrated`` prices ``gpu``'s structure with the fit that
 ``core.tuning`` measures on the card.
 """
@@ -325,6 +326,57 @@ class GPUCost(_KernelAlignment, CostModel):
                 + self.launch_s * self._dispatches(b))
 
 
+#: the ``gpu_fma`` model's default bonus a contracted pair (seconds): the
+#: median saving a pair, clamped at 0, of ``chip_smoke.py``'s ``FMA``
+#: phase, which times every distinct block of the paper's programs that
+#: holds a pair in both of B1's forms.  On an H100 80GB HBM3 at its
+#: 700.00 W limit the median was -0.67 us over 18 blocks (-7.13 to +0.69
+#: us): the contracting form saves nothing on these byte-bound blocks, so
+#: the bonus is 0 and ``gpu_fma`` plans as ``gpu`` does (PERF.md §6)
+FMA_BONUS_S = 0.0
+
+
+class GPUFMACost(GPUCost):
+    """``gpu`` plus a bonus for each multiply→add pair a block holds (the
+    port's ``tpu_fma``, as ``gpu`` is its ``tpu``): B1's contracting form
+    (``codegen.build_block_kernel(..., contract_fma=True)``, which a
+    runtime under this model lowers every block through) computes each
+    such pair as one fused multiply-add.  ``fma_bonus_s`` is the saving a
+    pair; its default, :data:`FMA_BONUS_S`, is measured on the card, and
+    where it is 0 this model plans exactly as ``gpu`` does.  Monotone:
+    merging can only co-locate more pairs, so block costs only shrink."""
+
+    def __init__(self, fma_bonus_s: float = FMA_BONUS_S, **kw):
+        super().__init__(**kw)
+        self.name = "gpu_fma"
+        self.fma_bonus_s = fma_bonus_s
+
+    def _fma_pairs(self, b: BlockInfo) -> int:
+        writers: Dict[Tuple, str] = {}
+        for op in b.ops:
+            if op.out is not None:
+                writers[view_key(op.out)] = op.opcode
+        pairs = 0
+        for op in b.ops:
+            if op.opcode != "add":
+                continue
+            for v in op.in_views():
+                if writers.get(view_key(v)) == "mul":
+                    pairs += 1
+                    break
+        return pairs
+
+    def block_cost(self, b: BlockInfo) -> float:
+        base = super().block_cost(b)
+        return base - self.fma_bonus_s * self._fma_pairs(b)
+
+    def partition_cost(self, blocks: Sequence[BlockInfo]) -> float:
+        # keep Def. 6(1) non-negativity: offset by the max possible bonus
+        total = sum(self.block_cost(b) for b in blocks)
+        n_ops = sum(len(b.ops) for b in blocks)
+        return total + self.fma_bonus_s * n_ops
+
+
 class CalibratedCost(GPUCost):
     """``gpu``'s structure with MEASURED prices (the port's copy of the
     reference's ``calibrated`` model).
@@ -504,6 +556,7 @@ _MODELS = {
     "comm": CommCost,
     "gpu": GPUCost,
     "gpu_dist": GPUDistCost,
+    "gpu_fma": GPUFMACost,
     "max_contract": MaxContractCost,
     "max_locality": MaxLocalityCost,
     "robinson": RobinsonCost,
@@ -523,6 +576,9 @@ def make_cost_model(name: str, **kw) -> CostModel:
       aligned
     * ``"gpu_dist"``     — ``gpu`` plus halo bytes over NVLink (the
       reference's ``tpu_dist``)
+    * ``"gpu_fma"``      — ``gpu`` plus a multiply→add co-location bonus
+      (the reference's ``tpu_fma``); a runtime under it lowers B1 through
+      its contracting form (:func:`contracts_fma`)
     * ``"comm"``         — per-device bytes plus the unique collectives'
       fabric bytes over the sharded IR (``core/dist``)
     * ``"calibrated"``   — ``gpu``'s structure with measured, fitted prices
@@ -536,6 +592,13 @@ def make_cost_model(name: str, **kw) -> CostModel:
         return _MODELS[name](**kw)
     except KeyError:
         raise ValueError(f"unknown cost model {name!r}; have {sorted(_MODELS)}")
+
+
+def contracts_fma(name: str) -> bool:
+    """Whether a runtime under cost model ``name`` lowers B1 blocks
+    through the generator's contracting form: under ``gpu_fma`` only;
+    every other model keeps the form bitwise with the torch floor."""
+    return name == "gpu_fma"
 
 
 def model_cache_token(name: str) -> Tuple:

@@ -654,18 +654,24 @@ class BlockExecutor:
         return self.stats.snapshot()
 
     # -- policy --------------------------------------------------------
-    def lowering_context(self):
+    def lowering_context(self, contract_fma: bool = False):
+        """The context this executor's blocks are built under;
+        ``contract_fma`` (a ``gpu_fma`` runtime's) picks B1's contracting
+        form."""
         from .backends import LoweringContext
         return LoweringContext(seed=self.seed, device=self.device,
                                mesh=self.mesh, axis=self.axis,
-                               n_dev=self.n_dev)
+                               n_dev=self.n_dev, contract_fma=contract_fma)
 
-    def lowering_policy(self):
+    def lowering_policy(self, contract_fma: bool = False):
         """What ``Runtime.flush`` hands ``Scheduler.plan`` so the lower
-        stage decides per block which of this executor's backends runs it."""
+        stage decides per block which of this executor's backends runs it
+        (``Runtime.lowering_policy`` passes its cost model's
+        ``contract_fma``); the schedule carries its context to
+        :meth:`run_schedule`."""
         from .backends import LoweringPolicy
         return LoweringPolicy(backends=self.backends,
-                              ctx=self.lowering_context())
+                              ctx=self.lowering_context(contract_fma))
 
     def topology_key(self) -> Tuple:
         """The device/mesh identity a plan is valid for, mixed into the
@@ -783,7 +789,8 @@ class BlockExecutor:
         (:meth:`_chunked`)."""
         from .backends import get_backend
         tape = schedule.tape
-        ctx = self.lowering_context()
+        ctx = schedule.ctx if schedule.ctx is not None \
+            else self.lowering_context()
         # holders of each storage: buffers and SYNC snapshots (other
         # sessions' snapshots share no storage with this store's buffers
         # but rows of one batched dispatch, which they can only make
@@ -875,7 +882,7 @@ class BlockExecutor:
     def run_loop(self, loop_plan, buffers: Dict[int, torch.Tensor],
                  state_uids: Sequence[int], inv_uids: Sequence[int],
                  salts: Sequence[Sequence[int]],
-                 unroll: int) -> Tuple[torch.Tensor, ...]:
+                 unroll: int, ctx=None) -> Tuple[torch.Tensor, ...]:
         """Run ``len(salts)`` iterations of a recurring flush as one fused
         loop (cross-flush loop fusion, ``core/loop.py``); returns the final
         state buffers.
@@ -899,9 +906,13 @@ class BlockExecutor:
         state buffers in place, so any other store entry or SYNC snapshot
         that shares their storage is copied off first.  On a CUDA device
         the body's one iteration is a CUDA graph replayed once an
-        iteration; on the CPU it runs eagerly."""
+        iteration; on the CPU it runs eagerly.  ``ctx`` is the lowering
+        context the body's blocks are built under (this executor's
+        default when None); its ``contract_fma`` is part of the body's
+        key."""
         from .backends.loop_body import build_loop_fn
-        key = ("loop", loop_plan.key)
+        ctx = ctx if ctx is not None else self.lowering_context()
+        key = ("loop", loop_plan.key, ctx.contract_fma)
         n = len(salts)
         st = self.stats
         with trace.span("stage.execute", loop=True, n_iterations=n):
@@ -919,7 +930,7 @@ class BlockExecutor:
                                          loop_plan.input_sources,
                                          loop_plan.tape_inputs,
                                          loop_plan.tape_outputs,
-                                         self.lowering_context(), unroll)
+                                         ctx, unroll)
                 with self._lock:
                     self._cache[key] = body
             state = [buffers[u] for u in state_uids]

@@ -28,6 +28,7 @@ import torch
 
 from .algorithms import PartitionResult
 from .cache import MergeCache
+from .cost import contracts_fma
 from .device import resolve_device
 from .dist import insert_resharding, tape_has_sharding
 from .dist.mesh import whole
@@ -53,7 +54,10 @@ class Runtime:
     cost_model : name registered in ``repro_torch.core.cost.make_cost_model``
         (``"bohrium"`` reproduces the paper; ``"gpu"`` prices device-memory
         time, launches and Triton kernel expressibility; ``"calibrated"``
-        the same structure with the fit ``core.tuning`` installed).
+        the same structure with the fit ``core.tuning`` installed;
+        ``"gpu_fma"`` adds a bonus a multiply→add pair, and under it every
+        block the triton backend runs is B1's contracting form, one fused
+        multiply-add a pair — :meth:`lowering_policy`).
     use_cache : reuse block structure across structurally-identical flushes
         (the paper's merge cache, §IV-F).
     node_budget : cap on partitioner search nodes before falling back to
@@ -214,6 +218,16 @@ class Runtime:
             self._refcount[base.uid] = c - 1
 
     # -- flushing ------------------------------------------------------
+    def lowering_policy(self):
+        """The executor's lowering policy under this runtime's cost model:
+        its context carries ``contract_fma`` when the model is
+        ``gpu_fma`` (``cost.contracts_fma``), so B1 builds its contracting
+        form, cached apart from the bitwise one, and a later
+        ``set_policy(cost_model=...)`` never reuses a kernel of the other
+        form.  The torch floor never contracts."""
+        return self.executor.lowering_policy(
+            contract_fma=contracts_fma(self.cost_model))
+
     def flush(self) -> None:
         """Run the staged pipeline on the recorded tape: the scheduler plans
         (graph → partition → schedule → lower, with the merge cache
@@ -276,7 +290,7 @@ class Runtime:
                     node_budget=self.node_budget,
                     use_cache=self.use_cache,
                     topology=self.executor.topology_key(),
-                    lowering=self.executor.lowering_policy(),
+                    lowering=self.lowering_policy(),
                     partition_backend=self.partition_backend,
                     time_budget_s=self.time_budget_s)
                 if sched.result is not None:

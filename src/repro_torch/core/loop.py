@@ -240,14 +240,14 @@ class LoopFuser:
             tape, algorithm=rt.algorithm, cost_model=rt.cost_model,
             node_budget=rt.node_budget, use_cache=True,
             topology=rt.executor.topology_key(),
-            lowering=rt.executor.lowering_policy(),
+            lowering=rt.lowering_policy(),
             partition_backend=rt.partition_backend,
             time_budget_s=rt.time_budget_s)
         if sched.key is None:
             return
         self.loop_plan = rt.scheduler.plan_loop(
             sched, key=sched.key, io=self._last_io, mapping=self.mapping,
-            cost_model=rt.cost_model, lowering=rt.executor.lowering_policy(),
+            cost_model=rt.cost_model, lowering=rt.lowering_policy(),
             unroll=self.unroll)
         salt_pos = []
         for p in self.loop_plan.plans:
@@ -324,7 +324,7 @@ class LoopFuser:
         before = rt.executor.snapshot_stats()
         final = rt.executor.run_loop(lp, rt.buffers, self.exec_outs,
                                      inv_uids, [row for row, _, _ in pending],
-                                     self.unroll)
+                                     self.unroll, rt.lowering_policy().ctx)
         for _row, dels, _outs in pending:
             for u in dels:
                 rt.buffers.pop(u, None)

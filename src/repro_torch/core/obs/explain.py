@@ -251,7 +251,7 @@ def explain(rt, tape: Optional[Sequence] = None) -> ExplainReport:
     blocks = result.op_blocks()
     plans = plan_blocks(tape, blocks)
 
-    policy = rt.executor.lowering_policy()
+    policy = rt.lowering_policy()
     cost_model = make_cost_model(rt.cost_model)
     block_reports: List[BlockReport] = []
     for i, plan in enumerate(plans):

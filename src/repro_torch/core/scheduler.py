@@ -30,7 +30,8 @@ from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .algorithms import PartitionResult, partition
-from .backends import LoweringDecision, LoweringPolicy, select_lowering
+from .backends import (LoweringContext, LoweringDecision, LoweringPolicy,
+                       select_lowering)
 from .cache import MergeCache, block_signature, tape_signature
 from .cost import make_cost_model, model_cache_token
 from .executor import block_dead_bases, block_io
@@ -62,6 +63,9 @@ class Schedule:
     result: Optional[PartitionResult] = None   # None on a merge-cache hit
     stats: Dict[str, float] = field(default_factory=dict)
     key: Optional[Tuple] = None                # merge-cache key (use_cache)
+    #: the lowering context the blocks were decided under and are built
+    #: under (None: the executor's default)
+    ctx: Optional[LoweringContext] = None
 
 
 @dataclass(frozen=True)
@@ -228,7 +232,8 @@ class Scheduler:
             if self.plan_store is not None:
                 self.plan_store.store(key, blocks, decisions)
         return Schedule(tape=list(tape), blocks=plans, result=result,
-                        stats=stats, key=key)
+                        stats=stats, key=key,
+                        ctx=lowering.ctx if lowering is not None else None)
 
     def plan_loop(self, schedule: Schedule, *, key: Tuple, io: Tuple,
                   mapping: Tuple, cost_model: str = "bohrium",

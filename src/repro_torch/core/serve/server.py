@@ -193,7 +193,7 @@ class Server:
     def _signature(self, sess: Runtime, tape) -> Tuple:
         ex = sess.executor
         return merge_key(tape, sess.algorithm, sess.cost_model,
-                         ex.lowering_policy(), sess.partition_backend,
+                         sess.lowering_policy(), sess.partition_backend,
                          ex.topology_key())
 
     def _submit_batched(self, sess: Runtime, arrs: Sequence[LazyArray]) -> List:
@@ -247,7 +247,7 @@ class Server:
             lead.tape, algorithm=sess.algorithm, cost_model=sess.cost_model,
             node_budget=sess.node_budget, use_cache=True,
             topology=rt.executor.topology_key(),
-            lowering=rt.executor.lowering_policy(),
+            lowering=sess.lowering_policy(),
             partition_backend=sess.partition_backend,
             time_budget_s=sess.time_budget_s)
         if any(p.lowering is not None and p.lowering.backend != "torch"

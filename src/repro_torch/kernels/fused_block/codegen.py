@@ -70,7 +70,10 @@ exactly once and keeps every intermediate in registers.
   Accumulation is in the reduction's result dtype (``jnp.sum``
   semantics).
 * *Numerics.*  Launched with ``enable_fp_fusion=False`` so multiplies and
-  adds are not contracted into FMAs the torch floor does not do; float32
+  adds are not contracted into FMAs the torch floor does not do (the
+  opt-in contracting form, ``contract_fma``, writes ``tl.fma`` for the
+  multiply→add pairs the ``gpu_fma`` cost model counts, and for nothing
+  else: the flag stays off on its launch too); float32
   division and square root use the correctly rounded ``div_rn`` /
   ``sqrt_rn``; transcendental functions and ``fmod`` come from libdevice,
   the same routines PyTorch's CUDA kernels call — except a float ``mod``
@@ -111,6 +114,7 @@ import numpy as np
 import torch
 
 from ...core import prng
+from ...core.blocks import view_key
 from ...core.device import resolve_device
 from ...core.executor import (_BINARY, _UNARY, _read, _slice_plan, _window,
                               apply_op, apply_reduce, block_io, numpy_dtype,
@@ -236,6 +240,9 @@ class _Plan:
     inputs: List[int] = field(default_factory=list)
     outputs: List[int] = field(default_factory=list)
     base_meta: Dict[int, Tuple[int, np.dtype]] = field(default_factory=dict)
+    #: the contracting form's pairs: an add node -> (the position of its
+    #: term a mul node wrote, that mul node) — :func:`_fma_pairs`
+    fma: Dict[int, Tuple[int, int]] = field(default_factory=dict)
 
     @property
     def R_pad(self) -> int:
@@ -484,6 +491,8 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
                 for st in stores):
             plan.in_place.add(u)
 
+    plan.fma = _fma_pairs(ops, work, plan)
+
     # Hopper tiling: a program owns TR rows and loops over C in BC-wide
     # chunks (powers of two, at least 2 and 16 so no tile axis degenerates).
     # Every operand, drawn value and node value is live in registers across
@@ -496,6 +505,52 @@ def _analyze(ops: Sequence[Op]) -> _Plan:
     plan.TR = max(2, min(_next_pow2(R), tile // plan.BC))
     plan.G = -(-R // plan.TR)
     return plan
+
+
+def _term_dtype(plan: _Plan, t: Tuple):
+    """What ``op_dtypes`` takes for one node term: an operand's or a
+    node's dtype, a literal itself."""
+    tag, x = t
+    if tag == "lit":
+        return x
+    if tag == "op":
+        return np.dtype(plan.base_meta[plan.operands[x].base_uid][1])
+    return np.dtype(plan.nodes[x].out_dtype)
+
+
+def _fma_pairs(ops: Sequence[Op], work: Sequence[Op],
+               plan: _Plan) -> Dict[int, Tuple[int, int]]:
+    """The multiply→add pairs the contracting form computes as one
+    ``tl.fma``: those the ``gpu_fma`` cost model counts (``cost.
+    GPUFMACost._fma_pairs``: an ``add`` and the first of its input views
+    whose last writer in the block is a ``mul``, at most one an ``add``)
+    where the add reads the mul's value in registers and both compute in
+    one floating dtype, the mul's result kept in it.  An integer pair the
+    model counts is exact either way and stays two operations."""
+    writers: Dict[Tuple, str] = {}
+    for op in ops:
+        if op.out is not None:
+            writers[view_key(op.out)] = op.opcode
+    pairs: Dict[int, Tuple[int, int]] = {}
+    for k, op in enumerate(work):
+        if op.opcode != "add":
+            continue
+        pos = next((i for i, t in enumerate(op.inputs) if isinstance(t, View)
+                    and writers.get(view_key(t)) == "mul"), None)
+        if pos is None:
+            continue
+        tag, m = plan.nodes[k].terms[pos]
+        if tag != "val" or plan.nodes[m].opcode != "mul":
+            continue
+        mul = plan.nodes[m]
+        cd_m, rd_m = op_dtypes("mul", [_term_dtype(plan, t)
+                                       for t in mul.terms])
+        cd_a, _ = op_dtypes("add", [_term_dtype(plan, t)
+                                    for t in plan.nodes[k].terms])
+        if np.dtype(cd_m).kind == "f" and np.dtype(cd_m) == np.dtype(rd_m) \
+                == np.dtype(mul.out_dtype) == np.dtype(cd_a):
+            pairs[k] = (pos, m)
+    return pairs
 
 
 def block_lower_reason(ops: Sequence[Op]) -> Optional[str]:
@@ -636,13 +691,18 @@ def output_buffers(plan: _Plan, store: Dict[int, torch.Tensor],
 
 
 def plain_outputs(plan: _Plan, store: Dict[int, torch.Tensor], seed: int,
-                  salts, outs: Sequence[torch.Tensor], device) -> None:
+                  salts, outs: Sequence[torch.Tensor], device,
+                  pairs=None) -> None:
     """The kernel's work with torch ops: every node on whole ``(R_pad, C)``
     tensors (``random`` through :func:`prng.uniform_at` at each element's
     flat index, or, when ``salts`` is a ``prng.KeyTable``, through
     :func:`prng.uniform_bits` under the key words the table holds at its
     counter), then each output base's stores applied in program order to
-    its buffer in ``outs`` (from :func:`output_buffers`)."""
+    its buffer in ``outs`` (from :func:`output_buffers`).  ``pairs``, when
+    given, is called as ``pairs(k, a, b, c)`` at each multiply→add pair of
+    ``plan.fma`` (the add node ``k``, the mul's terms, the add's other
+    term) before the add is evaluated as usual: what the contracting form
+    fuses, for a caller that bounds its effect."""
     R, C, N, R_pad = plan.R, plan.C, plan.N, plan.R_pad
     overwritten = {u for u, b in zip(plan.outputs, outs) if store.get(u) is b}
     loaded = []
@@ -663,6 +723,10 @@ def plain_outputs(plan: _Plan, store: Dict[int, torch.Tensor], seed: int,
     for k, node in enumerate(plan.nodes):
         oc = node.opcode
         args = [resolve(t) for t in node.terms]
+        if pairs is not None and k in plan.fma:
+            pos, m = plan.fma[k]
+            pairs(k, *(resolve(t) for t in plan.nodes[m].terms),
+                  args[1 - pos])
         if node.red_kind is not None:
             if k not in by_node:
                 continue                # a reduction no output keeps
@@ -874,6 +938,23 @@ def _op_expr(src: _Source, oc: str, raw: List[Tuple]) -> Tuple[str, np.dtype]:
     return _elementwise(src, oc, args, cd), rd
 
 
+def _fma_expr(src: _Source, plan: _Plan, k: int,
+              raws: List[List[Tuple]]) -> Tuple[str, np.dtype]:
+    """``tl.fma`` of add node ``k``'s pair (``plan.fma``): the mul's two
+    terms and the add's other term, each as :func:`_op_expr` would pass
+    it; ``raws`` holds the mul's and the add's ``raw`` terms."""
+    pos, _ = plan.fma[k]
+    mul_raw, add_raw = raws
+    cd, rd = op_dtypes("add", [d for _, d in add_raw])
+
+    def arg(n, d):
+        return src.const(d, cd) if n is None else _cast(n, d, cd)
+
+    a, b = (arg(n, d) for n, d in mul_raw)
+    c = arg(*add_raw[1 - pos])
+    return f"tl.fma({a}, {b}, {c})", rd
+
+
 _COMBINE = {"reduce_sum": "_add", "reduce_prod": "_mul"}
 
 
@@ -1041,7 +1122,8 @@ def key_args(seed: int, salts: Sequence[int], n: int) -> List[int]:
     return out
 
 
-def triton_source(plan: _Plan, keyed: bool = False
+def triton_source(plan: _Plan, keyed: bool = False,
+                  contract_fma: bool = False
                   ) -> Tuple[str, List[float], List[int], List[Tuple]]:
     """The generated module: ``(source, float constants, int constants,
     combines)`` with one ``(kernel name, node, store number, W, WB,
@@ -1055,7 +1137,11 @@ def triton_source(plan: _Plan, keyed: bool = False
     constant tables.  ``keyed`` gives the loop form: in place of the key
     words, a pointer to the block's first draw in a key table's row, the
     row stride (``uint32`` words) and a pointer to the iteration counter
-    (``prng.KeyTable``); a block without draws has one form."""
+    (``prng.KeyTable``); a block without draws has one form.
+    ``contract_fma`` gives the contracting form: each pair of
+    ``plan.fma`` is one ``tl.fma`` of the mul's operands and the add's
+    other term (one rounding where the bitwise form has two); the source
+    is otherwise the same, and without pairs identical."""
     R, C, N, TR, BC, G = plan.R, plan.C, plan.N, plan.TR, plan.BC, plan.G
     src = _Source()
     params: List[str] = []
@@ -1209,6 +1295,11 @@ def triton_source(plan: _Plan, keyed: bool = False
             else:
                 got = f"tl.load(A{tbl} + {iv}, mask={ok} & m, other=0)"
             expr, rd = f"tl.where({ok}, {got}, {fill})", tdt
+        elif contract_fma and k in plan.fma:
+            expr, rd = _fma_expr(src, plan, k, [
+                [term(t, None) if t[0] != "lit" else (None, t[1])
+                 for t in plan.nodes[n].terms]
+                for n in (plan.fma[k][1], k)])
         else:
             expr, rd = _op_expr(src, oc, [
                 term(t, None) if t[0] != "lit" else (None, t[1])
@@ -1302,13 +1393,18 @@ class FusedBlockKernel:
 
     Input buffers on the CPU take the plain version; buffers on a CUDA
     device launch the generated kernel (each form built at its first
-    launch) or raise.
+    launch) or raise.  With ``contract_fma`` the kernel is the
+    contracting form (:func:`triton_source`); its plain version stays the
+    bitwise one, so on the CPU a contracting block's result differs from
+    the card's by at most one rounding a contracted pair.
     """
 
-    def __init__(self, plan: _Plan, seed: int, device: torch.device):
+    def __init__(self, plan: _Plan, seed: int, device: torch.device,
+                 contract_fma: bool = False):
         self.plan = plan
         self.seed = seed
         self.device = torch.device(device)
+        self.contract_fma = contract_fma
         #: keyed (loop form) -> (module, consts, combines) once built
         self._gen: Dict[bool, Tuple] = {}
         #: the forms launched once (compiled by Triton)
@@ -1330,17 +1426,19 @@ class FusedBlockKernel:
             return self.launch(store, salts, device, reuse)
         raise RuntimeError(f"no fused-block kernel for device {device}")
 
-    def plain(self, *bufs_and_salts, reuse: FrozenSet[int] = frozenset()):
+    def plain(self, *bufs_and_salts, reuse: FrozenSet[int] = frozenset(),
+              pairs=None):
         """The plain version on any device — what the kernel is held
-        against on the card."""
+        against on the card (``pairs``: :func:`plain_outputs`')."""
         *bufs, salts = bufs_and_salts
         device = self._device_of(bufs)
         return self._plain(dict(zip(self.plan.inputs, bufs)), salts, device,
-                           reuse)
+                           reuse, pairs)
 
-    def _plain(self, store, salts, device, reuse) -> Tuple:
+    def _plain(self, store, salts, device, reuse, pairs=None) -> Tuple:
         outs = output_buffers(self.plan, store, reuse, device)
-        plain_outputs(self.plan, store, self.seed, salts, outs, device)
+        plain_outputs(self.plan, store, self.seed, salts, outs, device,
+                      pairs)
         return tuple(outs)
 
     def launch(self, store: Dict[int, torch.Tensor], salts,
@@ -1373,7 +1471,8 @@ class FusedBlockKernel:
             with _BUILD_LOCK:
                 gen = self._gen.get(keyed)
                 if gen is None:
-                    source, kf, ki, combines = triton_source(p, keyed)
+                    source, kf, ki, combines = triton_source(
+                        p, keyed, self.contract_fma)
                     consts = (torch.tensor(kf or [0.0], dtype=torch.float64,
                                            device=device),
                               torch.tensor(ki or [0], dtype=torch.int64,
@@ -1409,7 +1508,8 @@ class FusedBlockKernel:
         return run, outs
 
 
-def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
+def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None,
+                       contract_fma: bool = False):
     """Compile a WSP block into one generated Triton kernel.
 
     Returns ``(fn, input_uids, output_uids)`` where
@@ -1418,12 +1518,15 @@ def build_block_kernel(ops: Sequence[Op], *, seed: int = 0, device=None):
     :func:`repro_torch.core.executor.make_block_fn` calling convention
     (``salts`` feeds any ``random`` ops; ``reuse`` names the input
     positions the call may overwrite).  ``device`` is the CUDA card unless
-    given.  Raises :class:`FusedBlockUnsupported` (with a ``reason`` slug)
-    for blocks the generator cannot express."""
+    given.  ``contract_fma`` builds the contracting form, each pair of
+    ``plan.fma`` one fused multiply-add on the card (the ``gpu_fma`` cost
+    model's form; off, the kernel is bitwise with the torch floor).
+    Raises :class:`FusedBlockUnsupported` (with a
+    ``reason`` slug) for blocks the generator cannot express."""
     device = resolve_device(device)
     plan = _analyze(ops)
-    return FusedBlockKernel(plan, seed, device), list(plan.inputs), \
-        list(plan.outputs)
+    return FusedBlockKernel(plan, seed, device, contract_fma), \
+        list(plan.inputs), list(plan.outputs)
 
 
 def block_bytes(plan: _Plan) -> int:

@@ -23,10 +23,20 @@ and on fake or ``meta`` tensors a fake one that makes the outputs' shapes,
 dtypes and strides and, on fake CUDA tensors, refuses what the kernel
 refuses.  Its operation count (:func:`mamba_ops`) is both its FLOP formula
 and the work ``chip_smoke.py``'s bound reads.
+
+Its backward is a third operator, ``torch.ops.repro_torch.
+mamba_scan_backward`` (:func:`backward_op`): on CPU and CUDA tensors alike
+the plain backward (autograd through ``reference_mamba``, as the
+reference's is ``jax.vjp`` of its reference), no kernel; on fake tensors
+the gradients and a buffer of the plain backward's peak temporaries
+(:func:`backward_work`), so a traced step passes it as one operation, not
+as the plain loop's ops token by token.  Its operation count is
+:func:`mamba_backward_ops`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -213,3 +223,116 @@ def scan_flops(x_shape, dt_shape, b_shape, *args, out_shape=None,
     """FLOPs of one call: :func:`mamba_ops`' operations, one each."""
     bsz, t, d_inner = x_shape
     return sum(mamba_ops(bsz, t, d_inner, b_shape[-1]).values())
+
+
+def mamba_backward_ops(bsz, t, d_inner, d_state) -> dict:
+    """The plain backward's operations (:func:`backward_op`): its forward
+    recompute, per (token, channel, state) dt·A, the exponential, decay·h,
+    dx·B, their sum and h·C's multiply-add (6 float32 and one exp), per
+    (token, channel) dt·x, D·x and y's sum (3); then the VJP, per (token,
+    channel, state) h's gradient from y and from the next token (3), C's,
+    B's and dx's multiply-adds (6), the decay's and the exponent's
+    products (2), dt's and A's multiply-adds (4), per (token, channel)
+    dt's, x's and D's products and sums (6)."""
+    return {"float32": bsz * t * d_inner * (21 * d_state + 9),
+            "exp": bsz * t * d_inner * d_state}
+
+
+def backward_work(bsz, t, d_inner, d_state) -> int:
+    """float32 elements the plain backward holds at its peak besides the
+    gradients it returns (measured with ``MemTracker``: within 10% on
+    small shapes, ``tests/test_torch_dryrun_c31.py``): per (row, token)
+    the decay and h, each ``d_inner × d_state``, that the recorded loop
+    keeps for the VJP, and about 8 ``d_inner``-wide and 2
+    ``d_state``-wide vectors (each token's dt·x and y, and the full-size
+    gradient buffers each token's slice adds into)."""
+    return bsz * t * (2 * d_inner * d_state + 8 * d_inner + 2 * d_state)
+
+
+@contextlib.contextmanager
+def _autograd():
+    """Autograd inside an operator's implementation, which the dispatcher
+    runs with the autograd keys excluded: the plain backward records and
+    differentiates the plain version there."""
+    keys = torch._C.DispatchKey
+    ex = torch._C._dispatch_tls_local_exclude_set()
+    for k in (keys.AutogradFunctionality, keys.AutogradOther,
+              keys.AutogradNestedTensor):
+        ex = ex.remove(k)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), ex), \
+            torch.enable_grad():
+        yield
+
+
+def _plain_backward(x, dt, b, c, a, d, state, gy, gh):
+    """The plain backward: autograd through ``reference_mamba`` from the
+    outputs that have a gradient (y's, the final state's) and depend on
+    an input (with no token, y does not); an input no such output depends
+    on gets zeros."""
+    with _autograd():
+        ins = [z.detach().requires_grad_() for z in (x, dt, b, c, a, d)]
+        st = None if state is None else state.detach().requires_grad_()
+        outs = reference_mamba(*ins, state=st, return_state=True)
+        pairs = [(o, g) for o, g in zip(outs, (gy, gh))
+                 if g is not None and o.requires_grad]
+        wrt = ins + ([] if st is None else [st])
+        got = torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True, materialize_grads=True) if pairs \
+            else [torch.zeros_like(z) for z in wrt]
+    grads = [g.detach() for g in got]
+    if state is None:
+        grads.append(x.new_empty((0,), dtype=torch.float32))
+    return grads
+
+
+#: the backward operator's outputs: seven gradients and ``work``
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+              torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_backward",
+                         mutates_args=(), device_types=("cpu", "cuda"))
+def backward_op(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                state: Optional[torch.Tensor], gy: Optional[torch.Tensor],
+                gh: Optional[torch.Tensor]) -> Grads:
+    """The gradients of x, dt, b, c, a, d and the initial state (an empty
+    ``(0,)`` tensor without one) given y's gradient ``gy`` and the final
+    state's ``gh`` (either may be None), then ``work``: a zeroed
+    float32 buffer of the :func:`backward_work` elements the plain
+    backward holds at its peak, made after its temporaries are freed, so
+    that a trace on fake tensors (where nothing runs) sees that peak in
+    the operator's outputs; the caller drops it at once."""
+    grads = _plain_backward(x, dt, b, c, a, d, state, gy, gh)
+    ins = [z for z in (x, dt, b, c, a, d, state, gy, gh)
+           if z is not None and z.numel()]
+    # no output may alias an input (with no token, the state's gradient
+    # is ``gh`` itself)
+    grads = [g.clone() if g.numel() and any(
+        g.untyped_storage().data_ptr() == z.untyped_storage().data_ptr()
+        for z in ins) else g for g in grads]
+    return (*grads, _work(x, b))
+
+
+def _work(x, b):
+    return x.new_zeros((backward_work(x.shape[0], x.shape[1], x.shape[2],
+                                      b.shape[-1]),), dtype=torch.float32)
+
+
+@backward_op.register_fake
+def _backward_fake(x, dt, b, c, a, d, state, gy, gh):
+    grads = [z.new_empty(z.shape) for z in (x, dt, b, c, a, d)]
+    grads.append(x.new_empty((0,), dtype=torch.float32) if state is None
+                 else state.new_empty(state.shape))
+    return (*grads, _work(x, b))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_backward)
+def backward_flops(x_shape, dt_shape, b_shape, *args, out_shape=None,
+                   **kw) -> int:
+    """FLOPs of one call: :func:`mamba_backward_ops`' operations, one
+    each."""
+    bsz, t, d_inner = x_shape
+    return sum(mamba_backward_ops(bsz, t, d_inner, b_shape[-1]).values())

@@ -1,17 +1,18 @@
 """Public Mamba scan op: the port of ``repro/kernels/mamba_scan/ops.py``.
 Forward is :func:`kernel.mamba_scan` (the kernel on CUDA tensors, the plain
 version on CPU tensors: the tensors' device takes the place of the
-reference's ``interpret`` flag); backward is autograd through the plain
-version, as the reference's is ``jax.vjp`` of its reference.  It takes an
-optional initial state and returns the final one when asked, as a model's
-prefill and decode need."""
+reference's ``interpret`` flag); backward is the operator
+:func:`kernel.backward_op`, the VJP of the plain version on CPU and CUDA
+tensors alike, as the reference's is ``jax.vjp`` of its reference.  It
+takes an optional initial state and returns the final one when asked, as
+a model's prefill and decode need."""
 
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
-from .kernel import mamba_scan
-from .ref import reference_mamba
+from .kernel import backward_op, mamba_scan
 
 
 class _Mamba(torch.autograd.Function):
@@ -24,19 +25,12 @@ class _Mamba(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        ins = [None if t is None else t.detach().requires_grad_()
-               for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = reference_mamba(*ins[:6], state=ins[6],
-                                   return_state=ctx.return_state)
-        outs = outs if ctx.return_state else (outs,)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        wrt = [t for t in ins if t is not None]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
-        return (None, None,
-                *(None if t is None else next(got) for t in ins))
+        x, dt, b, c, a, d, state = ctx.saved_tensors
+        gy, gh = grads if ctx.return_state else (grads[0], None)
+        with record_function("mamba_scan.backward"):
+            *gs, gstate, _work = backward_op(x, dt, b, c, a, d, state,
+                                             gy, gh)
+        return (None, None, *gs, None if state is None else gstate)
 
 
 def mamba(x, dt, b, c, a, d, chunk: int = 64, *, state=None,

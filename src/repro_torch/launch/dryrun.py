@@ -20,7 +20,9 @@ parameters, the moments, the batch, the decode cache, Whisper's
 the cell's published shape and full depth.  The trace runs every
 microbatch and layer, so nothing is folded.  Kernels B3, B5, B6 and B7 are
 custom operators: their fake implementations pass the trace through what
-the card would launch.  What the trace sees of one rank is counted by
+the card would launch.  So is B5's plain backward
+(``mamba_scan_backward``), whose fake also makes a buffer of the plain
+backward's peak temporaries, labelled ``mamba_scan.backward``.  What the trace sees of one rank is counted by
 :class:`LocalCounter` (a dispatch mode below DTensor: the local operations,
 never DTensor's global ones) and by ``MemTracker``.
 
@@ -92,6 +94,9 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
 
 _TOP = 12
+#: a tensor's device queried through the dispatcher (the autograd engine
+#: asks it of every gradient): no operation, nothing read or made
+_DEVICE = torch.ops.prim.device.default
 _propagating = threading.local()
 
 
@@ -220,11 +225,10 @@ class LocalCounter:
                 if any(issubclass(t, DTensor) for t in types):
                     return NotImplemented
                 if isinstance(func, torch._ops.HigherOrderOperator) \
-                        or _is_uncounted():
+                        or _is_uncounted() or func is _DEVICE:
                     return func(*args, **kwargs)
                 packet = func._overloadpacket
-                if packet not in registry and \
-                        func is not torch.ops.prim.device.default:
+                if packet not in registry:
                     with self:
                         r = func.decompose(*args, **kwargs)
                         if r is not NotImplemented:
@@ -303,6 +307,8 @@ def _memory_tracker():
 
     class Tracker(MemTracker):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is _DEVICE:         # a query: no tensor is made
+                return func(*args, **(kwargs or {}))
             if _is_uncounted():
                 from torch.distributed.tensor import DTensor
                 if any(issubclass(t, DTensor) for t in types):

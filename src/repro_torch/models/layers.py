@@ -688,8 +688,19 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     out = einsum("egcf,efd->egcd", h, p["w_down"].to(x.dtype))
     if constrain is not None:
         out = constrain("moe_expert", out)
-    y = _gather_grad(einsum("gsec,egcd->gsd", combine, out).reshape(
-        b, s, d), 1)
+    yg = einsum("gsec,egcd->gsd", combine, out)
+    if _is_dtensor(yg):
+        # back to (b, s, d) on each rank's whole rows, sharded over the
+        # rows and d as x is (the groups are row-major): DTensor cannot
+        # view groups sharded finer than the rows (torch 2.13 refuses)
+        from torch.distributed.tensor import Replicate, Shard
+        rows = [pl if isinstance(pl, Shard) and pl.dim in (0, 2)
+                else Replicate() for pl in x.placements]
+        y = _per_row(lambda z: z.reshape(-1, s, z.shape[-1]),
+                     yg.redistribute(yg.device_mesh, rows), channel=2)
+    else:
+        y = yg.reshape(b, s, d)
+    y = _gather_grad(y, 1)
     if "shared" in p:
         y = y + mlp(p["shared"], x, cfg)
     # aux losses: load balance (Switch) and the router's z-loss

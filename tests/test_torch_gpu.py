@@ -2199,3 +2199,94 @@ def test_fake_cuda_trace_of_a_layer_allocates_nothing(card):
     assert rec["device"] == "cuda" and rec["flops_per_device"] > 0
     assert torch.cuda.memory_allocated() == before
     assert tmesh.kernel_launches() == launches
+
+
+# ---------------------------------------------------------------------------
+# B1's contracting form (the gpu_fma cost model's) and B5's backward operator
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_contracting_block_within_its_pair_allowance(cuda, dtype):
+    """``y = a·b + c`` then ``z = y·d + a`` (two pairs) and a plain
+    ``w = y - c``, built with ``contract_fma``: each pair one ``tl.fma``
+    (as many as ``gpu_fma``'s ``_fma_pairs`` counts), the outputs within
+    ``u·(|a·b| + 2·|a·b + c|)`` a pair of the floor (plus the first
+    pair's change carried through the second product), and some of them
+    off the floor, so the pairs did contract."""
+    from repro_torch.core.blocks import BlockInfo
+    from repro_torch.core.cost import make_cost_model
+    n = 1 << 14
+    rng = np.random.default_rng(7)
+    a, b, c, d = (_base(n, dtype) for _ in range(4))
+    t, y, z, w = (_base(n, dtype) for _ in range(4))
+    v = lambda x: View.contiguous(x, (n,))           # noqa: E731
+    ops = [Op("mul", v(t), (v(a), v(b)), new_bases=frozenset({t})),
+           Op("add", v(y), (v(t), v(c)), new_bases=frozenset({y})),
+           Op("mul", v(t), (v(y), v(d))),
+           Op("add", v(z), (v(t), v(a)), new_bases=frozenset({z})),
+           Op("sub", v(w), (v(y), v(c)), new_bases=frozenset({w}))]
+    fn, ins, outs = codegen.build_block_kernel(ops, device=cuda,
+                                               contract_fma=True)
+    ref, _, _ = make_block_fn(ops, device=cuda)
+    pairs = make_cost_model("gpu_fma")._fma_pairs(BlockInfo.from_ops(ops))
+    assert pairs == len(fn.plan.fma) == 2 == codegen.triton_source(
+        fn.plan, contract_fma=True)[0].count("tl.fma(")
+    data = {u.uid: torch.from_numpy(rng.standard_normal(n).astype(dtype))
+            .to(cuda) for u in (a, b, c, d)}
+    bufs = [data[u] for u in ins]
+    before = codegen.LAUNCHES["fused_block"]
+    got = dict(zip(outs, fn(*bufs, ())))
+    assert codegen.LAUNCHES["fused_block"] == before + 1
+    want = dict(zip(outs, ref(*bufs, ())))
+    assert all(torch.equal(x, y_) for x, y_ in zip(fn.plain(*bufs, ()),
+                                                   want.values()))
+    unit = 2.0 ** (-53 if dtype == np.float64 else -24)
+    A, B, Cc, D = (data[u.uid].double() for u in (a, b, c, d))
+    ab = A * B
+    allow_y = unit * (ab.abs() + 2 * (ab + Cc).abs())
+    yd = (ab + Cc) * D
+    allow_z = allow_y * D.abs() + unit * (yd.abs() + 2 * (yd + A).abs())
+    # w = y - c: y's change and the subtraction's rounding in each form
+    allow_w = allow_y + 2 * unit * ab.abs()
+    off = 0
+    for base, allow in ((y, allow_y), (z, allow_z), (w, allow_w)):
+        diff = (got[base.uid].double() - want[base.uid].double()).abs()
+        assert bool((diff <= allow * (1 + 1e-6)).all()), base
+        off += int((diff > 0).sum())
+    assert off > 0
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_backward_op_on_the_card_is_the_plain_backward(card, dtype,
+                                                             with_state):
+    """B5's backward operator on CUDA tensors: bitwise the gradients of
+    autograd through ``reference_mamba`` on the card, and ``opcheck``
+    passes."""
+    from repro_torch.kernels.mamba_scan import kernel as mk
+    from repro_torch.kernels.mamba_scan.ops import mamba
+    from repro_torch.kernels.mamba_scan.ref import reference_mamba
+    rng = np.random.default_rng(5)
+    ins = _mamba_inputs(rng, 2, 48, 64, 16, dtype, card)
+    st = _randn(rng, (2, 64, 16), torch.float32, card) if with_state \
+        else None
+    gy = _randn(rng, (2, 48, 64), dtype, card)
+    gh = _randn(rng, (2, 64, 16), torch.float32, card) if with_state \
+        else None
+    leaves = [z.clone().requires_grad_() for z in ins]
+    s0 = None if st is None else st.clone().requires_grad_()
+    wrt = leaves + ([] if s0 is None else [s0])
+    with torch.enable_grad():
+        outs = reference_mamba(*leaves, state=s0, return_state=with_state)
+    outs = outs if with_state else (outs,)
+    grads = [g for g in (gy, gh) if g is not None]
+    want = torch.autograd.grad(list(outs), wrt, grads)
+    leaves = [z.clone().requires_grad_() for z in ins]
+    s0 = None if st is None else st.clone().requires_grad_()
+    wrt = leaves + ([] if s0 is None else [s0])
+    outs = mamba(*leaves, state=s0, return_state=with_state)
+    outs = outs if with_state else (outs,)
+    got = torch.autograd.grad(list(outs), wrt, grads)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    torch.library.opcheck(mk.backward_op, (*ins, st, gy, gh))

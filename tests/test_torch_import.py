@@ -235,11 +235,11 @@ def test_dry_run_entry_point_needs_no_card(monkeypatch, tmp_path):
 
 
 def test_deferred_options_raise():
-    """The mesh's options build and record: the ``comm`` model and
-    ``gpu_dist`` (the port's ``tpu_dist``), and sharded programs, whose
-    tapes carry placement annotations.  The TPU-named models stay unknown
-    (``tpu_fma`` is not ported, ROADMAP A10b-i).  Loop fusion (the default)
-    and the ILP partitioner run."""
+    """The mesh's options build and record: the ``comm`` model,
+    ``gpu_dist`` (the port's ``tpu_dist``) and ``gpu_fma`` (its
+    ``tpu_fma``), and sharded programs, whose tapes carry placement
+    annotations.  The TPU-named models stay unknown.  Loop fusion (the
+    default) and the ILP partitioner run."""
     from repro_torch.core import lazy
     from repro_torch.core.cost import make_cost_model
     from repro_torch.core.dist import tape_has_sharding
@@ -252,6 +252,7 @@ def test_deferred_options_raise():
     assert make_cost_model("comm").name == "comm"
     assert make_cost_model("comm").sparse_weights
     assert make_cost_model("gpu_dist").name == "gpu_dist"
+    assert make_cost_model("gpu_fma").name == "gpu_fma"
     for name in ("tpu_dist", "tpu_fma"):
         with pytest.raises(ValueError, match="unknown cost model"):
             make_cost_model(name)
