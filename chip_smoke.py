@@ -3806,8 +3806,9 @@ def _plain_b3():
         ops.flash_attention = real
 
 
-#: the trace's ranges (``launch/steps.py``, ``flash_attention/ops.py``)
-#: that name a kernel's part of the step; kernels outside them by name
+#: the spans (``launch/steps.py``, ``flash_attention/ops.py``) whose
+#: profiler ranges name a kernel's part of the step; kernels outside them
+#: by name
 TRAIN_RANGES = {"flash_attention.backward": "attention backward (plain)",
                 "train_step.adamw": "optimizer",
                 "train_step.accumulate": "bf16 accumulate"}
@@ -3852,13 +3853,23 @@ def _train_profile(step, params, opt, batch) -> dict:
     """One train step under ``torch.profiler``: wall and device-busy ms,
     the idle share, the split by part and the top device operations."""
     from torch.profiler import ProfilerActivity, profile as tp
+    from repro_torch.core.obs import trace
     torch.cuda.synchronize()
-    with tp(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            acc_events=True) as prof:
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    # a tracer puts the step's spans into the profile as its ranges; one
+    # a caller installed stays
+    owned = trace.active() is None
+    if owned:
+        trace.enable()
+    try:
+        with tp(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        if owned:
+            trace.disable()
     events = _device_kernels(prof)
     busy = _busy_ms(events)
     parts = _train_split(prof, events)

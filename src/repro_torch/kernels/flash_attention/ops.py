@@ -9,8 +9,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
+from ...core.obs import trace
 from .kernel import flash_attention
 from .ref import reference_attention
 
@@ -25,9 +25,10 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # a profiler range, so a trace can tell this plain float32
-        # recompute from the model's own GEMMs and elementwise kernels
-        with record_function("flash_attention.backward"):
+        # a span (a profiler range while a tracer is installed), so a
+        # trace can tell this plain float32 recompute from the model's own
+        # GEMMs and elementwise kernels
+        with trace.span("flash_attention.backward"):
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             with torch.enable_grad():
                 out = reference_attention(*ins, **ctx.opts)

@@ -10,8 +10,8 @@ a model's prefill and decode need."""
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
+from ...core.obs import trace
 from .kernel import backward_op, mamba_scan
 
 
@@ -27,7 +27,7 @@ class _Mamba(torch.autograd.Function):
     def backward(ctx, *grads):
         x, dt, b, c, a, d, state = ctx.saved_tensors
         gy, gh = grads if ctx.return_state else (grads[0], None)
-        with record_function("mamba_scan.backward"):
+        with trace.span("mamba_scan.backward"):
             *gs, gstate, _work = backward_op(x, dt, b, c, a, d, state,
                                              gy, gh)
         return (None, None, *gs, None if state is None else gstate)

@@ -52,8 +52,11 @@ Per cell it writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
     makes: ``scatter`` and ``broadcast`` where a step places a whole
     tensor);
   * ``top_buffers``: the 12 largest tensors the trace made, by the
-    operation and the source line that made them and the profiler range
-    around it;
+    operation and the source line that made them and, as ``range``, the
+    innermost program span open around it (``core.obs.trace``, which the
+    trace installs where no tracer is): a forward buffer names its
+    sublayer (``layer.attn``, ``layer.moe``, ...) or ``model.embed`` /
+    ``model.head``, not the whole ``train_step.forward_backward``;
   * ``t_trace_s``: the trace's wall time.
 A cell ``cell_enabled`` skips writes the reference's skipped record.
 
@@ -78,6 +81,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.device import card_route
+from ..core.obs import trace
 from ..configs import ARCHS, SHAPES, ShapeSpec, cell_enabled, get_config, \
     input_specs
 from ..models.config import ModelConfig
@@ -193,6 +197,13 @@ def _collective_ops() -> set:
     return set(CommDebugMode().comm_registry) | set(c10d_collective_ops)
 
 
+def _innermost_span() -> str:
+    """The name of the innermost span open on this thread, or ""."""
+    t = trace.active()
+    spans = t.open_spans() if t is not None else ()
+    return spans[-1] if spans else ""
+
+
 class LocalCounter:
     """What one rank's local operations do, counted by a dispatch mode that
     lets DTensor run first (it returns ``NotImplemented`` for DTensor
@@ -214,7 +225,6 @@ class LocalCounter:
         self.collectives = {k: 0 for k in KINDS}
         self.collective_counts = {k: 0 for k in KINDS}
         self.sites: Dict[tuple, int] = {}
-        self.ranges: list = []
         self.registry = registry = flop_registry   # the kernels' too
         self.comms = _collective_ops()
 
@@ -242,12 +252,6 @@ class LocalCounter:
     def _count(self, func, packet, args, kwargs, out):
         name = packet.__name__
         ns = packet._qualified_op_name.split("::")[0]
-        if ns == "profiler":
-            if "enter" in name:
-                self.ranges.append(str(args[0]))
-            elif self.ranges:
-                self.ranges.pop()
-            return
         if packet in self.registry:
             n = int(self.registry[packet](*args, **kwargs, out_val=out))
             self.flops += n
@@ -272,8 +276,7 @@ class LocalCounter:
             b = _nbytes(t)
             if len(self.sites) >= _TOP and b <= min(self.sites.values()):
                 continue
-            site = (str(func), _where(),
-                    self.ranges[-1] if self.ranges else "",
+            site = (str(func), _where(), _innermost_span(),
                     tuple(t.shape), str(t.dtype).removeprefix("torch."))
             if b > self.sites.get(site, 0):
                 self.sites[site] = b
@@ -490,8 +493,15 @@ def _trace(cfg, shape, mesh, rec, out_dir, train_kw, kernels) -> Dict:
         arg_locals = _locals(list(args.values()))
         tracker = _memory_tracker()
         tracker.track_external(*arg_locals)
-        with tracker, counter.mode:
-            out = fn(*args.values())
+        owned = trace.active() is None
+        if owned:
+            trace.enable()
+        try:
+            with tracker, counter.mode:
+                out = fn(*args.values())
+        finally:
+            if owned:
+                trace.disable()
         peak = tracker.get_tracker_snapshot("peak")
         out_locals = _locals(out)
         written = _locals([args[k] for k in inplace])

@@ -42,6 +42,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..core.cuda_graph import capture
 from ..core.device import resolve_device
+from ..core.obs import trace
 from ..distributed.sharding import shard_tree
 from ..launch.mesh import launcher_mesh
 from ..models.config import ModelConfig
@@ -89,7 +90,18 @@ class _GraphStep:
     A capture that fails raises: there is no eager fallback.  ``captures``
     counts captures and ``replays`` replays: a replay launches the
     captured kernels again without running their Python wrappers, so their
-    launch counters see the warm-up and the capture only."""
+    launch counters see the warm-up and the capture only.
+
+    With a tracer installed (``core.obs.trace``) a call is the host span
+    ``serve.prefill`` or ``serve.decode`` over ``serve.inputs`` (the
+    inputs' copies to the card and into the static buffers),
+    ``serve.capture`` (a shape's first call), ``serve.cache_load`` (a
+    :class:`DecodeStep` copying in caches not its own) and
+    ``serve.replay``; and the model's device spans and counters go to a
+    ``trace.DeviceRecord``: the capture's, which every replay of it adds
+    a run to, or a fresh one an eager call.  ``record`` is the last
+    call's record (None without a tracer).  A shape captured with no
+    tracer installed has no record and its graph no span or counter."""
 
     def __init__(self, params, cfg: ModelConfig, *, graph=None):
         self.params, self.cfg = params, cfg
@@ -100,6 +112,7 @@ class _GraphStep:
                              f"CUDA device, the params lie on {self.device}")
         self._static = {}
         self.replays = self.captures = 0
+        self.record = None
 
     def _on_device(self, x, dtype):
         if x is None:
@@ -108,30 +121,57 @@ class _GraphStep:
             x = torch.as_tensor(np.asarray(x))
         return x.to(device=self.device, dtype=dtype)
 
+    def _run_eager(self, fn, *args):
+        """``fn(*args)``, an eager call, inside a fresh record."""
+        rec = trace.new_record(self.device)
+        with trace.recording(rec):
+            out = fn(*args)
+        if rec is not None:
+            rec.runs = 1
+        self.record = rec
+        return out
+
     def _replay(self, key, inputs, make, load=None):
         """Replay the graph of ``key``, capturing it at its first call:
         ``make(*static inputs)`` returns ``(warm_up, body, state)`` for
         ``capture`` and the static buffers ``load(state)`` refills before
-        each replay; ``inputs`` (tensors, or None for an input the model
-        does not take) are copied into their static buffers.  Returns
-        ``(state, what body returned)``."""
-        key = (key,) + tuple(None if x is None else tuple(x.shape)
-                             for x in inputs)
-        entry = self._static.get(key)
+        each replay; ``inputs`` (``(value, dtype)`` pairs, value None for
+        an input the model does not take) go to the card, into their
+        static buffers.  Returns ``(state, what body returned)``."""
+        with trace.span("serve.inputs"):
+            inputs = tuple(self._on_device(x, dtype) for x, dtype in inputs)
+            key = (key,) + tuple(None if x is None else tuple(x.shape)
+                                 for x in inputs)
+            entry = self._static.get(key)
+            if entry is not None:
+                for dst, src in zip(entry[1], inputs):
+                    if dst is not None:
+                        dst.copy_(src)
         if entry is None:
-            statics = tuple(None if x is None else x.clone() for x in inputs)
-            warm_up, body, state = make(*statics)
-            graph, out = capture(self.device, warm_up, body)
+            with trace.span("serve.capture"):
+                # the clones are the static buffers, already holding this
+                # call's inputs
+                statics = tuple(None if x is None else x.clone()
+                                for x in inputs)
+                warm_up, body, state = make(*statics)
+                rec = trace.new_record(self.device)
+
+                def recorded():
+                    with trace.recording(rec):
+                        return body()
+
+                graph, out = capture(self.device, warm_up, recorded)
             self.captures += 1
-            entry = self._static[key] = (graph, statics, state, out)
-        graph, statics, state, out = entry
-        for dst, src in zip(statics, inputs):
-            if dst is not None:
-                dst.copy_(src)
+            entry = self._static[key] = (graph, statics, state, out, rec)
+        graph, statics, state, out, rec = entry
         if load is not None:
             load(state)
-        graph.replay()
+        with trace.span("serve.replay"):
+            graph.replay()
         self.replays += 1
+        if rec is not None:
+            rec.runs += 1
+        self.record = rec
         return state, out
 
 
@@ -158,24 +198,27 @@ class PrefillStep(_GraphStep):
         logits, caches = serve_prefill(self.params, tokens, self.cfg,
                                        max_seq, enc_out=enc_out,
                                        patch_embeds=patch_embeds)
-        return logits, _greedy(logits), caches
+        with trace.device_span("model.pick"):
+            nxt = _greedy(logits)
+        return logits, nxt, caches
 
     def __call__(self, tokens, max_seq: int, *, enc_out=None,
                  patch_embeds=None):
-        if not self.graph:
-            return self._eager(tokens, max_seq, enc_out, patch_embeds)
-        cd = self.cfg.compute_dtype
-        inputs = (self._on_device(tokens, torch.int32),
-                  self._on_device(enc_out, cd),
-                  self._on_device(patch_embeds, cd))
+        with trace.span("serve.prefill"):
+            if not self.graph:
+                return self._run_eager(self._eager, tokens, max_seq,
+                                       enc_out, patch_embeds)
+            cd = self.cfg.compute_dtype
+            inputs = ((tokens, torch.int32), (enc_out, cd),
+                      (patch_embeds, cd))
 
-        def make(*statics):
-            def run():
-                return self._eager(statics[0], max_seq, *statics[1:])
-            return run, run, None
+            def make(*statics):
+                def run():
+                    return self._eager(statics[0], max_seq, *statics[1:])
+                return run, run, None
 
-        _, (logits, nxt, caches) = self._replay(max_seq, inputs, make)
-        return logits, nxt.clone(), caches
+            _, (logits, nxt, caches) = self._replay(max_seq, inputs, make)
+            return logits, nxt.clone(), caches
 
 
 class DecodeStep(_GraphStep):
@@ -198,30 +241,38 @@ class DecodeStep(_GraphStep):
     def _eager(self, caches, token, enc_out=None, in_place=False):
         logits, caches = serve_decode(self.params, caches, token, self.cfg,
                                       enc_out=enc_out, in_place=in_place)
-        return logits, _greedy(logits), caches
+        with trace.device_span("model.pick"):
+            nxt = _greedy(logits)
+        return logits, nxt, caches
 
     def __call__(self, caches, token, *, enc_out=None):
-        if not self.graph:
-            return self._eager(caches, token, enc_out)
-        inputs = (self._on_device(token, torch.int32),
-                  self._on_device(enc_out, self.cfg.compute_dtype))
-        leaves = list(_leaves(caches))
-        key = tuple((tuple(z.shape), z.dtype) for z in leaves)
+        with trace.span("serve.decode"):
+            if not self.graph:
+                return self._run_eager(self._eager, caches, token, enc_out)
+            inputs = ((token, torch.int32),
+                      (enc_out, self.cfg.compute_dtype))
+            leaves = list(_leaves(caches))
+            key = tuple((tuple(z.shape), z.dtype) for z in leaves)
 
-        def make(s_tok, s_enc):
-            s_caches = _clone(caches)
-            return (lambda: self._eager(s_caches, s_tok, s_enc),
-                    lambda: self._eager(s_caches, s_tok, s_enc,
-                                        in_place=True),
-                    s_caches)
+            def make(s_tok, s_enc):
+                s_caches = _clone(caches)
+                return (lambda: self._eager(s_caches, s_tok, s_enc),
+                        lambda: self._eager(s_caches, s_tok, s_enc,
+                                            in_place=True),
+                        s_caches)
 
-        def load(s_caches):
-            if caches is not s_caches:
-                for dst, src in zip(_leaves(s_caches), leaves):
-                    dst.copy_(src)
+            def load(s_caches):
+                if caches is not s_caches:
+                    nbytes = sum(z.numel() * z.element_size()
+                                 for z in leaves)
+                    with trace.span("serve.cache_load", bytes=nbytes):
+                        for dst, src in zip(_leaves(s_caches), leaves):
+                            dst.copy_(src)
+                    trace.count("serve.cache_load_bytes", nbytes)
 
-        s_caches, (logits, nxt, _) = self._replay(key, inputs, make, load)
-        return logits, nxt.clone(), s_caches
+            s_caches, (logits, nxt, _) = self._replay(key, inputs, make,
+                                                      load)
+            return logits, nxt.clone(), s_caches
 
 
 def _clone(tree):
@@ -319,37 +370,38 @@ def serve_requests(cfg: ModelConfig, params, prompts, *, batch: int,
                                       on_mesh.encode)
     tokens, times = [], []
     for start in range(0, len(prompts), batch):
-        group = prompts[start:start + batch]
-        toks = np.zeros((batch, max_prompt), np.int32)
-        for i, p in enumerate(group):
-            toks[i, max_prompt - len(p):] = p           # left-pad
-        fr = pe = None
-        if cfg.family == "encdec":
-            fr = _batch_rows(frames, start, batch,
-                             (cfg.encoder_seq, cfg.d_model), cd, device)
-        if vlm:
-            pe = _batch_rows(patch_embeds, start, batch,
-                             (cfg.n_patches, cfg.d_model), cd, device)
-        _sync(device)
-        t0 = time.perf_counter()
-        enc_out = None if fr is None else run_encoder(fr)
-        _, tok, cache = prefill(toks, max_seq, enc_out=enc_out,
-                                patch_embeds=pe)
-        _sync(device)
-        prefill_s = time.perf_counter() - t0
-        outs, steps = [tok], []
-        for _ in range(new_tokens - 1):
-            t0 = time.perf_counter()
-            _, tok, cache = step(cache, tok, enc_out=enc_out)
+        with trace.context(batch=start // batch):
+            group = prompts[start:start + batch]
+            toks = np.zeros((batch, max_prompt), np.int32)
+            for i, p in enumerate(group):
+                toks[i, max_prompt - len(p):] = p           # left-pad
+            fr = pe = None
+            if cfg.family == "encdec":
+                fr = _batch_rows(frames, start, batch,
+                                 (cfg.encoder_seq, cfg.d_model), cd, device)
+            if vlm:
+                pe = _batch_rows(patch_embeds, start, batch,
+                                 (cfg.n_patches, cfg.d_model), cd, device)
             _sync(device)
-            steps.append(time.perf_counter() - t0)
-            outs.append(tok)
-        gen = torch.cat(outs, dim=1).cpu().numpy()
-        tokens.extend(gen[:len(group)])
-        times.append({"batch": len(group), "prefill_s": prefill_s,
-                      "decode_s": steps,
-                      "prefill": prefill if mesh is None else None,
-                      "step": step if mesh is None else None})
+            t0 = time.perf_counter()
+            enc_out = None if fr is None else run_encoder(fr)
+            _, tok, cache = prefill(toks, max_seq, enc_out=enc_out,
+                                    patch_embeds=pe)
+            _sync(device)
+            prefill_s = time.perf_counter() - t0
+            outs, steps = [tok], []
+            for _ in range(new_tokens - 1):
+                t0 = time.perf_counter()
+                _, tok, cache = step(cache, tok, enc_out=enc_out)
+                _sync(device)
+                steps.append(time.perf_counter() - t0)
+                outs.append(tok)
+            gen = torch.cat(outs, dim=1).cpu().numpy()
+            tokens.extend(gen[:len(group)])
+            times.append({"batch": len(group), "prefill_s": prefill_s,
+                          "decode_s": steps,
+                          "prefill": prefill if mesh is None else None,
+                          "step": step if mesh is None else None})
     return tokens, times
 
 

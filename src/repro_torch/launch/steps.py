@@ -36,9 +36,9 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.device import resolve_device
+from ..core.obs import trace
 from ..distributed.sharding import (RULES_SERVE, RULES_TRAIN, PartitionSpec,
                                     batch_spec, mesh_axis_sizes,
                                     params_specs)
@@ -303,7 +303,7 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
             losses = []
             for i in range(n_micro):
                 mb = {k: v[i] for k, v in micro.items()}
-                with record_function("train_step.forward_backward"), \
+                with trace.span("train_step.forward_backward"), \
                         torch.enable_grad():
                     flat = [p.detach().requires_grad_() for p in leaves]
                     loss, _ = lm_loss(
@@ -315,14 +315,14 @@ def make_train_step(cfg: ModelConfig, mesh=None, *,
                         loss, flat, allow_unused=True,
                         materialize_grads=True)), specs)
                 del flat
-                with record_function("train_step.accumulate"):
+                with trace.span("train_step.accumulate"):
                     for j, a in enumerate(acc):
                         a.add_(grads[j].to(grad_dtype))
                         grads[j] = None     # the float32 gradient freed
                 losses.append(_plain(loss.detach()))
             lr = cosine_warmup(opt_state.step, peak_lr=peak_lr,
                                warmup=warmup, total=total_steps)
-            with record_function("train_step.adamw"):
+            with trace.span("train_step.adamw"):
                 params, opt_state = adamw_update(
                     params, _unflatten(paths, acc), opt_state, lr=lr,
                     grad_scale=1.0 / n_micro)

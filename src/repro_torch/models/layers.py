@@ -44,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.device import on_card_route
+from ..core.obs import trace
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.mamba_scan import ops as ms_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
@@ -659,7 +660,14 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     a multiple of it); each expert takes at most ``int(capacity_factor ·
     s_g · k / e) + 1`` tokens a group, in token order, and drops the rest
     (:func:`moe_route`).  The experts' products run in ``x.dtype``.
-    ``aux`` is the load-balance loss plus the router z-loss, float32."""
+    ``aux`` is the load-balance loss plus the router z-loss, float32.
+
+    Inside an open ``trace.DeviceRecord`` a call counts what the dispatch
+    computes: ``moe.pairs_chosen`` (tokens × k), ``moe.pairs_kept`` (those
+    within capacity), ``moe.slots`` (groups × experts × capacity, the rows
+    the expert products run over), ``moe.experts_used`` (experts with a
+    kept pair) and ``moe.calls``; the kept pairs and experts are counted
+    on the device (two small kernels), the rest are host numbers."""
     m = cfg.moe
     b, s, d = x.shape
     s_g = min(s, MOE_GROUP_TOKENS)
@@ -670,6 +678,15 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, constrain=None):
     else:
         xg = x.reshape(b * (s // s_g), s_g, d)
     r = moe_route(p, xg, cfg)
+    rows = trace.counter_rows(("moe.pairs_kept", "moe.experts_used"),
+                              m.n_experts)
+    if rows is not None:
+        # two kernels: the kept pairs an expert, and whether it has one
+        torch.sum(r["keep"], (0, 1), out=rows[0])
+        torch.clamp(rows[0], max=1, out=rows[1])
+        trace.count("moe.pairs_chosen", xg.shape[0] * s_g * m.top_k)
+        trace.count("moe.slots", xg.shape[0] * m.n_experts * r["cap"])
+        trace.count("moe.calls", 1)
     slot = torch.arange(r["cap"], device=x.device)
     dispatch = (r["keep"][..., None] * (r["pos"][..., None] == slot)).to(
         x.dtype)                                           # (g, s, e, cap)

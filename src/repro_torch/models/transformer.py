@@ -46,6 +46,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..core.device import resolve_device
+from ..core.obs import trace
 from .config import ModelConfig
 from .layers import (MAMBA_AXES, MLP_AXES, RMSNORM_AXES, RWKV_AXES,
                      _is_dtensor, attention, attention_axes, einsum,
@@ -252,32 +253,48 @@ def serving_params(params, cfg: ModelConfig) -> Params:
 
 def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
                  positions, cache=None, enc_out=None, causal: bool = True,
-                 in_place: bool = False, constrain=None):
+                 in_place: bool = False, constrain=None,
+                 span: str = "layer", index=None):
     """One layer; returns ``(x, new_cache, aux)``: ``aux`` the MoE
-    router's loss, or None for a dense MLP.  ``constrain`` goes to the MoE
-    layer (:func:`forward`)."""
-    h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
-    if mixer == "rwkv":
-        a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
-                                  in_place=in_place)
-    elif mixer == "mamba":
-        a, new_cache = mamba_mixer(lp["mixer"], h, cfg, state=cache,
-                                   in_place=in_place)
-    else:
-        a, new_cache = attention(lp["mixer"], h, cfg,
-                                 local=mixer == "attn_local",
-                                 positions=positions, cache=cache,
-                                 causal=causal)
-    x = x + a
+    router's loss, or None for a dense MLP.  With ``in_place`` the new
+    cache is written into ``cache`` right after the mixer (an RWKV
+    layer's wkv state and a Mamba layer's ssm state by the layer itself),
+    and ``cache`` is returned.  ``constrain`` goes to the MoE layer
+    (:func:`forward`).  Each sublayer, its norm and its residual add is a
+    device span (``core.obs.trace``) ``<span>.<mixer>``, ``<span>.cross``
+    and ``<span>.<ffn>`` with ``layer=index``; the mixer's covers the
+    cache's write-back."""
+    with trace.device_span(f"{span}.{mixer}", layer=index):
+        h = rmsnorm(lp["norm1"], x, plus_one=cfg.norm_plus_one)
+        if mixer == "rwkv":
+            a, new_cache = rwkv_mixer(lp["mixer"], h, cfg, state=cache,
+                                      in_place=in_place)
+        elif mixer == "mamba":
+            a, new_cache = mamba_mixer(lp["mixer"], h, cfg, state=cache,
+                                       in_place=in_place)
+        else:
+            a, new_cache = attention(lp["mixer"], h, cfg,
+                                     local=mixer == "attn_local",
+                                     positions=positions, cache=cache,
+                                     causal=causal)
+        if in_place and new_cache is not None:
+            for key, dst in cache.items():
+                if new_cache[key].data_ptr() != dst.data_ptr():
+                    dst.copy_(new_cache[key])       # not written yet
+            new_cache = cache
+        x = x + a
     if enc_out is not None and "cross" in lp:
-        h = rmsnorm(lp["norm_cross"], x, plus_one=cfg.norm_plus_one)
-        c, _ = attention(lp["cross"], h, cfg, kv_src=enc_out, causal=False)
-        x = x + c
-    h = rmsnorm(lp["norm2"], x, plus_one=cfg.norm_plus_one)
-    if ffn == "moe":
-        f, aux = moe(lp["ffn"], h, cfg, constrain=constrain)
-        return x + f, new_cache, aux
-    return x + mlp(lp["ffn"], h, cfg), new_cache, None
+        with trace.device_span(f"{span}.cross", layer=index):
+            h = rmsnorm(lp["norm_cross"], x, plus_one=cfg.norm_plus_one)
+            c, _ = attention(lp["cross"], h, cfg, kv_src=enc_out,
+                             causal=False)
+            x = x + c
+    with trace.device_span(f"{span}.{ffn}", layer=index):
+        h = rmsnorm(lp["norm2"], x, plus_one=cfg.norm_plus_one)
+        if ffn == "moe":
+            f, aux = moe(lp["ffn"], h, cfg, constrain=constrain)
+            return x + f, new_cache, aux
+        return x + mlp(lp["ffn"], h, cfg), new_cache, None
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -306,8 +323,8 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
     over the group axis (or None).  Returns ``(x, new_caches, aux)``, aux
     the float32 sum of the MoE layers' router losses (zero without any);
     with ``in_place`` the new caches are written into ``caches`` (each
-    layer's right after it runs; an RWKV layer's wkv state and a Mamba
-    layer's ssm state by the layer itself) and ``caches`` is returned.
+    layer's right after its mixer, :func:`_apply_layer`) and ``caches``
+    is returned.  Layer ``g · len(unit) + i`` is group ``g``'s ``i``-th.
     Without caches and with ``cfg.remat`` each group's body is
     rematerialized in the backward pass (:func:`_remat`), so only the
     group-boundary activations stay alive.  ``constrain`` pins each
@@ -316,21 +333,22 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
     groups = _unstack(params["groups"], n_groups)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if caches is None:
-        def group(x, aux, gp):
+        def group(x, aux, gp, g):
             if constrain is not None:
                 x = constrain("activation", x)
             for i, (mixer, ffn) in enumerate(unit):
                 x, _, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
                                        positions=positions, enc_out=enc_out,
-                                       constrain=constrain)
+                                       constrain=constrain,
+                                       index=g * len(unit) + i)
                 if a is not None:
                     aux = aux + a
             if constrain is not None:
                 x = constrain("activation", x)
             return x, aux
 
-        for gp in groups:
-            x, aux = _remat(cfg.remat, group, x, aux, gp)
+        for g, gp in enumerate(groups):
+            x, aux = _remat(cfg.remat, group, x, aux, gp, g)
         return x, None, aux
     new: Dict[str, List] = {f"l{i}": [] for i in range(len(unit))}
     for g, gp in enumerate(groups):
@@ -341,17 +359,12 @@ def _run_groups(params, x, cfg: ModelConfig, *, positions, caches=None,
             x, nc, a = _apply_layer(gp[f"l{i}"], x, cfg, mixer, ffn,
                                     positions=positions, cache=c,
                                     enc_out=enc_out, in_place=in_place,
-                                    constrain=constrain)
+                                    constrain=constrain,
+                                    index=g * len(unit) + i)
             if a is not None:
                 aux = aux + a
-            if nc is None:
-                continue
-            if not in_place:
+            if nc is not None and not in_place:
                 new[f"l{i}"].append(nc)
-                continue
-            for key, dst in c.items():
-                if nc[key].data_ptr() != dst.data_ptr():  # not written yet
-                    dst.copy_(nc[key])
         if constrain is not None:
             x = constrain("activation", x)
     if in_place:
@@ -421,12 +434,13 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     x = _input(params, frames, cfg)
     pos = torch.arange(x.shape[1], device=x.device)[None]
 
-    def layer(x, lp):
+    def layer(x, lp, i):
         return _apply_layer(lp, x, cfg, "attn", "mlp", positions=pos,
-                            causal=False)[0]
+                            causal=False, span="encoder", index=i)[0]
 
-    for lp in _unstack(params["encoder"], cfg.n_encoder_layers):
-        x = _remat(cfg.remat, layer, x, lp)
+    for i, lp in enumerate(_unstack(params["encoder"],
+                                    cfg.n_encoder_layers)):
+        x = _remat(cfg.remat, layer, x, lp, i)
     return rmsnorm(params["enc_norm"], x, plus_one=cfg.norm_plus_one)
 
 
@@ -444,16 +458,18 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
     table) and ``"logits"``."""
     validate_config(cfg)
     enc_out = None if frames is None else encode(params, frames, cfg)
-    x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
+    with trace.device_span("model.embed"):
+        x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     if constrain is not None:
         x = constrain("activation", x)
     x, _, aux = _run_groups(params, x, cfg, positions=positions,
                             enc_out=enc_out, constrain=constrain)
-    x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
-    if patch_embeds is not None:
-        x = x[:, patch_embeds.shape[1]:]
-    return _unembed(params, x, cfg, constrain=constrain), aux
+    with trace.device_span("model.head"):
+        x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
+        if patch_embeds is not None:
+            x = x[:, patch_embeds.shape[1]:]
+        return _unembed(params, x, cfg, constrain=constrain), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -511,7 +527,8 @@ def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
     validate_config(cfg)
     if enc_out is None and frames is not None:
         enc_out = encode(params, frames, cfg)
-    x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
+    with trace.device_span("model.embed"):
+        x = _embed(params, _tokens(params, tokens), cfg, patch_embeds)
     b, s = x.shape[0], x.shape[1]
     caches = init_cache(cfg, b, max_seq, dtype=cfg.compute_dtype,
                         device=x.device)
@@ -520,10 +537,11 @@ def serve_prefill(params, tokens, cfg: ModelConfig, max_seq: int, *,
     positions = torch.arange(s, device=x.device)[None]
     x, new_caches, _ = _run_groups(params, x, cfg, positions=positions,
                                    caches=caches, enc_out=enc_out)
-    x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
     if pin_cache is not None:
         new_caches = pin_cache(new_caches)
-    return _unembed(params, x[:, -1:], cfg), new_caches
+    with trace.device_span("model.head"):
+        x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
+        return _unembed(params, x[:, -1:], cfg), new_caches
 
 
 def serve_decode(params, caches, token, cfg: ModelConfig, *, enc_out=None,
@@ -533,15 +551,16 @@ def serve_decode(params, caches, token, cfg: ModelConfig, *, enc_out=None,
     caches)``: new caches, or with ``in_place`` the given ones, updated
     (the decode graph's static caches)."""
     validate_config(cfg)
-    token = _tokens(params, token)
-    x = _embed(params, token, cfg)
+    with trace.device_span("model.embed"):
+        x = _embed(params, _tokens(params, token), cfg)
     idx = _first_idx(caches, x.device)
     positions = (idx + torch.arange(1, device=x.device))[None]
     x, new_caches, _ = _run_groups(params, x, cfg, positions=positions,
                                    caches=caches, enc_out=enc_out,
                                    in_place=in_place)
-    x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
-    return _unembed(params, x, cfg), new_caches
+    with trace.device_span("model.head"):
+        x = rmsnorm(params["final_norm"], x, plus_one=cfg.norm_plus_one)
+        return _unembed(params, x, cfg), new_caches
 
 
 def _first_idx(caches, device) -> torch.Tensor:

@@ -25,6 +25,8 @@ the reference's tolerances, run twice for bitwise-equal results, and fed
 inputs they must refuse.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1167,6 +1169,64 @@ def test_a_decode_capture_that_fails_raises(card, monkeypatch):
     assert step.replays == 0
 
 
+def test_decode_graph_device_spans_and_counters(card):
+    """A decode graph captured with the tracer on (OLMoE-1B-7B's widths at
+    2 layers, a batch of 32): its device spans (``model.embed``, the
+    layers, ``model.head``, ``model.pick``) add up to 95-101% of the
+    step's CUDA-event time; its logits are bitwise the uninstrumented
+    graph's; its counters after one replay are the eager step's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.obs import trace
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    cfg = get_config("olmoe-1b-7b").scaled(n_layers=2)
+    gen = torch.Generator(device=card).manual_seed(0)
+    sp = T.serving_params(T.init_params(cfg, gen, card), cfg)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (32, 256))
+    logits, caches = T.serve_prefill(sp, tokens, cfg, 264)
+    tok = serve._greedy(logits)
+    # the second step of each graph is timed: the first loads the caches
+    plain = serve.DecodeStep(sp, cfg)
+    _, t1, c1 = plain(serve._clone(caches), tok)
+    want = plain(c1, t1)[0].clone()
+    tracer = trace.enable()
+    try:
+        graph = serve.DecodeStep(sp, cfg)
+        eager = serve.DecodeStep(sp, cfg, graph=False)
+        _, t1, c1 = graph(serve._clone(caches), tok)      # the capture
+        state = serve._clone(c1)
+        graph.record.reset()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        got, _, _ = graph(c1, t1)
+        b.record()
+        torch.cuda.synchronize()
+        counted = graph.record.counters()
+        eager(state, t1)
+        torch.cuda.synchronize()
+        by_eager = eager.record.counters()
+    finally:
+        trace.disable()
+    same = torch.equal(got, want)
+    spans = graph.record.spans()
+    step_ms = a.elapsed_time(b)
+    # the graphs' pools, the weights and the caches go before the asserts:
+    # later card tests in the process need the memory
+    del plain, graph, eager, sp, logits, caches, c1, state, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert same
+    names = sorted(n for n, _, _, _ in spans)
+    assert names == sorted(["model.embed", "model.head", "model.pick"]
+                           + ["layer.attn", "layer.moe"] * 2)
+    share = sum(ms for _, _, _, ms in spans) / step_ms
+    assert 0.95 <= share <= 1.01, share
+    assert counted == by_eager
+    assert counted["moe.slots"] == 2 * 32 * cfg.moe.n_experts
+    assert counted["moe.pairs_kept"] == 2 * 32 * cfg.moe.top_k
+    assert tracer.counters["serve.cache_load_bytes"] > 0
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "dense"])
 def test_prefill_graph_replays_are_eager_prefills(card, arch):
     """``serve.PrefillStep`` on the card captures ``serve_prefill`` and the
@@ -1841,7 +1901,7 @@ def test_jamba_serves_on_the_card(card):
     assert times[-1]["prefill"].captures == 1 and step.replays == 2 * 4
     # the static caches' ssm leaves are the ones B5 wrote: one more replay
     # moves each of them without a copy after the graph
-    (_, (_, _, s_caches, _)), = step._static.items()
+    (_, (_, _, s_caches, _, _)), = step._static.items()
     ssm = [c["ssm"] for c in s_caches.values() if "ssm" in c]
     before = [z.clone() for z in ssm]
     step(s_caches, torch.zeros((2, 1), dtype=torch.int32, device=card))
