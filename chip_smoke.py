@@ -81,6 +81,23 @@ faster float32-accurate route, three TF32 tensor-core passes
 (``TC_TF32_MACS_PER_S``), and a bfloat16 product at the bf16 tensor-core
 rate.
 
+Then the decode-attention kernel (``run_decode_attention``, the
+``DECODE`` lines): ``torch.ops.repro_torch.decode_attention`` at the
+served shapes of the benchmark's cells (``DECODE_CASES``: OLMoE-1B-7B
+chat, 32 rows over 1280-deep caches of 16 / 16 heads; its rag cell, 8 rows
+over 3600; Jamba-v0.1 chat, 32 rows over 1280 of 32 / 8 heads; bf16, hd
+128, the token at the mean position of the cell's decode steps), each held
+against its plain version (``MODEL_TOL``, ``BF16_RTOL``), run again for a
+bitwise-equal result and timed (a CUDA graph of the call, the plain
+version, and the one library call that computes it,
+``F.scaled_dot_product_attention`` over the valid keys, timed only)
+beside its bound, the valid keys' and values' bytes read once at 3.35
+TB/s.  This is the yardstick of later work on that kernel.  Every served
+path below counts the kernel's launches too (one an attention layer in a
+decode graph's warm-up and one in its capture, none at replays) and
+holds the calls of its decode graph's warm-up against the plain version;
+all of them join the ``kernels`` line.
+
 The model-kernel phase also runs the chunked RWKV6 kernel (B7, CUDA) on
 the RWKV6-3B layer's inputs of B6's case, so the two are timed on the same
 work; B7's bound counts the route it takes, its four products on the FP64
@@ -123,10 +140,14 @@ softcaps 50 and 30, GeGLU, bf16 compute), random weights from a seeded
 ``torch.Generator`` on the card, cast once for serving and the float32
 tree dropped.  It serves 2 requests of 4097-8192 tokens left-padded to
 8192 and 16 greedy tokens through ``serve_requests`` — the prefill one
-CUDA graph, the decode steps replays of another — with B3's count at 0
-just before.  It requires 42 B3 launches a prefill pass (21 local layers
-with window and softcap, 21 global with softcap; 84 at the wrapper, the
-warm-up and the capture) and none in the decode graph, the tokens of
+CUDA graph, the decode steps replays of another — with B3's and the
+decode-attention kernel's counts at 0 just before.  It requires 42 B3
+launches a prefill pass (21 local layers with window and softcap, 21
+global with softcap; 84 at the wrapper, the warm-up and the capture) and
+none in the decode graph, 84 decode-attention calls at the wrapper (the
+decode graph's warm-up and capture; the first and last local layers,
+rings past their window with softcap at hd 256, and global layers held
+against the plain version), the tokens of
 eager serving, a prefill replay and ``FAMILY_EXTEND`` decode replays
 bitwise to eager ones, the first and last local and global layers'
 recorded B3 calls within ``MODEL_TOL`` / ``BF16_RTOL`` of the plain
@@ -146,10 +167,11 @@ embeddings before the prompt), Whisper-tiny (4 + 4 layers, 1500 frames,
 cross-attention with ``sq != sk`` also in every decode step) and
 Qwen1.5-4B (QKV bias, bf16) as published, at 2 layers (Whisper whole):
 2 requests of 512 and 412 tokens, 4 decode steps, each B3 call of the
-first prefill pass held against the plain version, the B3 count, graph
+first prefill pass and each decode-attention call of the decode graph's
+warm-up held against the plain version, both kernels' counts, graph
 replays bitwise to eager, prefill and decode times, and each distinct B3
-shape's call timed as Gemma's are.  B3's launches join
-the ``kernels`` line.
+shape's call timed as Gemma's are.  B3's and the decode-attention
+kernel's launches join the ``kernels`` line.
 
 Then the MoE and Mamba families (``run_moe``, the ``MOE`` lines), each
 config of ``MOE_CASES`` at its published widths, bf16 compute, random
@@ -163,9 +185,12 @@ odd layers — 2 requests padded to 4096 tokens, 16 tokens; OLMoE-1B-7B
 cast once) at all 16 layers, 2 x 4096, 16 tokens; Qwen3-MoE-235B-A22B at
 2 of its 94 layers (64 / 4 heads: a GQA group of 16; 128 experts of 1536,
 top 8), 2 x 2048, 4 tokens.  Each is served through ``serve_requests``
-with B3's and B5's counts at 0 just before: one prefill capture replayed
-once and one decode capture replayed every step, B3 once an attention
-layer a prefill pass (none in decode), B5 once a Mamba layer a prefill
+with B3's, B5's and the decode-attention kernel's counts at 0 just
+before: one prefill capture replayed once and one decode capture
+replayed every step, B3 once an attention layer a prefill pass (none in
+decode), the decode-attention kernel once an attention layer a decode
+step (each call of the decode graph's warm-up held against the plain
+version), B5 once a Mamba layer a prefill
 pass and a decode step, the decode capture's B5 calls writing the ssm
 state into the static cache (``out_state`` is ``state``).  It requires
 the tokens of eager serving, a prefill replay and up to ``FAMILY_EXTEND``
@@ -182,7 +207,8 @@ capacity in a prefill (a diagnostic), warm prefill ms (eager and
 replayed, in turns) and decode ms a step, each config's first B3 call
 timed beside its library call and B5's prefill-layer and decode-layer
 calls against their bounds (the state's bytes read and written
-included).  B3's and B5's launches join the ``kernels`` line.
+included).  B3's, B5's and the decode-attention kernel's launches join
+the ``kernels`` line.
 
 Then training (``run_train``, the ``TRAIN`` lines).  Its main path:
 Qwen3-4B (``configs/qwen3_4b.py``) at its published widths and all 36
@@ -474,7 +500,8 @@ EXP2_FMA_OPS = 7
 #: compute in float32 and round once, so beyond the float32 difference they
 #: differ by at most one bf16 ulp, 2^-7 of the value: rtol BF16_RTOL
 MODEL_TOL = {"flash_attention": 2e-5, "rmsnorm": 2e-5, "mamba_scan": 3e-4,
-             "rwkv6_scan": 3e-4, "rwkv6_chunked": 3e-4}
+             "rwkv6_scan": 3e-4, "rwkv6_chunked": 3e-4,
+             "decode_attention": 2e-5}
 BF16_RTOL = 2.0 ** -7
 #: the RWKV6-3B serving run: 4 requests in one batch, prompts left-padded
 #: to 512 tokens, 16 greedy tokens (a prefill and 15 decode steps)
@@ -1113,9 +1140,24 @@ def run_lm(lazy, codegen, rowblock) -> dict:
         c = state["c"]["l0"]
         return [(c["k"][i], c["v"][i]) for i in range(L)]
 
-    res["direct"] = serve((d_prefill, d_decode,
-                           lambda: T.forward(params, fwd_tokens, cfg)[0]
-                           .cpu().numpy(), d_caches))
+    # the direct model's decode steps run the decode-attention kernel
+    # eagerly, one call an attention layer a step; the first step's held
+    from repro_torch.kernels.decode_attention import kernel as da_k
+    with OpRecorder(da_k, "decode_attention", range(L)) as rec_d:
+        da_k.LAUNCHES["decode_attention"] = 0
+        res["direct"] = serve((d_prefill, d_decode,
+                               lambda: T.forward(params, fwd_tokens, cfg)[0]
+                               .cpu().numpy(), d_caches))
+        torch.cuda.synchronize()
+        decode_launches = da_k.LAUNCHES["decode_attention"]
+    if decode_launches != L * LM_STEPS:
+        raise AssertionError(f"LM direct model: {decode_launches} "
+                             f"decode-attention launches, want "
+                             f"{L * LM_STEPS}")
+    decode_held = _decode_held(f"LM direct model, {decode_launches} "
+                               f"decode-attention launches, the first "
+                               f"step's", rec_d)
+    del rec_d
 
     # -- agreement ----------------------------------------------------------
     agree = {}
@@ -1189,7 +1231,9 @@ def run_lm(lazy, codegen, rowblock) -> dict:
           f"({time.perf_counter() - t_start:.1f}s for the LM phase)",
           flush=True)
     return {"launches": launches, "b1": b1, "b2": b2, "norm": norm,
-            "agree": agree, "loss": loss}
+            "agree": agree, "loss": loss,
+            "decode": {"launches": decode_launches,
+                       "max_abs_err": max(decode_held)}}
 
 
 def _attention_work(q, k, causal, window, softcap):
@@ -1537,6 +1581,160 @@ def run_model_kernels() -> dict:
     b3_repeat()
     print(f"MODEL phase: {time.perf_counter() - t_start:.1f}s", flush=True)
     return {"launches": launches, "cases": results}
+
+
+#: the decode-attention phase's cases: (cell, rows, cache depth, query
+#: heads, KV heads, head dim, write index) at the benchmark cells' served
+#: shapes, the index at the mean of the cell's decode steps (chat: prompts
+#: padded to 1024, steps at 1024-1278; rag: 3584, steps at 3584-3598)
+DECODE_CASES = (
+    ("olmoe-1b-7b.chat", 32, 1280, 16, 16, 128, 1151),
+    ("olmoe-1b-7b.rag", 8, 3600, 16, 16, 128, 3591),
+    ("jamba-v0.1-52b.chat", 32, 1280, 32, 8, 128, 1151),
+)
+
+
+def _decode_hold(args, kw, out):
+    """A recorded decode-attention call (``decode_attention.kernel.
+    decode_attention``'s ``q, k, v, idx`` and its ``ring``, ``window`` and
+    ``softcap``) against its plain version on the same inputs: ``(err,
+    share)``."""
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    q, k, v, idx = args
+    plain = reference_decode_attention(q, k, v, idx.reshape(()), **kw)
+    rtol = BF16_RTOL if out.dtype == torch.bfloat16 else 0.0
+    return _hold(out, plain, rtol, MODEL_TOL["decode_attention"])
+
+
+def _decode_label(args, kw) -> str:
+    q, k, _, _ = args
+    return (f"B{q.shape[0]} T{k.shape[1]} H{q.shape[2]}/{k.shape[2]} "
+            f"hd{q.shape[3]} ring={kw.get('ring', False)} window="
+            f"{kw.get('window')} softcap={kw.get('softcap')} "
+            f"{str(q.dtype).removeprefix('torch.')}")
+
+
+def _decode_held(what, rec) -> list:
+    """Every call ``rec`` (an :class:`OpRecorder` of the decode-attention
+    wrapper) kept, held against its plain version; raises past its
+    allowance.  Prints the worst and the distinct shapes; returns the
+    errors."""
+    errs, shapes = [], []
+    worst = (0.0, 0.0)
+    for i in sorted(rec.calls):
+        args, kw, out = rec.calls[i]
+        err, share = _decode_hold(args, kw, out)
+        label = _decode_label(args, kw)
+        if not share <= 1.0:
+            raise AssertionError(f"{what} decode-attention call {i} "
+                                 f"[{label}]: {share:.3g}x its allowance")
+        errs.append(err)
+        worst = max(worst, (err, share), key=lambda t: t[1])
+        if label not in shapes:
+            shapes.append(label)
+    print(f"{what}: {len(errs)} decode-attention calls held against "
+          f"plain, worst max_abs_err={worst[0]:.3g} "
+          f"allowance_share={worst[1]:.3g} (|err| <= {BF16_RTOL:.3g}|plain| "
+          f"+ {MODEL_TOL['decode_attention']} in bf16, "
+          f"{MODEL_TOL['decode_attention']} in float32); shapes {shapes}",
+          flush=True)
+    return errs
+
+
+def _decode_library(q, k, v, at: int, out):
+    """The one PyTorch call that computes a decode-attention call over a
+    linear cache, timed as a yardstick only (the port never calls it):
+    ``F.scaled_dot_product_attention`` over the keys and values up to
+    ``at``, with ``enable_gqa`` where the heads are grouped.  Returns
+    ``(ms of a CUDA graph of the call, max abs difference from the
+    kernel's ``out``)`` or ``(None, why it did not run)``."""
+    import torch.nn.functional as F
+    gqa = q.shape[2] != k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x[:, :at + 1].transpose(1, 2) for x in (k, v))
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa)
+    try:
+        got = call().transpose(1, 2)
+    except Exception as e:      # a yardstick only: say why it did not run
+        return None, f"{type(e).__name__}: " + (
+            str(e).strip().splitlines() or [""])[0][:200]
+    diff = float((got.double() - out.double()).abs().max())
+    del got
+    return graph_ms(call), diff
+
+
+def run_decode_attention() -> dict:
+    """The decode-attention kernel at ``DECODE_CASES``, bf16 caches drawn
+    on the card: held against its plain version, rerun bitwise, timed as a
+    CUDA graph of the call beside its bound (the valid keys and values
+    read once, q read and the output written once, at
+    ``HBM_BYTES_PER_S``), the plain version's time and the library's
+    (:func:`_decode_library`).  Returns the rows and the launches."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, launches = [], 0
+    for cell, b, t, h, hkv, hd, at in DECODE_CASES:
+        q = torch.randn((b, 1, h, hd), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, t, hkv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        idx = torch.tensor(at, dtype=torch.int32, device="cuda")
+
+        def call():
+            return da.decode_attention(q, k, v, idx)
+
+        before = da.LAUNCHES["decode_attention"]
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        launches += da.LAUNCHES["decode_attention"] - before
+        if not torch.equal(got, again):
+            raise AssertionError(f"DECODE {cell}: two runs differ")
+        plain = reference_decode_attention(q, k, v, idx)
+        err, share = _hold(got, plain, BF16_RTOL,
+                           MODEL_TOL["decode_attention"])
+        if not share <= 1.0:
+            raise AssertionError(f"DECODE {cell}: kernel vs plain max abs "
+                                 f"err {err}, {share:.3g}x its allowance")
+        del plain, again
+        ms = graph_ms(call)
+        library_ms, library_diff = _decode_library(q, k, v, at, got)
+        plain_ms = cuda_ms(lambda: reference_decode_attention(q, k, v, idx),
+                           reps=5, burst=1)
+        nbytes = da.decode_bytes(tuple(q.shape), tuple(k.shape),
+                                 q.element_size(), at, ring=False,
+                                 window=None)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        splits = da.split_count(b, hkv, h // hkv, t, hd, q.element_size(),
+                                da._sm_count(q.device))
+        row = {"cell": cell, "shape": (b, t, h, hkv, hd), "idx": at,
+               "splits": splits, "max_abs_err": err, "share": share,
+               "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+               "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": library_ms, "library_diff": library_diff}
+        rows.append(row)
+        lib = (f"library_ms={library_ms:.4f} (F.scaled_dot_product_attention"
+               f" over keys 0-{at}, max abs diff from the kernel "
+               f"{library_diff:.3g})" if library_ms is not None
+               else f"library_ms=null (did not run: {library_diff})")
+        print(f"DECODE {cell} [B {b} T {t} H {h}/{hkv} hd {hd} bf16, idx "
+              f"{at}, {splits} splits]: max_abs_err={err:.3g} "
+              f"allowance_share={share:.3g} bitwise_rerun=True "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bytes={nbytes} "
+              f"bound_ms={bound_ms:.4f} (bytes) kernel/bound="
+              f"{ms / bound_ms:.2f} ({100 * bound_ms / ms:.1f}% of the "
+              f"bound's rate) {lib}", flush=True)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    print(f"DECODE phase: {launches} launches, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"rows": rows, "launches": launches}
 
 
 class OpRecorder:
@@ -2086,21 +2284,29 @@ def _print_b3_timing(what, row) -> None:
           f" library={row['library']} {lib}", flush=True)
 
 
-def _serve_main_path(cfg, sp, prompts, max_prompt, new_tokens, kw, keep):
-    """``serve_requests`` in one batch with B3's count at 0 just before and
-    read just after; B3's op calls recorded (clones of those in ``keep``).
-    Returns ``(tokens, times, B3 launches counted, recorder)``."""
+def _serve_main_path(cfg, sp, prompts, max_prompt, new_tokens, kw, keep,
+                     keep_decode):
+    """``serve_requests`` in one batch with B3's and the decode-attention
+    kernel's counts at 0 just before and read just after; B3's op calls
+    recorded (clones of those in ``keep``), and the decode-attention
+    wrapper's (clones of those in ``keep_decode``).  Returns ``(tokens,
+    times, launches counted by kernel, B3's recorder, the decode
+    recorder)``."""
+    from repro_torch.kernels.decode_attention import kernel as da_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch.serve import serve_requests
-    with OpRecorder(fa_ops, "attention", keep) as rec:
+    with OpRecorder(fa_ops, "attention", keep) as rec, \
+            OpRecorder(da_k, "decode_attention", keep_decode) as rec_d:
         fa_k.LAUNCHES["flash_attention"] = 0
+        da_k.LAUNCHES["decode_attention"] = 0
         tokens, times = serve_requests(cfg, sp, prompts, batch=len(prompts),
                                        max_prompt=max_prompt,
                                        new_tokens=new_tokens, **kw)
         torch.cuda.synchronize()
-        counted = fa_k.LAUNCHES["flash_attention"]
-    return tokens, times, counted, rec
+        counted = {"flash_attention": fa_k.LAUNCHES["flash_attention"],
+                   "decode_attention": da_k.LAUNCHES["decode_attention"]}
+    return tokens, times, counted, rec, rec_d
 
 
 def _family_graph_vs_eager(cfg, sp, toks, max_seq, steps, pre, step, kw):
@@ -2156,24 +2362,28 @@ def _extend_err(cfg, sp, toks, extra, max_seq) -> tuple:
 
 def _check_served(name, cfg, pre, step, counted, want, new_tokens,
                   gen_tokens):
+    """One prefill capture replayed once, one decode capture replayed at
+    every later step, the launches ``counted`` at the wrappers as
+    ``want`` (kernel -> count), and every generated token a token."""
     steps = new_tokens - 1
     if not (pre.graph and pre.captures == 1 and pre.replays == 1
             and step.graph and step.captures == 1
             and step.replays == steps and counted == want):
         raise AssertionError(f"FAMILY {name}: want one prefill capture "
                              f"replayed once, one decode capture replayed "
-                             f"{steps} times and {want} B3 launches at the "
-                             f"wrapper, got {pre.captures}/{pre.replays}, "
+                             f"{steps} times and launches at the wrappers "
+                             f"{want}, got {pre.captures}/{pre.replays}, "
                              f"{step.captures}/{step.replays} and {counted}")
     if gen_tokens.shape[1] != new_tokens or not (
             (gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all():
         raise AssertionError(f"FAMILY {name}: generated {gen_tokens}")
 
 
-def _run_gemma(held: list, rows: list) -> int:
+def _run_gemma(held: dict, rows: list) -> dict:
     """Gemma2-9B at all 42 layers (the phase's main path, see the module
-    doc).  Appends its held B3 calls and timed cases; returns B3's
-    launches on the main path."""
+    doc).  Appends its held B3 and decode-attention calls' errors and its
+    timed B3 cases; returns B3's and the decode-attention kernel's
+    launches on the card on the main path."""
     from repro_torch.configs import gemma2_9b
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import transformer as T
@@ -2196,13 +2406,17 @@ def _run_gemma(held: list, rows: list) -> int:
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)",
           flush=True)
 
-    # -- the main path: serve_requests, B3's count at 0 just before -------
-    tokens, times, counted, rec = _serve_main_path(
+    # -- the main path: serve_requests, the counts at 0 just before -------
+    # the decode wrapper runs in the decode graph's warm-up (calls 0 to
+    # L - 1) and its capture; the warm-up's first and last local (ring,
+    # softcap, hd 256) and global layers are held
+    tokens, times, counted, rec, rec_d = _serve_main_path(
         cfg, sp, prompts, FAMILY_PROMPT, FAMILY_NEW_TOKENS, {},
-        keep={0, 1, L - 2, L - 1})
+        keep={0, 1, L - 2, L - 1}, keep_decode={0, 1, L - 2, L - 1})
     pre, step = times[0]["prefill"], times[0]["step"]
     gen_tokens = np.stack(tokens)
-    _check_served(cfg.name, cfg, pre, step, counted, 2 * L,
+    _check_served(cfg.name, cfg, pre, step, counted,
+                  {"flash_attention": 2 * L, "decode_attention": 2 * L},
                   FAMILY_NEW_TOKENS, gen_tokens)
     # one prefill pass's calls: local layers (even) windowed, all capped
     calls = rec.scalars[:L]
@@ -2213,16 +2427,17 @@ def _run_gemma(held: list, rows: list) -> int:
                                   for i in range(L, len(rec.scalars), L)):
         raise AssertionError(f"FAMILY gemma2-9b: B3 calls (window, softcap) "
                              f"{kinds} (want {want_kinds})")
-    launches = counted // 2 * (1 + pre.replays)
+    launches = {"flash_attention": L * (1 + pre.replays),
+                "decode_attention": L * (1 + step.replays)}
     print(f"FAMILY gemma2-9b main path (serve_requests): prefill graph "
           f"captures={pre.captures} replays={pre.replays}, decode graph "
-          f"captures={step.captures} replays={step.replays}; B3 counted at "
-          f"the wrapper {counted} (the warm-up run and the capture: "
-          f"{counted // 2} a prefill pass, {sum(k[0] is not None for k in kinds)}"
+          f"captures={step.captures} replays={step.replays}; counted at "
+          f"the wrappers {counted} (each graph's warm-up run and capture: "
+          f"B3 {L} a prefill pass, {sum(k[0] is not None for k in kinds)}"
           f" local with window {w} and softcap {cfg.attn_softcap}, "
-          f"{sum(k[0] is None for k in kinds)} global with softcap; the "
-          f"decode graph launches none); B3 launches on the card "
-          f"{launches}", flush=True)
+          f"{sum(k[0] is None for k in kinds)} global with softcap, none a "
+          f"decode step; the decode-attention kernel {L} a decode step); "
+          f"launches on the card {launches}", flush=True)
 
     # -- graph vs eager ----------------------------------------------------
     eager_tokens, eager_times = serve_requests(
@@ -2252,7 +2467,8 @@ def _run_gemma(held: list, rows: list) -> int:
               f"{MODEL_TOL['flash_attention']})", flush=True)
         if not share <= 1.0:
             raise AssertionError(f"{what}: {share:.3g}x its allowance")
-        held.append(err)
+        held["flash_attention"].append(err)
+    held["decode_attention"] += _decode_held("FAMILY gemma2-9b", rec_d)
 
     # -- prefill(P) + decode tokens vs prefill(P + tokens) -----------------
     extra = gen_tokens[:, :FAMILY_EXTEND]
@@ -2274,7 +2490,7 @@ def _run_gemma(held: list, rows: list) -> int:
         rows.append(_b3_timing(f"Gemma2-9B served {layer} layer", args, out,
                                errs[i][0]))
         _print_b3_timing(f"FAMILY gemma2-9b B3 {layer} layer call", rows[-1])
-    del pre, step, times, eager_times, rec, sp
+    del pre, step, times, eager_times, rec, rec_d, sp
     torch.cuda.empty_cache()
 
     # the same widths in float32 at 2 layers (one local, one global): the
@@ -2308,13 +2524,14 @@ def _run_gemma(held: list, rows: list) -> int:
     return launches
 
 
-def _run_other_family(name: str, held: list, rows: list) -> dict:
+def _run_other_family(name: str, held: dict, rows: list) -> dict:
     """One of the other attention configs as published, at 2 layers
     (Whisper-tiny whole): ``FAMILY_OTHER_BATCH`` requests of
     ``FAMILY_OTHER_PROMPT`` tokens (LLaVA's 2880 patches before them),
     ``FAMILY_OTHER_STEPS`` decode steps; B3's launches, every recorded call
-    held against the plain version, graph vs eager.  Returns B3's
-    launches on the card and the prefill and decode times."""
+    held against the plain version, graph vs eager.  Returns B3's and the
+    decode-attention kernel's launches on the card and the prefill and
+    decode times."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
@@ -2336,14 +2553,19 @@ def _run_other_family(name: str, held: list, rows: list) -> dict:
     keep = list(range(enc + L + cross))
     if cross:                  # and the first decode step's first one
         keep.append(enc + 2 * (L + cross))
-    tokens, times, counted, rec = _serve_main_path(
-        cfg, sp, prompts, FAMILY_OTHER_PROMPT, new_tokens, kw, keep)
+    # the decode step's self-attention through the decode-attention
+    # kernel, L calls in the warm-up (all held) and L in the capture
+    tokens, times, counted, rec, rec_d = _serve_main_path(
+        cfg, sp, prompts, FAMILY_OTHER_PROMPT, new_tokens, kw, keep,
+        range(L))
     pre, step = times[0]["prefill"], times[0]["step"]
     gen_tokens = np.stack(tokens)
+    want = {"flash_attention": want, "decode_attention": 2 * L}
     _check_served(name, cfg, pre, step, counted, want, new_tokens,
                   gen_tokens)
-    launches = enc + (L + cross) * (1 + pre.replays) \
-        + cross * (1 + step.replays)
+    launches = {"flash_attention": enc + (L + cross) * (1 + pre.replays)
+                + cross * (1 + step.replays),
+                "decode_attention": L * (1 + step.replays)}
     toks = _pad_batch(prompts, FAMILY_OTHER_PROMPT)
     max_seq = FAMILY_OTHER_PROMPT + new_tokens + (
         cfg.n_patches if cfg.family == "vlm" else 0)
@@ -2362,7 +2584,8 @@ def _run_other_family(name: str, held: list, rows: list) -> dict:
                                  f"allowance")
         shapes.setdefault(_b3_label(args), i)
         worst = max(worst, (err, share), key=lambda t: t[1])
-        held.append(err)
+        held["flash_attention"].append(err)
+    held["decode_attention"] += _decode_held(f"FAMILY {name}", rec_d)
     cold_ms = times[0]["prefill_s"] * 1e3
     enc_out = None if "frames" not in kw else T.encode(sp, kw["frames"], cfg)
     prefill_ms = statistics.median(_timed(lambda: pre(
@@ -2375,9 +2598,9 @@ def _run_other_family(name: str, held: list, rows: list) -> dict:
           f"qkv_bias={cfg.qkv_bias} qk_norm={cfg.qk_norm} dtype={cfg.dtype} "
           f"params={n_params} batch={FAMILY_OTHER_BATCH}x"
           f"{FAMILY_OTHER_PROMPT}{f' + {cfg.n_patches} patches' if cfg.n_patches else ''}"
-          f"{f' + {cfg.encoder_seq} frames' if enc else ''}: B3 counted "
-          f"{counted} at the wrapper (want {want}), {launches} launches on "
-          f"the card; prefill and {FAMILY_OTHER_STEPS} decode graph "
+          f"{f' + {cfg.encoder_seq} frames' if enc else ''}: counted at the "
+          f"wrappers {counted} (want {want}), launches on the card "
+          f"{launches}; prefill and {FAMILY_OTHER_STEPS} decode graph "
           f"replays bitwise to eager={same} (every logit finite="
           f"{finite}); {len(rec.calls)} B3 calls held "
           f"against plain, worst max_abs_err={worst[0]:.3g} "
@@ -2407,22 +2630,26 @@ def _pad_batch(prompts, width: int):
 def run_families() -> dict:
     """The attention model families (see the module doc): Gemma2-9B served
     at all 42 layers, then the other attention configs at 2 layers.
-    Returns B3's launches and the held calls' and timed cases' rows."""
+    Returns B3's and the decode-attention kernel's launches, the held
+    calls' largest errors and B3's timed cases' rows."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    held, rows = [], []
+    held = {"flash_attention": [], "decode_attention": []}
+    rows = []
     launches = _run_gemma(held, rows)
     torch.cuda.empty_cache()
     others = {}
     for name in FAMILY_OTHERS:
         others[name] = _run_other_family(name, held, rows)
-        launches += others[name]["launches"]
+        for k, n in others[name]["launches"].items():
+            launches[k] += n
         torch.cuda.empty_cache()
-    print(f"FAMILY phase: B3 launches {launches}, {len(held)} calls held, "
-          f"max_abs_err {max(held):.3g}, {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    return {"launches": launches, "max_abs_err": max(held), "rows": rows,
-            "others": others}
+    print(f"FAMILY phase: launches {launches}, calls held "
+          f"{ {k: len(v) for k, v in held.items()} }, max_abs_err "
+          f"{ {k: float(f'{max(v):.3g}') for k, v in held.items()} }, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return {"launches": launches, "rows": rows, "others": others,
+            "max_abs_err": {k: max(v) for k, v in held.items()}}
 
 
 class MoeDrops:
@@ -2547,32 +2774,37 @@ def _run_moe_config(case, seed: int, rows: dict, held: dict) -> dict:
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated)",
           flush=True)
 
-    # -- the main path: serve_requests, B3's and B5's counts at 0 ----------
+    # -- the main path: serve_requests, B3's, B5's and DA's counts at 0 ---
     # the wrappers run in the prefill's warm-up and capture (calls 0 to
     # 2n - 1 of n a pass) and the decode step's (2n to 4n - 1); B5's held
     # calls are the first and last Mamba layer of the prefill's warm-up and
-    # the first of the decode step's, B3's every call of the warm-up
+    # the first of the decode step's, B3's every call of the warm-up; the
+    # decode-attention kernel (DA) runs in the decode step's warm-up (calls
+    # 0 to n - 1, all held) and capture
+    from repro_torch.kernels.decode_attention import kernel as da_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.mamba_scan import kernel as ms_k
     keep5 = {0, n_mamba - 1, 2 * n_mamba} if n_mamba else set()
     with OpRecorder(fa_ops, "attention", range(n_attn)) as r3, \
-            OpRecorder(ms_ops, "mamba", keep5) as r5, MoeDrops(n_moe) as dr:
+            OpRecorder(ms_ops, "mamba", keep5) as r5, \
+            OpRecorder(da_k, "decode_attention", range(n_attn)) as rd, \
+            MoeDrops(n_moe) as dr:
         fa_k.LAUNCHES["flash_attention"] = 0
         ms_k.LAUNCHES["mamba_scan"] = 0
+        da_k.LAUNCHES["decode_attention"] = 0
         tokens, times = serve_requests(cfg, sp, prompts, batch=batch,
                                        max_prompt=prompt,
                                        new_tokens=new_tokens)
         torch.cuda.synchronize()
         counted = {"flash_attention": fa_k.LAUNCHES["flash_attention"],
-                   "mamba_scan": ms_k.LAUNCHES["mamba_scan"]}
+                   "mamba_scan": ms_k.LAUNCHES["mamba_scan"],
+                   "decode_attention": da_k.LAUNCHES["decode_attention"]}
     pre, step = times[0]["prefill"], times[0]["step"]
     gen_tokens = np.stack(tokens)
-    want = {"flash_attention": 2 * n_attn, "mamba_scan": 4 * n_mamba}
-    if counted != want:
-        raise AssertionError(f"MOE {name}: the wrappers counted {counted}, "
-                             f"want {want}")
-    _check_served(name, cfg, pre, step, counted["flash_attention"],
-                  want["flash_attention"], new_tokens, gen_tokens)
+    want = {"flash_attention": 2 * n_attn, "mamba_scan": 4 * n_mamba,
+            "decode_attention": 2 * n_attn}
+    _check_served(name, cfg, pre, step, counted, want, new_tokens,
+                  gen_tokens)
     in_place = [i for i, w in enumerate(r5.in_place) if w]
     if in_place != list(range(3 * n_mamba, 4 * n_mamba)):
         raise AssertionError(f"MOE {name}: B5 calls writing the state in "
@@ -2580,12 +2812,14 @@ def _run_moe_config(case, seed: int, rows: dict, held: dict) -> dict:
                              f"{3 * n_mamba} to {4 * n_mamba - 1}")
     launches = {"flash_attention": n_attn * (1 + pre.replays),
                 "mamba_scan": n_mamba * (1 + pre.replays)
-                + n_mamba * (1 + step.replays)}
+                + n_mamba * (1 + step.replays),
+                "decode_attention": n_attn * (1 + step.replays)}
     print(f"MOE {name} main path (serve_requests): prefill graph captures="
           f"{pre.captures} replays={pre.replays}, decode graph captures="
           f"{step.captures} replays={step.replays}; a prefill pass runs B3 "
-          f"{n_attn} and B5 {n_mamba} times, a decode step B3 0 and B5 "
-          f"{n_mamba} times (counted at the wrappers {counted}: each "
+          f"{n_attn} and B5 {n_mamba} times, a decode step B3 0, B5 "
+          f"{n_mamba} and the decode-attention kernel {n_attn} times "
+          f"(counted at the wrappers {counted}: each "
           f"step's warm-up and capture); B5 writing the ssm state in place "
           f"in the decode graph: {len(in_place)} of the capture's "
           f"{n_mamba} calls (out_state is the static cache's state); "
@@ -2642,6 +2876,7 @@ def _run_moe_config(case, seed: int, rows: dict, held: dict) -> dict:
               flush=True)
     held["flash_attention"] += [e for e, _ in errs3.values()]
     held["mamba_scan"] += [e for e, _ in errs5.values()]
+    held["decode_attention"] += _decode_held(f"MOE {name}", rd)
 
     # -- the state hand-off (Mamba configs) --------------------------------
     if n_mamba:
@@ -2737,8 +2972,8 @@ def run_moe() -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rows = {"flash_attention": [], "mamba_scan": []}
-    held = {"flash_attention": [], "mamba_scan": []}
-    launches = {"flash_attention": 0, "mamba_scan": 0}
+    held = {"flash_attention": [], "mamba_scan": [], "decode_attention": []}
+    launches = {"flash_attention": 0, "mamba_scan": 0, "decode_attention": 0}
     for seed, case in enumerate(MOE_CASES):
         res = _run_moe_config(case, 10 + seed, rows, held)
         for k, n in res["launches"].items():
@@ -2750,7 +2985,9 @@ def run_moe() -> dict:
           f"{len(held['flash_attention'])} (max_abs_err "
           f"{max(held['flash_attention']):.3g}), B5 calls held "
           f"{len(held['mamba_scan'])} (max_abs_err "
-          f"{max(held['mamba_scan']):.3g}), peak "
+          f"{max(held['mamba_scan']):.3g}), decode-attention calls held "
+          f"{len(held['decode_attention'])} (max_abs_err "
+          f"{max(held['decode_attention']):.3g}), peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB allocated, "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     return {"launches": launches, "rows": rows,
@@ -4374,7 +4611,7 @@ def _mesh_world_of_one(lazy, codegen) -> int:
     return b1
 
 
-def _mesh_hold(rec_b3=None, rec_b5=None, rec_rw=()) -> dict:
+def _mesh_hold(rec_b3=None, rec_b5=None, rec_rw=(), rec_da=None) -> dict:
     """The first recorded call of each kernel on the mesh path (each rank's
     local shards) against its plain version: name -> (err, share)."""
     from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
@@ -4386,6 +4623,9 @@ def _mesh_hold(rec_b3=None, rec_b5=None, rec_rw=()) -> dict:
     if rec_b5 is not None and 0 in rec_b5.calls:
         args, kw, out = rec_b5.calls[0]
         held["mamba_scan"] = _b5_hold(args, kw, out)
+    if rec_da is not None and rec_da.calls:
+        held["decode_attention"] = _decode_hold(*rec_da.calls[min(
+            rec_da.calls)])
     for name, rec, plain in rec_rw:
         if 0 not in rec.calls:
             continue
@@ -4450,6 +4690,7 @@ def _mesh_model_world_of_one(train_losses) -> dict:
     import torch.distributed as tdist
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.decode_attention import kernel as da_k
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.rwkv6_scan import ops as rw_ops
@@ -4550,10 +4791,14 @@ def _mesh_model_world_of_one(train_losses) -> dict:
             gen = torch.Generator(device="cuda").manual_seed(44)
             toks = torch.randint(0, c.vocab_size, (batch, prompt),
                                  generator=gen, device="cuda")
+            # the decode-attention wrapper's first call on the mesh: after
+            # the mesh-less model's, one an attention layer a step
+            n_attn = sum(m.startswith("attn") for m, _ in c.layer_pattern())
             recs = [OpRecorder(fa_ops, "attention", {0}),
                     OpRecorder(ms_ops, "mamba", {0}),
                     OpRecorder(rw_ops, "rwkv6_chunked", {0}),
-                    OpRecorder(rw_ops, "rwkv6", {0})]
+                    OpRecorder(rw_ops, "rwkv6", {0}),
+                    OpRecorder(da_k, "decode_attention", {n_attn * n_dec})]
             with contextlib.ExitStack() as stack:
                 for r in recs:
                     stack.enter_context(r)
@@ -4561,7 +4806,7 @@ def _mesh_model_world_of_one(train_losses) -> dict:
                                                       n_dec)
             part = _mesh_hold(recs[0], recs[1], (
                 ("rwkv6_chunked", recs[2], reference_rwkv6_chunked),
-                ("rwkv6_scan", recs[3], reference_rwkv6)))
+                ("rwkv6_scan", recs[3], reference_rwkv6)), recs[4])
             for k, v in part.items():
                 held[k] = max(held.get(k, (0.0, 0.0)), v)
             for k in launches:
@@ -5053,6 +5298,13 @@ def main() -> int:
           f"{lm['loss']['B2']['timed_blocks']} blocks", flush=True)
     model = run_model_kernels()
     torch.cuda.empty_cache()
+    decode = run_decode_attention()
+    model["cases"]["decode_attention"] = decode["rows"]
+    model["launches"]["decode_attention"] = (decode["launches"]
+                                             + lm["decode"]["launches"])
+    for row in decode["rows"]:
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 lm["decode"]["max_abs_err"])
     rwkv = run_rwkv()
     torch.cuda.empty_cache()
     for name, n in rwkv["launches"].items():
@@ -5062,18 +5314,17 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], err_o, err_s)
     families = run_families()
     torch.cuda.empty_cache()
-    model["launches"]["flash_attention"] += families["launches"]
     model["cases"]["flash_attention"].extend(families["rows"])
-    for row in model["cases"]["flash_attention"]:
-        row["max_abs_err"] = max(row["max_abs_err"], families["max_abs_err"])
     moe = run_moe()
     torch.cuda.empty_cache()
-    for name in ("flash_attention", "mamba_scan"):
-        model["launches"][name] += moe["launches"][name]
-        model["cases"][name].extend(moe["rows"][name])
-        for row in model["cases"][name]:
-            row["max_abs_err"] = max(row["max_abs_err"],
-                                     moe["max_abs_err"][name])
+    for name, rows in moe["rows"].items():
+        model["cases"][name].extend(rows)
+    for res in (families, moe):
+        for name, n in res["launches"].items():
+            model["launches"][name] += n
+        for name, err in res["max_abs_err"].items():
+            for row in model["cases"][name]:
+                row["max_abs_err"] = max(row["max_abs_err"], err)
     train = run_train(lazy, codegen)
     torch.cuda.empty_cache()
     model["launches"]["flash_attention"] += train["launches"]
@@ -5142,6 +5393,9 @@ def main() -> int:
         _model_entry("rwkv6_chunked", "cuda",
                      "src/repro_torch/csrc/rwkv6_chunked.cu",
                      "src/repro/kernels/rwkv6_scan/kernel_chunked.py:70",
+                     model),
+        _model_entry("decode_attention", "cuda",
+                     "src/repro_torch/csrc/decode_attention.cu", None,
                      model)]}
     print(json.dumps(kernels))
     smi = subprocess.run(

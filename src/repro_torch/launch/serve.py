@@ -231,8 +231,10 @@ class DecodeStep(_GraphStep):
     and ``enc_out`` shape over a static ``(B, 1)`` token, a static
     ``enc_out`` and static stacked caches, with the caches updated in place
     (``serve_decode(..., in_place=True)``: B6 writes each RWKV layer's
-    state and B5 each Mamba layer's SSM state straight into the static
-    cache).  Every call copies its token
+    state, B5 each Mamba layer's SSM state and each attention layer its
+    token's key and value straight into the static cache, which the
+    decode-attention kernel then reads where it lies).  Every call copies
+    its token
     and ``enc_out`` into the static ones, and its caches too unless they
     are the static ones the last call returned, and replays.  The returned
     logits and caches are the static buffers, overwritten by the next

@@ -45,13 +45,16 @@ import torch
 
 from ..core.device import on_card_route
 from ..core.obs import trace
+from ..kernels.decode_attention import kernel as da_kernel
+from ..kernels.decode_attention.ref import (NEG_INF,
+                                            reference_decode_attention,
+                                            softmax)
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.mamba_scan import ops as ms_ops
 from ..kernels.rwkv6_scan import ops as rwkv_ops
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
-NEG_INF = -1e30
 
 
 def _init(gen: Optional[torch.Generator], shape, dtype: torch.dtype, device,
@@ -302,13 +305,6 @@ def attention_axes(cfg: ModelConfig) -> Dict[str, tuple]:
 DENSE_ATTN_MAX_SEQ = 8192
 
 
-def _softmax(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax`` over the last axis: shifted exponentials over
-    their sum."""
-    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
-    return e / torch.sum(e, dim=-1, keepdim=True)
-
-
 def _mask(qpos, kpos, causal: bool, window: Optional[int]) -> torch.Tensor:
     mask = torch.ones((qpos.shape[0], kpos.shape[1]), dtype=torch.bool,
                       device=qpos.device)
@@ -336,7 +332,7 @@ def _dense_attn(q, k, v, *, causal: bool, window: Optional[int],
     mask = _mask(torch.arange(s, device=q.device)[:, None],
                  torch.arange(t, device=q.device)[None, :], causal, window)
     sc = torch.where(mask[None, None], sc, NEG_INF)
-    o = einsum("bhst,bthd->bshd", _softmax(sc), v.to(torch.float32))
+    o = einsum("bhst,bthd->bshd", softmax(sc), v.to(torch.float32))
     return o.to(q.dtype)
 
 
@@ -464,30 +460,56 @@ def _per_row(fn, x: torch.Tensor, channel: Optional[int] = None):
     return fn(x)
 
 
-def _cache_write(cache, at, new):
+def _cache_write(cache, at, new, in_place: bool = False):
     """``cache`` ``(B, T, Hkv, hd)`` with ``new`` written at positions
-    ``at``; on a mesh each rank writes its own rows and KV heads (DTensor
-    has no rule for ``index_copy``)."""
+    ``at``: a new tensor, or with ``in_place`` ``cache`` itself, written
+    where it lies; on a mesh each rank writes its own rows and KV heads
+    into a new tensor (DTensor has no rule for ``index_copy``)."""
     if _is_dtensor(cache):
         return sharded_call(lambda c, a, n: c.index_copy(1, a, n),
                             (cache, at, new), ((0, 2), (None, None), (0, 2)),
                             ((0, 2),))
+    if in_place:
+        return cache.index_copy_(1, at, new)
     return cache.index_copy(1, at, new)
+
+
+def _decode_attend(q, k, v, idx, *, ring: bool, window: Optional[int],
+                   softcap: Optional[float]) -> torch.Tensor:
+    """One token a row, ``(B, 1, H, hd)`` queries, over its ``(B, T, Hkv,
+    hd)`` caches where they lie: on the card (and inside
+    ``core.device.card_route``) the decode-attention kernel
+    (``kernels/decode_attention``), which finds the valid keys from
+    ``idx`` on the device; on the CPU its plain version, the reference's
+    arithmetic.  On a mesh each rank runs it on its own batch rows and
+    heads (:func:`sharded_call`)."""
+    opts = dict(ring=ring, window=window, softcap=softcap)
+    if _is_dtensor(q) or _is_dtensor(k):
+        return sharded_call(lambda *a: _decode_attend(*a, **opts),
+                            (q, k, v, idx),
+                            ((0, 2), (0, 2), (0, 2), (None, None)),
+                            ((0, 2),))
+    if not on_card_route(q.device):
+        return reference_decode_attention(q, k, v, idx, **opts)
+    return da_kernel.decode_attention(q.contiguous(), k, v, idx, **opts)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               local: bool = False, positions: Optional[torch.Tensor] = None,
               cache: Optional[Dict] = None,
-              kv_src: Optional[torch.Tensor] = None, causal: bool = True):
+              kv_src: Optional[torch.Tensor] = None, causal: bool = True,
+              in_place: bool = False):
     """Returns ``(out, new_cache)``.  ``cache = {"k", "v", "idx"}``: a
     prompt (``s > 1``, ``idx == 0``) writes its k/v and attends over its
-    own; one token writes at ``idx`` and attends over the whole cache,
-    masked by position.  A ``local`` layer whose cache is ``window`` deep
-    keeps a ring: a prompt of ``s >= window`` tokens stores its last
-    ``window`` at slot ``position % window``, a token writes at ``idx %
-    window`` and only empty slots are masked.  The write slot stays on the
-    device (no host read), so a decode step can be captured in a CUDA
-    graph.  ``kv_src`` (an encoder output) makes it cross-attention: k/v
+    own; one token writes at ``idx`` and attends over the cache up to
+    ``idx`` (:func:`_decode_attend`).  With ``in_place`` (the decode
+    graph's static caches) the k/v are written into ``cache`` itself, and
+    ``new_cache`` holds those tensors.  A ``local`` layer whose cache is
+    ``window`` deep keeps a ring: a prompt of ``s >= window`` tokens
+    stores its last ``window`` at slot ``position % window``, a token
+    writes at ``idx % window`` and only empty slots are masked.  The write
+    slot stays on the device (no host read), so a decode step can be
+    captured in a CUDA graph.  ``kv_src`` (an encoder output) makes it cross-attention: k/v
     from it, no RoPE, no cache."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -533,35 +555,18 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             slot = torch.remainder(idx, t) if ring else idx
             at = (slot + torch.arange(s, device=x.device)).long()
-            ck = _cache_write(cache["k"], at, k.to(cache["k"].dtype))
-            cv = _cache_write(cache["v"], at, v.to(cache["v"].dtype))
+            ck = _cache_write(cache["k"], at, k.to(cache["k"].dtype),
+                              in_place)
+            cv = _cache_write(cache["v"], at, v.to(cache["v"].dtype),
+                              in_place)
         new_cache = {"k": ck, "v": cv, "idx": idx + s}
         if s > 1:
             # a prompt (idx == 0) attends over its own k/v
             o = _attend(q, k, v, causal=causal, window=window,
                         softcap=softcap, scale=1.0 / math.sqrt(hd))
         else:
-            kpos = torch.arange(t, device=x.device)[None, :]
-            if ring:
-                # the filled slots hold exactly the last `window` positions
-                valid = kpos < torch.clamp(idx + s, max=t)
-            else:
-                qpos = idx + torch.arange(s, device=x.device)[:, None]
-                valid = _mask(qpos, kpos, True, window)
-            qg = _split(q.transpose(1, 2), 1, b, kvh, h // kvh, s, hd)
-            # a correctly rounded divide, as jnp's (a CUDA divide by a host
-            # scalar multiplies by its reciprocal), by a tensor filled on
-            # the device (no host copy, so the step can be captured)
-            sqrt_hd = torch.full((), math.sqrt(hd), dtype=torch.float32,
-                                 device=x.device)
-            sc = einsum("bkgqd,btkd->bkgqt", qg.to(torch.float32),
-                              ck.to(torch.float32)) / sqrt_hd
-            if softcap is not None:
-                sc = softcap * torch.tanh(sc / softcap)
-            sc = torch.where(valid[None, None, None], sc, NEG_INF)
-            o = einsum("bkgqt,btkd->bkgqd", _softmax(sc),
-                             cv.to(torch.float32))
-            o = o.reshape(b, h, s, hd).transpose(1, 2).to(x.dtype)
+            o = _decode_attend(q, ck, cv, idx, ring=ring, window=window,
+                               softcap=softcap)
     out = einsum("bsh,hd->bsd", o.reshape(b, s, h * hd),
                        p["wo"].to(x.dtype))
     return out, new_cache
@@ -640,7 +645,7 @@ def moe_route(p: Params, xg: torch.Tensor, cfg: ModelConfig) -> Dict:
     cap = int(m.capacity_factor * xg.shape[1] * k / e) + 1
     logits = einsum("gsd,de->gse", xg.to(torch.float32),
                           p["router"].to(torch.float32))
-    probs = _softmax(logits)
+    probs = softmax(logits)
     gate_vals, idx = torch.topk(probs, k)                  # (g, s, k)
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)

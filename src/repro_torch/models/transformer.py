@@ -258,7 +258,8 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
     """One layer; returns ``(x, new_cache, aux)``: ``aux`` the MoE
     router's loss, or None for a dense MLP.  With ``in_place`` the new
     cache is written into ``cache`` right after the mixer (an RWKV
-    layer's wkv state and a Mamba layer's ssm state by the layer itself),
+    layer's wkv state, a Mamba layer's ssm state and an attention layer's
+    keys and values by the layer itself, so only the rest is copied),
     and ``cache`` is returned.  ``constrain`` goes to the MoE layer
     (:func:`forward`).  Each sublayer, its norm and its residual add is a
     device span (``core.obs.trace``) ``<span>.<mixer>``, ``<span>.cross``
@@ -276,7 +277,7 @@ def _apply_layer(lp: Params, x, cfg: ModelConfig, mixer: str, ffn: str, *,
             a, new_cache = attention(lp["mixer"], h, cfg,
                                      local=mixer == "attn_local",
                                      positions=positions, cache=cache,
-                                     causal=causal)
+                                     causal=causal, in_place=in_place)
         if in_place and new_cache is not None:
             for key, dst in cache.items():
                 if new_cache[key].data_ptr() != dst.data_ptr():

@@ -231,20 +231,22 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def kernel_launches() -> Dict[str, int]:
-    """The launch counts of the kernels the model runs on a mesh: B3, B5,
-    B6 and B7."""
+def _kernel_modules():
+    from ..kernels.decode_attention import kernel as da
     from ..kernels.flash_attention import kernel as b3
     from ..kernels.mamba_scan import kernel as b5
     from ..kernels.rwkv6_scan import kernel as b6, kernel_chunked as b7
-    return {**b3.LAUNCHES, **b5.LAUNCHES, **b6.LAUNCHES, **b7.LAUNCHES}
+    return b3, b5, b6, b7, da
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launch counts of the kernels the model runs on a mesh: B3, B5,
+    B6, B7 and the decode-attention kernel."""
+    return {k: n for mod in _kernel_modules() for k, n in mod.LAUNCHES.items()}
 
 
 def zero_launches() -> None:
-    from ..kernels.flash_attention import kernel as b3
-    from ..kernels.mamba_scan import kernel as b5
-    from ..kernels.rwkv6_scan import kernel as b6, kernel_chunked as b7
-    for mod in (b3, b5, b6, b7):
+    for mod in _kernel_modules():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 

@@ -32,8 +32,8 @@ def test_one_nvcc_call_for_every_source_for_sm_90a(tmp_path):
         names.add(os.path.basename(srcs[0]))
         obj = cmd[cmd.index("-o") + 1]
         assert obj.endswith(".o") and obj in link
-    assert names == {"errors.cu", "flash_attention.cu", "mamba_scan.cu",
-                     "rwkv6_chunked.cu", "rwkv6_scan.cu"}
+    assert names == {"decode_attention.cu", "errors.cu", "flash_attention.cu",
+                     "mamba_scan.cu", "rwkv6_chunked.cu", "rwkv6_scan.cu"}
     assert len(compile_cmds) == len(names)
     assert link[0] == "nvcc" and "-shared" in link
     assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"

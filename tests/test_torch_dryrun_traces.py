@@ -41,8 +41,10 @@ def test_smoke_cells_trace_the_cards_route(fake256, traces, cell):
 
 
 def check_cell(mesh, cell, rec):
-    """A traced cell's record: every key, the kernels' calls, the alias
-    bytes of a train step, no score tensor outside B3's backward."""
+    """A traced cell's record: every key, the kernels' calls (a decode
+    step's attention through the decode-attention kernel, a layer's
+    launch each), the alias bytes of a train step, no score tensor outside
+    B3's backward."""
     from repro_torch.launch.steps import _dp_total, microbatch_count
     arch, shape_name = cell
     cfg = PC.get_config(arch, smoke=True)
@@ -73,6 +75,7 @@ def check_cell(mesh, cell, rec):
         assert calls.get("flash_attention", 0) == attn
     else:
         assert "flash_attention" not in calls
+        assert calls.get("decode_attention", 0) == attn
     if cfg.rwkv is not None and shape.kind == "decode":
         assert calls == {"rwkv6_scan": layers}
     # the forward's attention goes through B3: no score tensor but in its

@@ -1,9 +1,12 @@
 """Card-only checks of the port's kernels — the fused-block generator (B1)
 and the row-replay generator (B2) in Triton, the LM lane that runs them,
 the standalone model kernels (B3 flash attention, B5 Mamba scan, B6 RWKV6
-scan and B7 chunked RWKV6 in CUDA C++, B4 add+RMSNorm in Triton) and the
-RWKV6 model path that runs B6 and B7 — skipped without a CUDA device
-(and, for the Triton kernels, Triton).
+scan and B7 chunked RWKV6 in CUDA C++, B4 add+RMSNorm in Triton), the
+decode-attention kernel (CUDA C++; the served shapes, bitwise repeats, no
+use of keys outside the valid range, its refusals, one launch a layer at
+a decode graph's capture and none at its replays) and the RWKV6 model
+path that runs B6 and B7 — skipped without a CUDA device (and, for the
+Triton kernels, Triton).
 
 Also cross-flush loop fusion on the card: a drain replays one captured
 CUDA graph of an iteration, bitwise the per-flush run; and the attention
@@ -632,6 +635,129 @@ def test_flash_attention_refuses(card):
         flash_attention(z, x, x)
 
 
+# ---------------------------------------------------------------------------
+# the decode-attention kernel: a decode step's one-token attention over its
+# KV caches where they lie
+# ---------------------------------------------------------------------------
+
+#: (B, T, H, Hkv, hd, dtype, ring, window, softcap, idx): the benchmark's
+#: served shapes (OLMoE-1B-7B chat and rag, Jamba-v0.1 chat), Gemma2-9B's
+#: 256-deep ring with its softcap (filling and past the window), a linear
+#: cache with a window, the groups of Qwen3-MoE (16) and StarCoder2 (12),
+#: float32 caches, every head dim and the first and last slots
+DECODE_CASES = {
+    "olmoe_chat": (32, 1280, 16, 16, 128, torch.bfloat16, False, None, None,
+                   1151),
+    "olmoe_chat_last": (32, 1280, 16, 16, 128, torch.bfloat16, False, None,
+                        None, 1279),
+    "olmoe_rag": (8, 3600, 16, 16, 128, torch.bfloat16, False, None, None,
+                  3591),
+    "jamba_chat": (32, 1280, 32, 8, 128, torch.bfloat16, False, None, None,
+                   1100),
+    "gemma2_ring_past": (2, 256, 16, 8, 256, torch.bfloat16, True, 256, 50.0,
+                         700),
+    "gemma2_ring_filling": (2, 256, 16, 8, 256, torch.bfloat16, True, 256,
+                            50.0, 100),
+    "window": (3, 512, 8, 2, 64, torch.bfloat16, False, 100, None, 400),
+    "group16": (2, 700, 64, 4, 128, torch.bfloat16, False, None, None, 650),
+    "group12": (2, 300, 24, 2, 128, torch.bfloat16, False, None, None, 299),
+    "bf16_hd32": (2, 64, 4, 2, 32, torch.bfloat16, False, None, None, 33),
+    "f32_gqa": (4, 300, 8, 2, 64, torch.float32, False, None, None, 150),
+    "f32_hd128": (4, 1000, 8, 8, 128, torch.float32, False, None, None, 777),
+    "f32_hd256_window_softcap": (2, 200, 4, 1, 256, torch.float32, False, 48,
+                                 30.0, 199),
+    "f32_hd32_first": (3, 40, 4, 4, 32, torch.float32, False, None, None, 0),
+    "f32_ring": (2, 8, 4, 2, 32, torch.float32, True, 8, None, 20),
+}
+
+
+def _decode_inputs(case, dev):
+    """q, k, v and idx of a ``DECODE_CASES`` case, drawn on the card, and
+    the call's mask options."""
+    b, t, h, hkv, hd, dtype, ring, window, softcap, at = DECODE_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(t + h + hd)
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, t, hkv, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    idx = torch.tensor(at, dtype=torch.int32, device=dev)
+    return (q, k, v, idx), dict(ring=ring, window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_kernel(card, case):
+    """The kernel against its plain version (B3's tolerance), one launch a
+    call, two calls bitwise equal."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+    args, kw = _decode_inputs(case, card)
+    got = _twice_same(lambda: da.decode_attention(*args, **kw), da.LAUNCHES,
+                      "decode_attention")
+    _hold(got, reference_decode_attention(*args, **kw), "attention")
+
+
+@pytest.mark.parametrize("case", ["olmoe_chat", "window",
+                                  "gemma2_ring_filling", "f32_gqa"])
+def test_decode_attention_reads_only_the_valid_keys(card, case):
+    """Keys and values outside the valid range (past the index, before
+    the window, a ring's empty slots) filled with NaN change no bit of
+    the output: the kernel uses nothing there."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention.ref import valid_keys
+    (q, k, v, idx), kw = _decode_inputs(case, card)
+    want = da.decode_attention(q, k, v, idx, **kw)
+    keep = valid_keys(idx, k.shape[1], ring=kw["ring"],
+                      window=kw["window"])[0]
+    assert not keep.all()
+    k[:, ~keep] = float("nan")
+    v[:, ~keep] = float("nan")
+    assert torch.equal(da.decode_attention(q, k, v, idx, **kw), want)
+
+
+def test_decode_attention_split_count_is_the_shapes(card):
+    """The split counts of the served shapes on this card: a function of
+    the shapes alone, more splits where there are fewer (row, head)
+    pairs, no more than ``BLOCKS_PER_SM`` blocks an SM but with one
+    split."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    sms = da._sm_count(card)
+    chat = da.split_count(32, 16, 1, 1280, 128, 2, sms)
+    rag = da.split_count(8, 16, 1, 3600, 128, 2, sms)
+    jamba = da.split_count(32, 8, 4, 1280, 128, 2, sms)
+    assert 1 <= chat < rag and chat <= jamba
+    for blocks, n in ((32 * 16, chat), (8 * 16, rag), (32 * 8 * 2, jamba)):
+        assert n == 1 or blocks * n <= da.BLOCKS_PER_SM * sms
+
+
+def test_decode_attention_refuses(card):
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    q = torch.zeros((2, 1, 4, 64), device=card)
+    k = torch.zeros((2, 16, 2, 64), device=card)
+    idx = torch.tensor(3, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        decode_attention(q.double(), k.double(), k.double(), idx)
+    with pytest.raises(TypeError):
+        decode_attention(q, k.bfloat16(), k.bfloat16(), idx)
+    with pytest.raises(TypeError, match="int32"):
+        decode_attention(q, k, k, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(q, torch.zeros((2, 2, 16, 64), device=card)
+                         .transpose(1, 2), k, idx)
+    with pytest.raises(ValueError, match="head dim"):
+        y, z = torch.zeros((2, 1, 4, 48), device=card), \
+            torch.zeros((2, 16, 2, 48), device=card)
+        decode_attention(y, z, z, idx)
+    with pytest.raises(ValueError, match="aligned"):
+        w = torch.zeros(q.numel() + 1, device=card)[1:].view(q.shape)
+        decode_attention(w, k, k, idx)
+    with pytest.raises(ValueError, match="shapes"):
+        decode_attention(q.expand(2, 2, 4, 64), k, k, idx)
+    with pytest.raises(ValueError, match="softcap"):
+        decode_attention(q, k, k, idx, softcap=-1.0)
+    with pytest.raises(ValueError, match="window"):
+        decode_attention(q, k, k, idx, window=0)
+
+
 @pytest.mark.parametrize("shape,plus_one,dtype", [
     ((8, 128), False, torch.float32),
     ((100, 2560), True, torch.float32),
@@ -1096,12 +1222,20 @@ def _with_gains(tree, gen):
 def _serve_graph_model(card, arch):
     """The ``rwkv6-3b`` SMOKE config, or a dense one the direct model runs
     (float32 attention + MLP, ``norm_plus_one``, two heads of 32: its
-    prefill attention is kernel B3), with random weights."""
+    prefill attention is kernel B3, its decode attention the
+    decode-attention kernel; ``dense_gqa_bf16`` the same in bfloat16 with
+    4 query heads of 64 on 2 KV heads), with random weights."""
     from repro_torch.configs import rwkv6_3b
     from repro_torch.models import transformer as T
     from repro_torch.models.config import ModelConfig
     if arch == "rwkv6-3b":
         cfg = rwkv6_3b.SMOKE
+    elif arch == "dense_gqa_bf16":
+        cfg = ModelConfig(name="dense_gqa", family="dense", n_layers=2,
+                          d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+                          d_ff=128, vocab_size=97, dtype="bfloat16",
+                          param_dtype="float32", norm_plus_one=True,
+                          tie_embeddings=False)
     else:
         cfg = ModelConfig(name="dense_tiny", family="dense", n_layers=2,
                           d_model=64, n_heads=2, n_kv_heads=2, d_ff=64,
@@ -1114,36 +1248,48 @@ def _serve_graph_model(card, arch):
     return cfg, params
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "dense"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "dense", "dense_gqa_bf16"])
 def test_decode_graph_replays_are_eager_decoding(card, arch):
     """``serve.DecodeStep`` on the card captures ``serve_decode`` (caches
     updated in place) and the greedy pick once and replays them: logits,
     tokens and caches bitwise equal to the same steps run eagerly, step
-    after step.  B6's wrapper runs for the warm-up and the capture only, a
-    layer's launch each, and the replays do not pass through it."""
+    after step, while the write index advances.  B6's wrapper (RWKV6) or
+    the decode-attention kernel's (the dense models) runs for the warm-up
+    and the capture only, a layer's launch each, and the replays do not
+    pass through it; the graph's attention layers write their keys and
+    values into the static caches, which never move."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     cfg, params = _serve_graph_model(card, arch)
     sp = T.serving_params(params, cfg)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 21))
-    from repro_torch.kernels.rwkv6_scan import kernel as rk
     graph, eager = serve.DecodeStep(sp, cfg), serve.DecodeStep(
         sp, cfg, graph=False)
     assert graph.graph and not eager.graph
     logits, gc = T.serve_prefill(sp, tokens, cfg, 32)
     ec = gc
     gt = et = serve._greedy(logits)
-    counted = 0
+    counted = {"rwkv6_scan": 0, "decode_attention": 0}
+    ptrs = None
     for _ in range(5):
-        before = rk.LAUNCHES["rwkv6_scan"]
+        before = {"rwkv6_scan": rk.LAUNCHES["rwkv6_scan"],
+                  "decode_attention": da.LAUNCHES["decode_attention"]}
         gl, gt, gc = graph(gc, gt)
-        counted += rk.LAUNCHES["rwkv6_scan"] - before
+        for key, n in before.items():
+            counted[key] += {**rk.LAUNCHES, **da.LAUNCHES}[key] - n
+        if ptrs is None:
+            ptrs = [z.data_ptr() for z in serve._leaves(gc)]
+        assert [z.data_ptr() for z in serve._leaves(gc)] == ptrs
         el, et, ec = eager(ec, et)
         assert torch.equal(gl, el) and torch.equal(gt, et)
         for a, b in zip(serve._leaves(gc), serve._leaves(ec)):
             assert torch.equal(a, b)
     assert graph.captures == 1 and graph.replays == 5
-    assert counted == (2 * cfg.n_layers if arch == "rwkv6-3b" else 0)
+    rwkv = arch == "rwkv6-3b"
+    assert counted == {"rwkv6_scan": 2 * cfg.n_layers if rwkv else 0,
+                       "decode_attention": 0 if rwkv else 2 * cfg.n_layers}
 
 
 def test_a_decode_capture_that_fails_raises(card, monkeypatch):
@@ -1223,6 +1369,13 @@ def test_decode_graph_device_spans_and_counters(card):
     assert 0.95 <= share <= 1.01, share
     assert counted == by_eager
     assert counted["moe.slots"] == 2 * 32 * cfg.moe.n_experts
+    # each attention layer's one launch of the decode-attention kernel, at
+    # the split count of its shapes
+    from repro_torch.kernels.decode_attention import kernel as da
+    splits = da.split_count(32, cfg.n_kv_heads, 1, 264, cfg.hd, 2,
+                            da._sm_count(card))
+    assert counted["attention.decode_kernel_calls"] == 2
+    assert counted["attention.decode_splits"] == 2 * splits
     assert counted["moe.pairs_kept"] == 2 * 32 * cfg.moe.top_k
     assert tracer.counters["serve.cache_load_bytes"] > 0
 
@@ -2077,6 +2230,8 @@ MESH_KERNELS = {
     "mamba_scan": ("jamba-v0.1-52b", "mamba_scan.ops", "mamba"),
     "rwkv6_chunked": ("rwkv6-3b", "rwkv6_scan.ops", "rwkv6_chunked"),
     "rwkv6_scan": ("rwkv6-3b", "rwkv6_scan.ops", "rwkv6"),
+    "decode_attention": ("qwen3-4b", "decode_attention.kernel",
+                         "decode_attention"),
 }
 
 
@@ -2100,6 +2255,8 @@ def test_kernel_through_its_local_call_on_a_one_by_one_mesh(card, kernel):
     import importlib
     import torch.distributed as tdist
     from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
     from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.mamba_scan.ref import reference_mamba
     from repro_torch.kernels.rwkv6_scan.ref import (reference_rwkv6,
@@ -2151,6 +2308,8 @@ def test_kernel_through_its_local_call_on_a_one_by_one_mesh(card, kernel):
             _hold(out, reference_attention(*args[:3], causal=args[3],
                                            window=args[4], softcap=args[5],
                                            scale=args[6]), "attention")
+        elif kernel == "decode_attention":
+            _hold(out, reference_decode_attention(*args, **kw), "attention")
         else:
             plain = {"mamba_scan": reference_mamba,
                      "rwkv6_chunked": reference_rwkv6_chunked,
@@ -2182,6 +2341,16 @@ def _op_case(name, dev):
                                                     reference_rwkv6_chunked)
     ops = torch.ops.repro_torch
     rng = np.random.default_rng(len(name))
+    if name.startswith("decode_attention"):
+        from repro_torch.kernels.decode_attention.ref import \
+            reference_decode_attention
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        q = _randn(rng, (2, 1, 4, 64), dtype, dev)
+        k, v = (_randn(rng, (2, 100, 2, 64), dtype, dev) for _ in range(2))
+        idx = torch.tensor(70, dtype=torch.int32, device=dev)
+        return ops.decode_attention, (q, k, v, idx, False, 48, 50.0), (
+            reference_decode_attention(q, k, v, idx, window=48,
+                                       softcap=50.0),)
     if name.startswith("flash_attention"):
         dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
         q = _randn(rng, (2, 4, 100, 64), dtype, dev)
@@ -2212,7 +2381,9 @@ def _op_case(name, dev):
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bf16",
                                   "mamba_scan", "mamba_scan_", "rwkv6_scan",
-                                  "rwkv6_scan_", "rwkv6_chunked"])
+                                  "rwkv6_scan_", "rwkv6_chunked",
+                                  "decode_attention",
+                                  "decode_attention_bf16"])
 def test_custom_op_on_the_card_is_the_kernel(card, name):
     """Each operator on CUDA tensors launches its kernel once a call (the
     dispatcher's CUDA implementation, no fallback), within the existing
@@ -2227,7 +2398,7 @@ def test_custom_op_on_the_card_is_the_kernel(card, name):
     got = got if isinstance(got, tuple) else (got,)
     if name.endswith("_"):              # the state written in place
         got += (args[-1],)
-    kind = "attention" if kernel == "flash_attention" else "scan"
+    kind = "attention" if kernel.endswith("attention") else "scan"
     assert len(got) == len(want)
     for g, w in zip(got, want):
         _hold(g, w, kind)
